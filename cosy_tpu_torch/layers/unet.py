@@ -1,0 +1,280 @@
+"""U-Net ConditionalDecoder, the CFM velocity estimator (the port of the JAX
+package's ``layers/unet.py``, non-causal inference path).
+
+    down_blocks.i = [ResnetBlock1D, [BasicTransformerBlock]*n, Down/Conv]
+    mid_blocks.i  = [ResnetBlock1D, [BasicTransformerBlock]*n]
+    up_blocks.i   = [ResnetBlock1D, [BasicTransformerBlock]*n, Up/Conv]
+    final_block (Block1D), final_proj (1x1 conv), time_mlp
+
+Internals are channels-last (B, T, C), as in the JAX package, so the
+transformer blocks read their rows contiguously.  On CUDA tensors every
+transformer block runs the fused-block kernel chain (``ops/fused_block``).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..config import EstimatorConfig
+from ..ops import masks as M
+from ..ops.fused_block import fused_transformer_block, use_fused_block
+from ..params import P, Spec
+from .attention import diffusers_attention
+from .basic import (conv1d_nwc, conv_transpose1d_nwc, dense, gelu, group_norm_nwc,
+                    layer_norm, mish, silu)
+from .posenc import timestep_embedding
+
+
+def _mul_mask(x: torch.Tensor, mask) -> torch.Tensor:
+    """x * mask, or x unchanged when mask is None (all frames valid)."""
+    return x if mask is None else x * mask
+
+
+def block1d(p: P, name: str, x: torch.Tensor, mask, frames_valid=None) -> torch.Tensor:
+    """Conv3 + GroupNorm(8) + Mish, masked before and after; x (B, T, C),
+    mask (B, T, 1) or None."""
+    sp = p.sub(name)
+    h = conv1d_nwc(sp, "block.0", _mul_mask(x, mask), padding=1)
+    if frames_valid is not None:
+        h = group_norm_nwc(sp, "block.1", _mul_mask(h, mask), num_groups=8,
+                           frames_valid=frames_valid)
+    else:
+        h = group_norm_nwc(sp, "block.1", h, num_groups=8)
+    return _mul_mask(mish(h), mask)
+
+
+def resnet_block1d(p: P, name: str, x: torch.Tensor, mask, t: torch.Tensor,
+                   frames_valid=None) -> torch.Tensor:
+    """ResNet block with timestep conditioning; x (B, T, C), t (B, time_embed_dim)."""
+    sp = p.sub(name)
+    h = block1d(sp, "block1", x, mask, frames_valid)
+    h = h + dense(sp, "mlp.1", mish(t))[:, None, :]
+    h = block1d(sp, "block2", h, mask, frames_valid)
+    return h + conv1d_nwc(sp, "res_conv", _mul_mask(x, mask))
+
+
+def feed_forward(p: P, name: str, x: torch.Tensor, act_fn: str,
+                 gelu_approximate: bool = True) -> torch.Tensor:
+    """diffusers FeedForward: net.0 = activation with projection, net.2 = Linear."""
+    sp = p.sub(name)
+    h = dense(sp, "net.0.proj", x)
+    if act_fn in ("gelu", "gelu-approximate"):
+        h = gelu(h, approximate=gelu_approximate or act_fn == "gelu-approximate")
+    elif act_fn == "geglu":
+        h, gate = h.chunk(2, dim=-1)
+        h = h * gelu(gate)
+    else:
+        raise ValueError(f"unported act_fn {act_fn}")
+    return dense(sp, "net.2", h)
+
+
+def basic_transformer_block(
+    p: P,
+    name: str,
+    x: torch.Tensor,  # (B, T, C)
+    attn_bias: Optional[torch.Tensor],
+    heads: int,
+    act_fn: str,
+    gelu_approximate: bool = True,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """attn1 + ff with norm1/norm3.  CUDA tensors take the fused-block kernel
+    chain whenever ``use_fused_block`` allows; CPU tensors run the unfused
+    layer sequence."""
+    sp = p.sub(name)
+    if use_fused_block(x, act_fn, None if attn_bias is None else attn_bias.ndim, window):
+        wq = sp["attn1.to_q.weight"]
+        return fused_transformer_block(
+            x.contiguous(), attn_bias,
+            sp["norm1.weight"], sp["norm1.bias"],
+            wq, sp["attn1.to_k.weight"], sp["attn1.to_v.weight"],
+            sp["attn1.to_out.0.weight"], sp["attn1.to_out.0.bias"],
+            sp["norm3.weight"], sp["norm3.bias"],
+            sp["ff.net.0.proj.weight"], sp["ff.net.0.proj.bias"],
+            sp["ff.net.2.weight"], sp["ff.net.2.bias"],
+            heads=heads, scale=(wq.shape[0] // heads) ** -0.5,
+            gelu_approximate=gelu_approximate or act_fn == "gelu-approximate")
+
+    h = layer_norm(sp, "norm1", x)
+    x = x + diffusers_attention(sp, "attn1", h, attn_bias, heads, window=window)
+    h = layer_norm(sp, "norm3", x)
+    return x + feed_forward(sp, "ff", h, act_fn, gelu_approximate)
+
+
+def _level_bias(mask: torch.Tensor, T_full: int, prompt_lens, dtype) -> torch.Tensor:
+    """(B, T_l, T_l) additive attention bias: padding plus prompt isolation,
+    the prompt length rescaled to the level (max(1, p * T_l // T_full))."""
+    B, T_l, _ = mask.shape
+    valid = mask.bool()[:, :, 0]
+    bias = M.mask_to_bias(valid[:, None, :], dtype).expand(B, T_l, T_l)
+    if prompt_lens is not None:
+        iso = []
+        for pl in torch.as_tensor(prompt_lens).reshape(-1).tolist():
+            scaled = max(1, (int(pl) * T_l) // T_full) if pl > 0 else 0
+            iso.append(M.prompt_isolation_bias(T_l, scaled, dtype, mask.device))
+        bias = bias + torch.stack(iso)
+    return bias.contiguous()
+
+
+def conditional_decoder(
+    p: P,
+    cfg: EstimatorConfig,
+    x: torch.Tensor,  # (B, 80, T) noisy sample
+    mask,  # (B, 1, T) float valid mask, or None == all frames valid
+    mu: torch.Tensor,  # (B, 80, T)
+    t: torch.Tensor,  # (B,) timestep in [0, 1]
+    spks: torch.Tensor,  # (B, 80)
+    cond: torch.Tensor,  # (B, 80, T)
+    prompt_lens=None,  # (B,) ints, 0 = no isolation
+    frames_valid=None,  # (B,) true frame counts (masked GroupNorm statistics)
+) -> torch.Tensor:
+    """Velocity field estimate (B, 80, T).  ``mask=None`` is the dense path
+    (no masking multiplies, no padding bias); it equals an all-ones mask."""
+    B, _, T = x.shape
+    if T % 2:
+        raise ValueError("estimator time axis must be a multiple of 2")
+    dtype = x.dtype
+
+    temb = timestep_embedding(t, cfg.in_channels).to(dtype)
+    sp_t = p.sub("time_mlp")
+    temb = dense(sp_t, "linear_2", silu(dense(sp_t, "linear_1", temb)))
+
+    spks_t = spks[:, None, :].expand(B, T, spks.shape[1]).to(dtype)
+    h = torch.cat([x.transpose(1, 2), mu.transpose(1, 2), spks_t,
+                   cond.transpose(1, 2)], dim=-1)  # (B, T, 320)
+    if mask is not None:
+        mask = mask.transpose(1, 2)  # (B, T, 1)
+
+    n_levels = len(cfg.channels)
+    if mask is None and prompt_lens is not None:
+        mask = torch.ones((B, T, 1), dtype=dtype, device=x.device)
+    if mask is None:
+        level_masks = [None] * n_levels
+        level_bias = [None] * n_levels
+    else:
+        level_masks = [mask]
+        for _ in range(n_levels - 1):
+            level_masks.append(level_masks[-1][:, ::2, :])
+        level_bias = [_level_bias(m, T, prompt_lens, dtype) for m in level_masks]
+    if frames_valid is None:
+        level_valid = [None] * n_levels
+    else:
+        level_valid = [torch.as_tensor(frames_valid, device=x.device).reshape(-1)]
+        for _ in range(n_levels - 1):
+            level_valid.append((level_valid[-1] + 1) // 2)
+    if cfg.attn_window:
+        level_lens = [T]
+        for _ in range(n_levels - 1):
+            level_lens.append(-(-level_lens[-1] // 2))
+        level_window = [
+            w if (level_bias[lv] is None and w < level_lens[lv]) else None
+            for lv, w in enumerate(max(1, (cfg.attn_window * T_l) // T)
+                                   for T_l in level_lens)]
+    else:
+        level_window = [None] * n_levels
+
+    def run_transformers(prefix, ht, lvl):
+        for j in range(cfg.n_blocks):
+            ht = basic_transformer_block(
+                p, f"{prefix}.{j}", ht, level_bias[lvl], cfg.num_heads, cfg.act_fn,
+                cfg.gelu_approximate, window=level_window[lvl])
+        return ht
+
+    hiddens = []
+    for i in range(n_levels):
+        m = level_masks[i]
+        h = resnet_block1d(p, f"down_blocks.{i}.0", h, m, temb, level_valid[i])
+        h = run_transformers(f"down_blocks.{i}.1", h, i)
+        hiddens.append(h)
+        if i < n_levels - 1:
+            h = conv1d_nwc(p, f"down_blocks.{i}.2.conv", _mul_mask(h, m), stride=2,
+                           padding=1)
+        else:
+            h = conv1d_nwc(p, f"down_blocks.{i}.2", _mul_mask(h, m), padding=1)
+
+    mid = n_levels - 1
+    m = level_masks[mid]
+    for i in range(cfg.num_mid_blocks):
+        h = resnet_block1d(p, f"mid_blocks.{i}.0", h, m, temb, level_valid[mid])
+        h = run_transformers(f"mid_blocks.{i}.1", h, mid)
+
+    for i in range(n_levels):
+        lvl = n_levels - 1 - i
+        m = level_masks[lvl]
+        skip = hiddens.pop()
+        h = torch.cat([h[:, : skip.shape[1], :], skip], dim=-1)
+        h = resnet_block1d(p, f"up_blocks.{i}.0", h, m, temb, level_valid[lvl])
+        h = run_transformers(f"up_blocks.{i}.1", h, lvl)
+        if i < n_levels - 1:
+            h = conv_transpose1d_nwc(p, f"up_blocks.{i}.2.conv", _mul_mask(h, m),
+                                     stride=2, padding=1)
+        else:
+            h = conv1d_nwc(p, f"up_blocks.{i}.2", _mul_mask(h, m), padding=1)
+
+    m = level_masks[0]
+    h = block1d(p, "final_block", h, m, level_valid[0])
+    out = conv1d_nwc(p, "final_proj", _mul_mask(h, m))
+    return _mul_mask(out, mask).transpose(1, 2)  # (B, 80, T)
+
+
+def init_conditional_decoder(spec: Spec, prefix: str, cfg: EstimatorConfig):
+    """Names and shapes of the JAX package's ``init_conditional_decoder``
+    (non-causal)."""
+    pre = prefix + "." if prefix else ""
+    ted = cfg.time_embed_dim
+    spec.linear(pre + "time_mlp.linear_1", cfg.in_channels, ted)
+    spec.linear(pre + "time_mlp.linear_2", ted, ted)
+
+    def resnet(name, dim_in, dim_out):
+        spec.linear(f"{name}.mlp.1", ted, dim_out)
+        spec.conv1d(f"{name}.block1.block.0", dim_in, dim_out, 3)
+        spec.norm(f"{name}.block1.block.1", dim_out)
+        spec.conv1d(f"{name}.block2.block.0", dim_out, dim_out, 3)
+        spec.norm(f"{name}.block2.block.1", dim_out)
+        spec.conv1d(f"{name}.res_conv", dim_in, dim_out, 1)
+
+    def tblock(name, dim):
+        inner = cfg.num_heads * cfg.attention_head_dim
+        spec.norm(f"{name}.norm1", dim)
+        spec.norm(f"{name}.norm3", dim)
+        for qkv in ("to_q", "to_k", "to_v"):
+            spec.linear(f"{name}.attn1.{qkv}", dim, inner, bias=False)
+        spec.linear(f"{name}.attn1.to_out.0", inner, dim)
+        ff_inner = dim * 4
+        spec.linear(f"{name}.ff.net.0.proj", dim,
+                    ff_inner * 2 if cfg.act_fn == "geglu" else ff_inner)
+        spec.linear(f"{name}.ff.net.2", ff_inner, dim)
+
+    n_levels = len(cfg.channels)
+    out_ch = cfg.in_channels
+    for i in range(n_levels):
+        in_ch, out_ch = out_ch, cfg.channels[i]
+        resnet(f"{pre}down_blocks.{i}.0", in_ch, out_ch)
+        for j in range(cfg.n_blocks):
+            tblock(f"{pre}down_blocks.{i}.1.{j}", out_ch)
+        if i < n_levels - 1:
+            spec.conv1d(f"{pre}down_blocks.{i}.2.conv", out_ch, out_ch, 3)
+        else:
+            spec.conv1d(f"{pre}down_blocks.{i}.2", out_ch, out_ch, 3)
+
+    for i in range(cfg.num_mid_blocks):
+        resnet(f"{pre}mid_blocks.{i}.0", cfg.channels[-1], cfg.channels[-1])
+        for j in range(cfg.n_blocks):
+            tblock(f"{pre}mid_blocks.{i}.1.{j}", cfg.channels[-1])
+
+    rev = tuple(reversed(cfg.channels)) + (cfg.channels[0],)
+    for i in range(len(rev) - 1):
+        in_ch, out_ch = rev[i] * 2, rev[i + 1]
+        resnet(f"{pre}up_blocks.{i}.0", in_ch, out_ch)
+        for j in range(cfg.n_blocks):
+            tblock(f"{pre}up_blocks.{i}.1.{j}", out_ch)
+        if i < len(rev) - 2:
+            spec.conv_transpose1d(f"{pre}up_blocks.{i}.2.conv", out_ch, out_ch, 4)
+        else:
+            spec.conv1d(f"{pre}up_blocks.{i}.2", out_ch, out_ch, 3)
+
+    spec.conv1d(f"{pre}final_block.block.0", rev[-1], rev[-1], 3)
+    spec.norm(f"{pre}final_block.block.1", rev[-1])
+    spec.conv1d(f"{pre}final_proj", rev[-1], cfg.out_channels, 1)

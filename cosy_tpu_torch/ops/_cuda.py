@@ -1,0 +1,132 @@
+"""Build and load the hand-written Hopper kernels.
+
+The CUDA C++ sources under ``cosy_tpu_torch/csrc/`` are compiled at first use
+with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into one shared library
+per source (all ``nvcc`` processes started together) and loaded with
+``ctypes``: a plain C interface builds in seconds, where a PyTorch extension
+takes minutes.  The libraries go to the git-ignored ``build/cosy_tpu_torch/``
+beside the package, named by a hash of the sources and flags, so an edited
+source rebuilds and an unchanged one is reused.
+
+Nothing here runs at import: the CPU tests import every module, and this
+machine class has no ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, List
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cosy_tpu_torch"
+SOURCES = ("flash_attention.cu", "fused_block.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+# codes of csrc/common.cuh ``enum DType``; fp16 is refused (the -1e10
+# attention bias overflows it)
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+_vp = ctypes.c_void_p
+_i = ctypes.c_int
+_f = ctypes.c_float
+# argtypes of every C entry point (pointers and the stream as c_void_p so
+# ctypes never truncates them to 32 bits)
+SIGNATURES = {
+    "cosy_flash_attention": ("flash_attention.cu", [
+        _i, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i,
+        ctypes.POINTER(ctypes.c_longlong), _f, _vp]),
+    "cosy_layer_norm": ("fused_block.cu", [
+        _i, _i, _i, _vp, _vp, _vp, _vp, _i, _i, _f, _vp]),
+    "cosy_gemm": ("fused_block.cu", [
+        _i, _i, _i, _vp, _vp, _vp, _vp, _i, _vp, _vp, _vp, _i, _i, _i, _i, _vp]),
+}
+
+_lock = threading.Lock()
+_functions: Dict[str, object] = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on the "
+                           "machine with the GPU, from cosy_tpu_torch/csrc")
+    return path
+
+
+def _library_path(source: str) -> Path:
+    h = hashlib.sha1()
+    for f in sorted(CSRC.glob("*.cuh")) + [CSRC / source]:
+        h.update(f.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:12]}.so"
+
+
+def build() -> List[Path]:
+    """Compile every source whose library is missing, one ``nvcc`` per
+    source, all started together.  Returns the library paths; raises with
+    nvcc's output if a build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    jobs = []
+    for source in SOURCES:
+        out = _library_path(source)
+        if out.exists():
+            continue
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
+        jobs.append((source, out, tmp,
+                     subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for source, out, tmp, proc in jobs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"--- {source} (rc {proc.returncode})\n{log}")
+            continue
+        os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return [_library_path(s) for s in SOURCES]
+
+
+def function(name: str):
+    """The ctypes function ``name`` with its argtypes set, building and
+    loading its library on first use."""
+    fn = _functions.get(name)
+    if fn is not None:
+        return fn
+    with _lock:
+        if name not in _functions:
+            source, argtypes = SIGNATURES[name]
+            path = _library_path(source)
+            if not path.exists():
+                build()
+            fn = getattr(ctypes.CDLL(str(path)), name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _functions[name] = fn
+    return _functions[name]
+
+
+def check(err: int, what: str):
+    """Raise if a C entry point returned a non-zero cudaError_t (a refused
+    launch never runs, and a later synchronize would not report it)."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
