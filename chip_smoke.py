@@ -18,16 +18,29 @@ Phases, each fatal on failure (nothing is caught and passed over):
      just before and read just after: every kernel of the path must have
      run, and the fused block exactly 64 x NFE times;
   6. where the time goes: one estimator call at the main path's shape under
-     torch.profiler (device busy share, device time by kernel).
+     torch.profiler (device busy share, device time by kernel);
+  7. the windowed long-utterance configuration: full-width synthesis of 1485
+     seeded speech tokens (2558 mel frames, NFE 20) through
+     TTSPipeline.token2wav with attn_window = 256, counters reset before and
+     read after: banded attention (kernel C) exactly 64 x NFE times and no
+     fused block; then the same tokens with full attention, both flow times
+     and the relative difference of the two mels;
+  8. the joint LoRA training step at full width: JointTrainer in joint mode,
+     bf16 compute, 3 steps on one seeded super-batch (accumulation 2 x batch
+     8, 250 mel frames): finite losses, a gradient, a falling loss, base
+     weights bit-identical, no kernel launched, and merged weights that
+     synthesize.
 It prints a JSON "kernels" line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Without CUDA, or outside a checkout of the
 repository, it exits non-zero before printing any result.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -42,18 +55,21 @@ import numpy as np  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from cosy_tpu_torch import ops  # noqa: E402
-from cosy_tpu_torch.config import InferenceConfig, ModelConfig  # noqa: E402
+from cosy_tpu_torch.config import InferenceConfig, ModelConfig, TrainConfig  # noqa: E402
 from cosy_tpu_torch.infer.pipeline import TTSPipeline  # noqa: E402
 from cosy_tpu_torch.layers.unet import conditional_decoder  # noqa: E402
-from cosy_tpu_torch.models.flow import init_flow_params  # noqa: E402
+from cosy_tpu_torch.models.flow import Flow, flow_inference, init_flow_params  # noqa: E402
 from cosy_tpu_torch.models.hift import init_hift_params  # noqa: E402
-from cosy_tpu_torch.models.llm import init_llm_params  # noqa: E402
+from cosy_tpu_torch.models.llm import TransformerLM, init_llm_params  # noqa: E402
 from cosy_tpu_torch.ops import _cuda  # noqa: E402
-from cosy_tpu_torch.ops.flash_attention import flash_attention, flash_attention_ref  # noqa: E402
+from cosy_tpu_torch.ops.flash_attention import (banded_attention,  # noqa: E402
+                                                banded_attention_ref, flash_attention,
+                                                flash_attention_ref)
 from cosy_tpu_torch.ops.fused_block import (fused_transformer_block,  # noqa: E402
                                             fused_transformer_block_ref, gemm, gemm_ref,
                                             layer_norm_rows, layer_norm_rows_ref)
-from cosy_tpu_torch.params import P  # noqa: E402
+from cosy_tpu_torch.params import P, load_torch_checkpoint  # noqa: E402
+from cosy_tpu_torch.train.trainer import JointTrainer  # noqa: E402
 
 DEV = torch.device("cuda")
 # H100 SXM data-sheet peaks (dense): f32 on the CUDA cores, bf16 on the
@@ -142,6 +158,46 @@ def attention_case(g, B, H, T, S, dtype, masked=True, iters=20):
     bms, by = bound(4 * B * H * T * S * 64, nbytes(q, k, v, got, bias, kv), dtype)
     return dict(err=err, ok=ok, tol=tol, ms=ms, plain_ms=plain, library_ms=lib,
                 bound_ms=bms, bound_by=by)
+
+
+# ---------------------------------------------------------------------------
+# kernel C: banded attention
+# ---------------------------------------------------------------------------
+
+
+def banded_case(g, B, H, T, window, dtype, kv=None, iters=10):
+    """Kernel C against its plain version on the rows t < k_valid[b] (the
+    others have no defined value), with the plain version, SDPA under the
+    band as a boolean mask, and kernel A under the band as a bias timed on
+    the same inputs.  The bound counts the admitted (t, s) pairs of this
+    call's band and k_valid."""
+    q, k, v = (torch.randn(B, H, T, 64, device=DEV, generator=g).to(dtype) for _ in range(3))
+    k_valid = None if kv is None else torch.tensor(kv, dtype=torch.int32, device=DEV)
+    scale = 64 ** -0.5
+    got = banded_attention(q, k, v, scale, window, k_valid)
+    torch.cuda.synchronize()
+    want = banded_attention_ref(q, k, v, scale, window, k_valid)
+    pos = torch.arange(T, device=DEV)
+    ok = ((pos[:, None] - pos[None, :]).abs() <= window)[None].expand(B, T, T)
+    if k_valid is not None:
+        rows = (pos[None, :] < k_valid[:, None])[:, None, :, None]
+        got_c, want_c = got * rows, want * rows
+        ok = ok & (pos[None, None, :] < k_valid[:, None, None])
+    else:
+        got_c, want_c = got, want
+    err, good, tol = compare("attention", got_c, want_c, dtype)
+    good = good and bool(torch.isfinite(got).all())
+    pairs = int(ok.sum().item())
+    bias = torch.where(ok, 0.0, -1e10).to(dtype).contiguous()
+    ms = cuda_ms(lambda: banded_attention(q, k, v, scale, window, k_valid), iters)
+    plain = cuda_ms(lambda: banded_attention_ref(q, k, v, scale, window, k_valid),
+                    max(2, iters // 4))
+    lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=ok[:, None],
+                                                         scale=scale), iters)
+    a_ms = cuda_ms(lambda: flash_attention(q, k, v, bias, scale), iters)
+    bms, by = bound(4 * H * pairs * 64, nbytes(q, k, v, got, k_valid), dtype)
+    return dict(err=err, ok=good, tol=tol, ms=ms, plain_ms=plain, library_ms=lib,
+                kernel_a_ms=a_ms, bound_ms=bms, bound_by=by)
 
 
 # ---------------------------------------------------------------------------
@@ -254,31 +310,23 @@ def gemm_case(g, M, K, seg, nseg=1, bias=False, gelu=None, residual=False, iters
                 bound_ms=bms, bound_by=by)
 
 
-def where_time_goes(est, ecfg, T):
-    """Device busy share and device time by kernel for one estimator call
-    (B=2, T frames, the last one padding), from torch.profiler's CUDA
-    events; wall time on the host clock around the call."""
+def profile_device(fn):
+    """Run ``fn`` once under torch.profiler.  Returns (wall ms on the host
+    clock around the call and a synchronize, device busy ms as the union of
+    the kernels' time ranges, {kernel name: (launches, device ms)}); busy is
+    None when the profiler recorded no device events."""
     from torch.profiler import ProfilerActivity, profile
 
-    gen = torch.Generator(device=DEV).manual_seed(7)
-    x, mu, cond = (torch.randn(2, 80, T, device=DEV, generator=gen) for _ in range(3))
-    mask = torch.ones(2, 1, T, device=DEV)
-    mask[:, :, T - 1:] = 0.0
-    args = (x, mask, mu, torch.rand(2, device=DEV, generator=gen),
-            torch.randn(2, 80, device=DEV, generator=gen), cond)
-    with torch.inference_mode():
-        conditional_decoder(est, ecfg, *args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            conditional_decoder(est, ecfg, *args)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+        wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
-        log(f"  wall {wall_ms:.3f} ms; the profiler recorded no device events")
-        return
+        return wall_ms, None, {}
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
     for s, e in spans[1:]:
@@ -292,13 +340,217 @@ def where_time_goes(est, ecfg, T):
     for e in kernels:
         n, tot = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, tot + (e.time_range.end - e.time_range.start) / 1e3)
-    with torch.inference_mode():
-        plain_wall = cuda_ms(lambda: conditional_decoder(est, ecfg, *args), 3)
-    log(f"  wall {wall_ms:.3f} ms profiled ({plain_wall:.3f} ms without the profiler), "
-        f"device busy {busy:.3f} ms, idle share {1 - busy / plain_wall:.3f} of the "
-        f"unprofiled wall, {len(kernels)} kernel launches")
-    for n, (cnt, tot) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]:
+    return wall_ms, busy, by_name
+
+
+def log_profile(wall_ms, plain_wall_ms, busy, by_name, top=10):
+    if busy is None:
+        log(f"  wall {wall_ms:.3f} ms; the profiler recorded no device events")
+        return
+    log(f"  wall {wall_ms:.3f} ms profiled ({plain_wall_ms:.3f} ms without the profiler), "
+        f"device busy {busy:.3f} ms, idle share {1 - busy / plain_wall_ms:.3f} of the "
+        f"unprofiled wall, {sum(n for n, _ in by_name.values())} kernel launches")
+    for n, (cnt, tot) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]:
         log(f"  {tot:9.3f} ms {100 * tot / busy:5.1f}% x{cnt:<5d} {n[:90]}")
+
+
+def estimator_args(T, masked, seed=7):
+    """Inputs of one estimator call at CFG batch 2; ``masked`` marks the
+    last frame as padding (mask and (B, T, T) bias, as an odd mel length)."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    x, mu, cond = (torch.randn(2, 80, T, device=DEV, generator=gen) for _ in range(3))
+    mask = None
+    if masked:
+        mask = torch.ones(2, 1, T, device=DEV)
+        mask[:, :, T - 1:] = 0.0
+    return (x, mask, mu, torch.rand(2, device=DEV, generator=gen),
+            torch.randn(2, 80, device=DEV, generator=gen), cond)
+
+
+def where_time_goes(est, ecfg, T, masked=True):
+    """Device busy share and device time by kernel for one estimator call
+    (B=2, T frames), from torch.profiler's CUDA events; wall time on the
+    host clock around the call."""
+    args = estimator_args(T, masked)
+    with torch.inference_mode():
+        conditional_decoder(est, ecfg, *args)
+        wall_ms, busy, by_name = profile_device(lambda: conditional_decoder(est, ecfg, *args))
+        plain_wall = cuda_ms(lambda: conditional_decoder(est, ecfg, *args), 3)
+    log_profile(wall_ms, plain_wall, busy, by_name)
+
+
+def windowed_synthesis(cfg, llm, flow, hift, n_tokens=1485, window=256):
+    """Phase 7.  Returns the launch counts of the windowed run."""
+    log(f"[7] windowed long-utterance synthesis: {n_tokens} seeded speech tokens through "
+        f"TTSPipeline.token2wav, attn_window = {window} against full attention")
+    T_mel = int(n_tokens / cfg.flow.input_frame_rate * 22050 / 256)
+    nfe = 20
+    if T_mel % 2 or T_mel <= 500:
+        raise SystemExit(f"chip_smoke: {T_mel} mel frames would pad (mask, no window) or cut NFE")
+    est_w = dataclasses.replace(cfg.flow.estimator, attn_window=window)
+    cfg_w = dataclasses.replace(cfg, flow=dataclasses.replace(cfg.flow, estimator=est_w))
+    tokens = np.random.default_rng(8).integers(0, cfg.flow.vocab_size, (1, n_tokens))
+    spk = np.random.default_rng(9).standard_normal((1, cfg.flow.spk_embed_dim)).astype(np.float32)
+    out = {}
+    for name, c in (("windowed", cfg_w), ("full", cfg)):
+        pipe = TTSPipeline(c, llm, flow, hift, finetuned_norm=True)
+        ops.reset_launch_counts()
+        with torch.inference_mode():
+            wav = pipe.token2wav(tokens, spk, generator=torch.Generator(device=DEV).manual_seed(10))
+        out[name] = (ops.launch_counts(), dict(pipe.stage_seconds), wav)
+        log(f"  {name}: stages (s) " + ", ".join(f"{k} {v:.3f}" for k, v in pipe.stage_seconds.items())
+            + f"; waveform {wav.shape}, finite {bool(np.isfinite(wav).all())}; "
+            f"launches {out[name][0]}")
+        if wav.shape != (1, 256 * T_mel) or not np.isfinite(wav).all():
+            raise SystemExit(f"chip_smoke: {name} synthesis output has the wrong shape or is not finite")
+    cw, cf = out["windowed"][0], out["full"][0]
+    if cw["banded_attention"] != 64 * nfe or cw["fused_transformer_block"] != 0 \
+            or cw["flash_attention"] != 0:
+        raise SystemExit(f"chip_smoke: windowed launch counts {cw} off 64 x NFE {nfe} of kernel C")
+    if cf["fused_transformer_block"] != 64 * nfe or cf["banded_attention"] != 0:
+        raise SystemExit(f"chip_smoke: full-attention launch counts {cf} off 64 x NFE {nfe}")
+    # the two mels from one initial noise
+    z = torch.randn((1, 80, T_mel), device=DEV, generator=torch.Generator(device=DEV).manual_seed(10))
+    tok = torch.as_tensor(tokens, dtype=torch.long, device=DEV)
+    none_tok = torch.zeros((1, 0), dtype=torch.long, device=DEV)
+    none_feat = torch.zeros((1, 0, 80), device=DEV)
+    with torch.inference_mode():
+        mels = [flow_inference(P(dict(flow.named_parameters())), c.flow, tok, none_tok, none_feat,
+                               torch.as_tensor(spk, device=DEV), n_timesteps=nfe,
+                               finetuned_norm=True, z=z) for c in (cfg_w, cfg)]
+    rel = ((mels[0] - mels[1]).norm() / mels[1].norm()).item()
+    fw, ff = out["windowed"][1]["flow"], out["full"][1]["flow"]
+    log(f"  flow stage: windowed {fw:.3f} s, full {ff:.3f} s ({ff / fw:.2f}x); relative mel "
+        f"difference ||windowed - full|| / ||full|| = {rel:.4f} ({T_mel} frames, NFE {nfe}, "
+        f"random seeded weights)")
+    if not (np.isfinite(rel) and 0.0 < rel < 1.0):
+        raise SystemExit("chip_smoke: the windowed mel equals the full one or is far from it")
+    est = P(dict(flow.named_parameters())).sub("decoder.estimator")
+    log(f"  one estimator call (B=2, no mask), window {window} against full attention: wall ms "
+        "(CUDA events, 3 calls) and device busy ms (torch.profiler, 1 call)")
+    with torch.inference_mode():
+        for T in (512, 768, 1024, 1280, 1536, 2048, 2558):
+            args = estimator_args(T, masked=False)
+            row = []
+            for ecfg in (est_w, cfg.flow.estimator):
+                call = lambda: conditional_decoder(est, ecfg, *args)  # noqa: E731
+                row += [cuda_ms(call, 3), profile_device(call)[1]]
+            log(f"    T={T:<5d} windowed {row[0]:7.2f} wall {row[1]:7.2f} busy | full "
+                f"{row[2]:7.2f} wall {row[3]:7.2f} busy | full / windowed {row[2] / row[0]:.2f}x "
+                f"wall {row[3] / row[1]:.2f}x busy")
+    log(f"  where the windowed call's time goes (B=2, T={T_mel}, window {window}), torch.profiler")
+    where_time_goes(est, est_w, T_mel, masked=False)
+    return cw
+
+
+def training_steps(cfg, llm, flow, hift, steps=3):
+    """Phase 8."""
+    # the defaults but for the warm-up: with 50 warm-up steps the first
+    # three learning rates are 0, 4e-6 and 8e-6, too small to show a falling
+    # loss in 3 steps
+    tcfg = TrainConfig(warmup_steps=0)
+    accum, B, T = tcfg.accumulate_grad_batches, tcfg.batch_size, tcfg.max_feat_len
+    n_tok, n_text = tcfg.max_token_len, 30
+    log(f"[8] joint LoRA training, full width, bf16 {tcfg.bf16}: {steps} steps on one seeded "
+        f"super-batch (accumulation {accum} x batch {B}, {T} mel frames, {n_tok} speech "
+        f"tokens, {n_text} text tokens), lr {tcfg.learning_rate:g} without warm-up")
+    rng = np.random.default_rng(12)
+    sb = {
+        "text_token": rng.integers(0, cfg.llm.text_token_size, (accum, B, n_text)).astype(np.int32),
+        "text_token_len": np.full((accum, B), n_text, np.int32),
+        "speech_token": rng.integers(0, cfg.llm.speech_token_size, (accum, B, n_tok)).astype(np.int32),
+        "speech_token_len": np.full((accum, B), n_tok, np.int32),
+        "speech_feat": (rng.standard_normal((accum, B, T, 80)) * 2 - 6).astype(np.float32),
+        "speech_feat_len": np.full((accum, B), T, np.int32),
+        "embedding": rng.standard_normal((accum, B, 192)).astype(np.float32),
+    }
+    base = {n: {k: v.clone() for k, v in m.state_dict().items()}
+            for n, m in (("llm", llm), ("flow", flow))}
+    counts0 = ops.launch_counts()
+
+    def run(mode, n):
+        with tempfile.TemporaryDirectory() as tmp:
+            tr = JointTrainer(cfg, dataclasses.replace(tcfg, training_mode=mode), llm, flow,
+                              out_dir=tmp, total_steps=1000)
+            state = tr.init_state(torch.Generator(device=DEV).manual_seed(13))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            hist, secs = [], []
+            for _ in range(n):
+                t0 = time.perf_counter()
+                m = tr.step(state, sb, torch.Generator(device=DEV).manual_seed(14))
+                hist.append({k: float(v) for k, v in m.items()})  # waits for the device
+                secs.append(time.perf_counter() - t0)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            merged = None
+            if mode == "joint":
+                tr.export_merged(state, save=True)
+                merged = {n: load_torch_checkpoint(os.path.join(tmp, f"{n}_merged_joint.pt"))
+                          for n in ("llm", "flow")}
+                with open(os.path.join(tmp, "flow_merged_joint.pt.meta.json")) as f:
+                    if json.load(f)["mel_space"] != "normalized":
+                        raise SystemExit("chip_smoke: merged flow weights lack their mel-space note")
+        return hist, secs, peak, merged, sum(v.numel() for d in state.loras.values() for v in d.values())
+
+    hist, secs, peak, merged, n_lora = run("joint", steps)
+    for i, m in enumerate(hist):
+        log(f"  step {i + 1}: " + " ".join(f"{k}={v:.5f}" for k, v in sorted(m.items()))
+            + f" ({secs[i]:.3f} s)")
+    log(f"  {n_lora / 1e6:.2f} M adapter params; seconds per step after the first: "
+        f"{np.mean(secs[1:]):.3f}; peak device memory {peak:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated)")
+    if not all(np.isfinite(v) for m in hist for v in m.values()):
+        raise SystemExit("chip_smoke: a training metric is not finite")
+    if not hist[0]["grad_norm"] > 0:
+        raise SystemExit("chip_smoke: no gradient reached the adapters")
+    if not hist[-1]["loss"] < hist[0]["loss"]:
+        raise SystemExit(f"chip_smoke: the loss did not fall on the repeated batch: "
+                         f"{[m['loss'] for m in hist]}")
+    for n, m in (("llm", llm), ("flow", flow)):
+        if not all(torch.equal(v, base[n][k]) for k, v in m.state_dict().items()):
+            raise SystemExit(f"chip_smoke: training changed the {n} base weights")
+    if ops.launch_counts() != counts0:
+        raise SystemExit(f"chip_smoke: training launched a kernel: {counts0} -> {ops.launch_counts()}")
+    log(f"  base weights bit-identical; kernel launch counts unchanged: {counts0}")
+    del base
+
+    llm2, flow2 = TransformerLM(cfg.llm, DEV), Flow(cfg.flow, DEV)
+    llm2.load_state_dict(merged["llm"], strict=True)
+    flow2.load_state_dict(merged["flow"], strict=True)
+    moved = sum(int(not torch.equal(v, flow.state_dict()[k])) for k, v in flow2.state_dict().items())
+    pipe = TTSPipeline(cfg, llm2, flow2, hift, InferenceConfig(min_token_text_ratio=4.0),
+                       finetuned_norm=True)
+    ids = np.random.default_rng(15).integers(0, 256, (1, 8)).astype(np.int64)
+    wav = next(pipe.synthesize(ids, max_len_cap=40, seed=16))["tts_speech"]
+    log(f"  merged weights ({moved} flow tensors changed by the merge) load into TTSPipeline: "
+        f"waveform {wav.shape}, finite {bool(np.isfinite(wav).all())}")
+    if moved == 0 or wav.shape[1] == 0 or not np.isfinite(wav).all():
+        raise SystemExit("chip_smoke: the merged weights did not change or did not synthesize")
+    del llm2, flow2, pipe, merged
+    torch.cuda.empty_cache()
+
+    counts0 = ops.launch_counts()  # the merged-weights synthesis launched kernels
+    for mode in ("llm_only", "flow_only"):
+        h, sec, pk, _, _ = run(mode, 2)
+        log(f"  {mode}: loss {h[0]['loss']:.5f} -> {h[1]['loss']:.5f}, second step {sec[1]:.3f} s, "
+            f"peak {pk:.2f} GiB")
+        if not all(np.isfinite(v) for m in h for v in m.values()):
+            raise SystemExit(f"chip_smoke: a {mode} metric is not finite")
+    if ops.launch_counts() != counts0:
+        raise SystemExit("chip_smoke: training launched a kernel")
+    log("  where a joint step's time goes (one more step, torch.profiler)")
+    with tempfile.TemporaryDirectory() as tmp:
+        tr = JointTrainer(cfg, tcfg, llm, flow, out_dir=tmp, total_steps=1000)
+        state = tr.init_state(torch.Generator(device=DEV).manual_seed(13))
+
+        def one():
+            float(tr.step(state, sb, torch.Generator(device=DEV).manual_seed(14))["loss"])
+
+        one()
+        wall_ms, busy, by_name = profile_device(one)
+        t0 = time.perf_counter()
+        one()
+        log_profile(wall_ms, (time.perf_counter() - t0) * 1e3, busy, by_name, top=8)
 
 
 def report(name, r):
@@ -306,6 +558,8 @@ def report(name, r):
         f" | kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
         + (f"library {r['library_ms']:.4f} ms" if r["library_ms"] is not None
            else f"library none (unfused library calls {r['unfused_ms']:.4f} ms)")
+        + (f", kernel A with a band bias {r['kernel_a_ms']:.4f} ms"
+           if "kernel_a_ms" in r else "")
         + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     if not r["ok"]:
         raise SystemExit(f"chip_smoke: {name} disagrees with its plain version")
@@ -339,7 +593,44 @@ def main():
             log(f"  refused {what} on CUDA: {e}")
         else:
             raise SystemExit(f"chip_smoke: kernel A accepted {what}")
+    q = torch.zeros((1, 1, 8, 64), device=DEV)
+    n0 = banded_attention.launches
+    for what, call, exc in (
+            ("fp16", lambda: banded_attention(q.half(), q.half(), q.half(), 1.0, 2), TypeError),
+            ("head dim 32", lambda: banded_attention(q[..., :32], q[..., :32], q[..., :32], 1.0, 2),
+             ValueError),
+            ("S != T", lambda: banded_attention(q, q[:, :, :4], q[:, :, :4], 1.0, 2), ValueError),
+            ("an input that requires a gradient",
+             lambda: banded_attention(q.clone().requires_grad_(True), q, q, 1.0, 2), RuntimeError)):
+        try:
+            call()
+        except exc as e:
+            log(f"  kernel C refused {what} on CUDA: {e}")
+        else:
+            raise SystemExit(f"chip_smoke: kernel C accepted {what}")
+    if banded_attention.launches != n0:
+        raise SystemExit("chip_smoke: kernel C launched on a refused input")
     for dtype in (torch.float32, torch.bfloat16):
+        # the windowed path's shapes, the aligned shapes beside them, a
+        # ragged T with a short k_valid, a window covering T, and a narrow
+        # window whose k_valid leaves whole query tiles without a key
+        dn = str(dtype)[6:]
+        # phase 7's own shapes first: 1485 tokens give 2558 mel frames, so
+        # the path launches C at T = 2558 (window 256) and, most often, at
+        # T/2 = 1279 (window 128); both end in a ragged query and key tile
+        report(f"C main path (2,8,2558,64) window 256 {dn}",
+               banded_case(g, 2, 8, 2558, 256, dtype))
+        r = banded_case(g, 2, 8, 1279, 128, dtype)
+        report(f"C main path (2,8,1279,64) window 128 {dn}", r)
+        if dtype == torch.float32:
+            main_c = r
+        report(f"C (2,8,2560,64) window 256 {dn}", banded_case(g, 2, 8, 2560, 256, dtype))
+        report(f"C (2,8,1280,64) window 128 {dn}", banded_case(g, 2, 8, 1280, 128, dtype))
+        report(f"C (2,8,2307,64) window 256 k_valid [2307,1811] {dn}",
+               banded_case(g, 2, 8, 2307, 256, dtype, kv=[2307, 1811]))
+        report(f"C (2,8,200,64) window 4096 >= T {dn}", banded_case(g, 2, 8, 200, 4096, dtype))
+        report(f"C (2,8,150,64) window 3 k_valid [150,9] {dn}",
+               banded_case(g, 2, 8, 150, 3, dtype, kv=[150, 9]))
         for T in (207, 414, 1024, 2580):
             report(f"A (2,8,{T},64) {str(dtype)[6:]} bias+k_valid+masked row",
                    attention_case(g, 2, 8, T, T, dtype, iters=20 if T < 2000 else 5))
@@ -434,9 +725,13 @@ def main():
         "(B=2, T=312, valid 311), torch.profiler")
     where_time_goes(est, cfg.flow.estimator, 312)
 
-    def entry(name, source, replaces, r):
+    counts_w = windowed_synthesis(cfg, llm, flow, hift)
+    training_steps(cfg, llm, flow, hift)
+
+    def entry(name, source, replaces, r, launches=None):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": counts[name], "max_abs_err": r["err"], "ms": r["ms"],
+                "launches": counts[name] if launches is None else launches,
+                "max_abs_err": r["err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
 
@@ -449,6 +744,10 @@ def main():
               "cosy_tpu/ops/fused_block.py:49", main_ln),
         entry("gemm", "cosy_tpu_torch/csrc/fused_block.cu",
               "cosy_tpu/ops/fused_block.py:51", main_gemm),
+        # launches on the windowed path (phase 7); times at its T/2 level
+        entry("banded_attention", "cosy_tpu_torch/csrc/flash_attention.cu",
+              "cosy_tpu/ops/flash_attention.py:275", main_c,
+              launches=counts_w["banded_attention"]),
     ]
     log(f"  run took {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

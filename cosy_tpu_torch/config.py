@@ -1,9 +1,11 @@
 """Configuration dataclasses for the PyTorch port.
 
-A copy of the topology and inference dataclasses of the JAX package's
-``config.py`` (the port imports nothing of that package).  Defaults are the
-CosyVoice-300M shapes; ``tiny_model_config`` is the toy topology the CPU
-tests use.  Training configs arrive with the training slice.
+A copy of the topology, LoRA, training and inference dataclasses of the JAX
+package's ``config.py`` (the port imports nothing of that package).
+Defaults are the CosyVoice-300M shapes; ``tiny_model_config`` is the toy
+topology the CPU tests use.  ``TrainConfig`` leaves out the mesh-axis and
+PRNG-implementation fields: the port trains on one device with a
+``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -65,8 +67,8 @@ class EstimatorConfig:
     # kept configurable for bit-parity experiments.
     gelu_approximate: bool = True
     # opt-in local-band estimator attention (±attn_window frames, halved per
-    # U-Net level); banded attention is not ported yet, so the port raises
-    # for a window on CUDA tensors and applies it as a band bias on the CPU
+    # U-Net level): inference only, on levels without an attention bias;
+    # kernel C (ops/flash_attention.banded_attention) on CUDA tensors
     attn_window: Optional[int] = None
 
     @property
@@ -202,6 +204,120 @@ class ModelConfig:
     mel_mean: float = -6.0  # reference: config.py:241
     mel_std: float = 2.0  # reference: config.py:242
     mel_pad_value: float = -11.5
+
+
+@dataclass(frozen=True)
+class LoRAConfig:
+    """LoRA hyperparameters (reference: config.py:88-101, 195-216)."""
+
+    r: int = 8
+    alpha: int = 16
+    dropout: float = 0.05
+    target_modules: Tuple[str, ...] = (
+        "linear_q", "linear_k", "linear_v", "linear_out", "w_1", "w_2")
+
+    @property
+    def scaling(self) -> float:
+        return self.alpha / self.r
+
+
+LLM_LORA_DEFAULT = LoRAConfig(
+    r=8, alpha=16, dropout=0.15,
+    target_modules=("linear_q", "linear_k", "linear_v", "linear_out", "w_1", "w_2"),
+)
+
+FLOW_LORA_DEFAULT = LoRAConfig(
+    r=16, alpha=32, dropout=0.05,
+    target_modules=("to_q", "to_k", "to_v", "linear_q", "linear_k", "linear_v",
+                    "w_1", "w_2"),
+)
+
+
+@dataclass(frozen=True)
+class AntiLeakageConfig:
+    """Anti-semantic-leakage strategies (reference: config.py:108-145)."""
+
+    silence_padding_enabled: bool = False
+    silence_token_id: int = 0
+    silence_min_tokens: int = 5
+    silence_max_tokens: int = 10
+    silence_mel_value: float = -11.5
+
+    dynamic_prompt_enabled: bool = True
+    prompt_min_ratio: float = 0.05
+    prompt_max_ratio: float = 0.20
+
+    prompt_dropout_enabled: bool = True
+    prompt_dropout_prob: float = 0.25
+
+    boundary_loss_enabled: bool = True
+    boundary_frames: int = 25
+    boundary_loss_weight: float = 5.0
+
+    cross_sample_enabled: bool = True
+    cross_sample_prob: float = 0.85
+
+    text_blinding_enabled: bool = True
+    text_blinding_prob: float = 0.95
+
+
+@dataclass(frozen=True)
+class NoPromptConfig:
+    """Reference: config.py:155-170."""
+
+    enabled: bool = False
+    mode: str = "full"  # full | mixed
+    no_prompt_ratio: float = 0.8
+    use_mean_embedding: bool = False
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Joint training config (reference: config.py:179-224)."""
+
+    training_mode: str = "joint"  # joint | llm_only | flow_only
+    llm_loss_weight: float = 2.0
+    flow_loss_weight: float = 1.0
+    no_prompt_training: bool = True
+
+    learning_rate: float = 2e-4
+    min_learning_rate: float = 1e-6
+    weight_decay: float = 0.01
+    warmup_steps: int = 50
+    # warmup_cosine | warmuplr | constantlr | cosine_annealing |
+    # square_annealing | squareroot_annealing | noam_annealing |
+    # noamhold_annealing (train/schedules.py)
+    scheduler: str = "warmup_cosine"
+    scheduler_hold_steps: int = 0  # noamhold_annealing only
+    scheduler_decay_rate: float = 0.5  # noamhold_annealing only
+    scheduler_d_model: int = 1024  # noam_annealing only
+    max_epochs: int = 100
+    # the reference's effective batch of 16 as 8 samples x 2 accumulation
+    # micro-batches
+    batch_size: int = 8
+    accumulate_grad_batches: int = 2
+    gradient_clip_val: float = 1.0
+    max_feat_len: int = 250  # mel frames; padded/truncated statically
+
+    # loss-threshold early stop (reference: train_joint.py:58-103)
+    llm_loss_threshold: float = 1.5
+    flow_loss_threshold: float = 0.3
+    early_stop_patience: int = 10
+    early_stop_min_delta: float = 0.001
+
+    # base weights and activations bf16, adapters and optimizer state f32
+    bf16: bool = True
+    seed: int = 1986
+
+    llm_lora: LoRAConfig = field(default_factory=lambda: LLM_LORA_DEFAULT)
+    flow_lora: LoRAConfig = field(default_factory=lambda: FLOW_LORA_DEFAULT)
+    anti_leakage: AntiLeakageConfig = field(default_factory=AntiLeakageConfig)
+    no_prompt: NoPromptConfig = field(default_factory=NoPromptConfig)
+
+    @property
+    def max_token_len(self) -> int:
+        # speech tokens at 50 Hz vs mel at 22050/256 Hz: ratio ~1/1.72
+        return int(self.max_feat_len / (22050.0 / 256.0 / 50.0)) + 1
 
 
 @dataclass(frozen=True)

@@ -27,6 +27,23 @@
 // tiles for QK^T and 8x4 for PV.  Nothing is written to device memory but
 // the output; the score tile never leaves shared memory.  wgmma/TMA tiles
 // are later work.
+//
+// Kernel C: banded (windowed) self-attention, the kBanded instantiation of the
+// same kernel.  Replaces the Pallas kernel of banded_attention
+// (cosy_tpu/ops/flash_attention.py:313, kernel _make_banded_kernel :275): a
+// query attends keys with |t - s| <= window and s < k_valid[b]; no bias;
+// S == T.  The TPU kernel loads three Bq-wide key tiles (previous, own, next)
+// per query block, because a block spec names whole tiles, and masks the rest
+// by position.  Here a block walks only the keys of
+// [q0 - window, q0 + 63 + window] & [0, min(T, k_valid[b])) in 32-key tiles,
+// so no clamped duplicate tile exists and no fully masked tile is loaded; a
+// key inside the walked range but outside a row's band has its score
+// REPLACED by -1e10, as in the Pallas kernel.  The walk shortens the work to
+// 4*B*H*T*(2*window+1)*d flops, still bound by operations on the CUDA cores.
+// A row with no admissible key (t >= k_valid[b] + window, discarded by the
+// caller) gives the finite average over the keys its block walked, or 0 when
+// the block walked none; the Pallas kernel averages over its three padded
+// tiles there.
 #include "common.cuh"
 
 namespace cosy {
@@ -40,12 +57,12 @@ struct Strides {  // element strides of the (b, h, t) axes; d is contiguous
   long long qb, qh, qt, kb, kh, kt, vb, vh, vt, ob, oh, ot;
 };
 
-template <typename T, int D>
+template <typename T, int D, bool kBanded>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const T* __restrict__ bias,
                        const int* __restrict__ k_valid, T* __restrict__ out,
-                       int H, int Tq, int S, Strides st, float scale) {
+                       int H, int Tq, int S, Strides st, float scale, int window) {
   static_assert(D == 64, "thread mapping assumes a head dim of 64");
   __shared__ float Qs[kBQ][D + 1];
   __shared__ float Ks[kBKV][D + 1];
@@ -59,6 +76,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int h = blockIdx.y % H;
   const int q0 = blockIdx.x * kBQ;
   const int kv = k_valid != nullptr ? k_valid[b] : S;
+  // keys this block walks: all of [0, S), or the band's reach of this q tile
+  // cut at the valid keys (global positions; no overflow for window <= S)
+  const int s_begin = kBanded ? max(0, q0 - window) : 0;
+  const int s_end = kBanded ? min(min(S, kv), q0 + kBQ + window) : S;
 
   const T* qp = q + b * st.qb + h * st.qh;
   const T* kp = k + b * st.kb + h * st.kh;
@@ -84,12 +105,12 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
-  for (int s0 = 0; s0 < S; s0 += kBKV) {
+  for (int s0 = s_begin; s0 < s_end; s0 += kBKV) {
     __syncthreads();  // Q is loaded / the previous tile's PV is done
     for (int i = tid; i < kBKV * D; i += kThreads) {
       const int r = i / D, c = i % D, s = s0 + r;
       float kk = 0.f, vv = 0.f;
-      if (s < S) {
+      if (s < s_end) {
         kk = to_f(kp[s * st.kt + c]);
         vv = to_f(vp[s * st.vt + c]);
       }
@@ -122,12 +143,13 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < 4; ++j) {
         const int s = s0 + sc0 + j;
         float val;
-        if (s >= S) {
+        if (s >= s_end) {
           val = -INFINITY;  // not a key: excluded, never averaged in
         } else {
           val = sc[i][j] * scale;
           if (bp != nullptr && t < Tq) val += to_f(bp[(long long)t * S + s]);
           if (s >= kv) val = kNegBias;
+          if (kBanded && abs(t - s) > window) val = kNegBias;
         }
         Ps[sr0 + i][sc0 + j] = val;
       }
@@ -188,15 +210,39 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
+template <typename T, bool kBanded>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* bias,
                    const int* k_valid, void* out, int B, int H, int Tq, int S,
-                   const Strides& st, float scale, cudaStream_t stream) {
+                   const Strides& st, float scale, int window, cudaStream_t stream) {
   const dim3 grid((Tq + kBQ - 1) / kBQ, B * H);
-  flash_attention_kernel<T, 64><<<grid, kThreads, 0, stream>>>(
+  flash_attention_kernel<T, 64, kBanded><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(bias), k_valid, static_cast<T*>(out), H, Tq, S, st, scale);
+      static_cast<const T*>(bias), k_valid, static_cast<T*>(out), H, Tq, S, st, scale,
+      window);
   return cudaGetLastError();
+}
+
+template <bool kBanded>
+int dispatch(int dtype, const void* q, const void* k, const void* v, const void* bias,
+             const int* k_valid, void* out, int B, int H, int T, int S, int d,
+             const long long* strides, float scale, int window, void* stream) {
+  if (d != 64 || B <= 0 || H <= 0 || T <= 0 || S <= 0 || B * H > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Strides st{strides[0], strides[1], strides[2], strides[3],
+                   strides[4], strides[5], strides[6], strides[7],
+                   strides[8], strides[9], strides[10], strides[11]};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype == kF32) {
+    err = launch<float, kBanded>(q, k, v, bias, k_valid, out, B, H, T, S, st, scale,
+                                 window, s);
+  } else if (dtype == kBF16) {
+    err = launch<__nv_bfloat16, kBanded>(q, k, v, bias, k_valid, out, B, H, T, S, st,
+                                         scale, window, s);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -211,19 +257,20 @@ extern "C" int cosy_flash_attention(int dtype, const void* q, const void* k,
                                     const int* k_valid, void* out, int B, int H,
                                     int T, int S, int d, const long long* strides,
                                     float scale, void* stream) {
-  if (d != 64 || B <= 0 || H <= 0 || T <= 0 || S <= 0 || B * H > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cosy::Strides st{strides[0], strides[1], strides[2], strides[3],
-                         strides[4], strides[5], strides[6], strides[7],
-                         strides[8], strides[9], strides[10], strides[11]};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == cosy::kF32) {
-    err = cosy::launch<float>(q, k, v, bias, k_valid, out, B, H, T, S, st, scale, s);
-  } else if (dtype == cosy::kBF16) {
-    err = cosy::launch<__nv_bfloat16>(q, k, v, bias, k_valid, out, B, H, T, S, st, scale, s);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  return cosy::dispatch<false>(dtype, q, k, v, bias, k_valid, out, B, H, T, S, d,
+                               strides, scale, 0, stream);
+}
+
+// Kernel C.  q/k/v/out as above with S == T; no bias; a key is admitted when
+// |t - s| <= window and s < k_valid[b] (k_valid null = T).  ``window`` is
+// clamped to T (every key in reach), which keeps the position arithmetic in
+// int range.  Returns a cudaError_t code.
+extern "C" int cosy_banded_attention(int dtype, const void* q, const void* k,
+                                     const void* v, const int* k_valid, void* out,
+                                     int B, int H, int T, int d,
+                                     const long long* strides, float scale,
+                                     int window, void* stream) {
+  if (window < 0) return static_cast<int>(cudaErrorInvalidValue);
+  return cosy::dispatch<true>(dtype, q, k, v, nullptr, k_valid, out, B, H, T, T, d,
+                              strides, scale, window < T ? window : T, stream);
 }

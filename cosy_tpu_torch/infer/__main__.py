@@ -3,13 +3,17 @@
 
     python -m cosy_tpu_torch.infer --text "..." [--device cuda|cpu]
         [--pretrained DIR] [--llm PATH] [--flow PATH] [--output out.wav]
-        [--speed 1.0] [--seed 0] [--tiny]
+        [--speed 1.0] [--seed 0] [--tiny] [--attn-window N]
 
 Weights load from ``DIR/{llm,flow,hift}.pt`` (``--llm`` / ``--flow``
 override with merged fine-tuned weights); without them every model is
 randomly initialized from ``--seed`` (smoke mode: noise out, the whole path
 runs).  No BPE vocabulary ships with the port yet, so the text enters as its
-utf-8 byte ids.
+utf-8 byte ids.  ``--attn-window N`` restricts the estimator's attention to
+the +-N-frame local band (halved per U-Net level; banded-attention kernel C
+on the GPU): a speed/quality trade for long utterances, off by default.  An
+utterance whose mel length is odd is padded and masked, and a level with a
+mask keeps full attention.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ import os
 
 import numpy as np
 
-from ..config import ModelConfig, tiny_model_config
+from ..config import ModelConfig, replace, tiny_model_config
 from ..models.flow import Flow, init_flow_params
 from ..models.hift import HiFT, init_hift_params
 from ..models.llm import TransformerLM, init_llm_params
@@ -75,9 +79,15 @@ def main(argv=None):
     ap.add_argument("--speed", "-s", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--attn-window", type=int, default=None, metavar="N",
+                    help="local-band estimator attention, +-N mel frames "
+                         "(default: full attention)")
     args = ap.parse_args(argv)
 
     cfg = tiny_model_config() if args.tiny else ModelConfig()
+    if args.attn_window:
+        est = replace(cfg.flow.estimator, attn_window=args.attn_window)
+        cfg = replace(cfg, flow=replace(cfg.flow, estimator=est))
     llm, flow, hift = load_models(cfg, args.pretrained, args.llm, args.flow,
                                   args.device, args.seed)
     pipe = TTSPipeline(cfg, llm, flow, hift, finetuned_norm=True)

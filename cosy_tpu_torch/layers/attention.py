@@ -4,9 +4,12 @@
   pos_bias_u/v and the Transformer-XL rel-shift;
 - ``mha``: vanilla multi-head attention;
 - ``diffusers_attention``: the estimator's to_q/to_k/to_v/to_out.0 attention,
-  which launches flash-attention kernel A on CUDA tensors.
+  which launches flash-attention kernel A, or banded kernel C for a window,
+  on CUDA tensors at inference and runs plain differentiable ops in training.
 
-Masks arrive as additive biases (0 / -1e10); softmax runs in f32.
+Masks arrive as additive biases (0 / -1e10); softmax runs in f32.  The
+``Ctx`` carries the LoRA adapters of the projections and the attention
+dropout of training.
 """
 
 from __future__ import annotations
@@ -16,8 +19,9 @@ from typing import Optional
 
 import torch
 
+from ..ctx import EVAL, Ctx
 from ..ops import masks as M
-from ..ops.flash_attention import flash_attention
+from ..ops.flash_attention import banded_attention, flash_attention
 from ..params import P
 from .basic import dense
 
@@ -56,6 +60,8 @@ def rel_pos_mha(
     pos_emb: torch.Tensor,  # (1, 2T-1, D)
     bias: Optional[torch.Tensor],  # (B, T, T) or (B, 1, T, T) additive
     n_head: int,
+    ctx: Ctx = EVAL,
+    dropout_rate: float = 0.0,
     return_kv: bool = False,
 ):
     """Relative-position multi-head self-attention.  ``return_kv`` also
@@ -63,10 +69,10 @@ def rel_pos_mha(
     cache without recomputing them."""
     sp = p.sub(name)
     d_k = x.shape[-1] // n_head
-    q = _split_heads(dense(sp, "linear_q", x), n_head)
-    k = _split_heads(dense(sp, "linear_k", x), n_head)
-    v = _split_heads(dense(sp, "linear_v", x), n_head)
-    pk = _split_heads(dense(sp, "linear_pos", pos_emb), n_head)[0]  # (h, P, d)
+    q = _split_heads(dense(sp, "linear_q", x, ctx), n_head)
+    k = _split_heads(dense(sp, "linear_k", x, ctx), n_head)
+    v = _split_heads(dense(sp, "linear_v", x, ctx), n_head)
+    pk = _split_heads(dense(sp, "linear_pos", pos_emb, ctx), n_head)[0]  # (h, P, d)
 
     q_u = q + p[name + ".pos_bias_u"].to(x.dtype)[None, :, None, :]
     q_v = q + p[name + ".pos_bias_v"].to(x.dtype)[None, :, None, :]
@@ -78,26 +84,28 @@ def rel_pos_mha(
     scores = (matrix_ac + matrix_bd) / math.sqrt(d_k)
     if bias is not None and bias.ndim == 3:
         bias = bias[:, None]
-    attn = _softmax(scores, bias).to(x.dtype)
-    out = dense(sp, "linear_out", _merge_heads(torch.einsum("bhts,bhsd->bhtd", attn, v)))
+    attn = ctx.dropout(_softmax(scores, bias).to(x.dtype), dropout_rate)
+    out = dense(sp, "linear_out", _merge_heads(torch.einsum("bhts,bhsd->bhtd", attn, v)),
+                ctx)
     if return_kv:
         return out, (k, v)
     return out
 
 
 def mha(p: P, name: str, q_in, k_in, v_in, bias: Optional[torch.Tensor],
-        n_head: int) -> torch.Tensor:
+        n_head: int, ctx: Ctx = EVAL, dropout_rate: float = 0.0) -> torch.Tensor:
     """Vanilla multi-head attention."""
     sp = p.sub(name)
     d_k = q_in.shape[-1] // n_head
-    q = _split_heads(dense(sp, "linear_q", q_in), n_head)
-    k = _split_heads(dense(sp, "linear_k", k_in), n_head)
-    v = _split_heads(dense(sp, "linear_v", v_in), n_head)
+    q = _split_heads(dense(sp, "linear_q", q_in, ctx), n_head)
+    k = _split_heads(dense(sp, "linear_k", k_in, ctx), n_head)
+    v = _split_heads(dense(sp, "linear_v", v_in, ctx), n_head)
     scores = torch.einsum("bhtd,bhsd->bhts", q, k) / math.sqrt(d_k)
     if bias is not None and bias.ndim == 3:
         bias = bias[:, None]
-    attn = _softmax(scores, bias).to(q_in.dtype)
-    return dense(sp, "linear_out", _merge_heads(torch.einsum("bhts,bhsd->bhtd", attn, v)))
+    attn = ctx.dropout(_softmax(scores, bias).to(q_in.dtype), dropout_rate)
+    return dense(sp, "linear_out", _merge_heads(torch.einsum("bhts,bhsd->bhtd", attn, v)),
+                 ctx)
 
 
 def diffusers_attention(
@@ -106,21 +114,37 @@ def diffusers_attention(
     x: torch.Tensor,  # (B, T, D)
     bias: Optional[torch.Tensor],  # (B, T, T) additive, shared across heads
     heads: int,
-    window: Optional[int] = None,
+    ctx: Ctx = EVAL,
+    window: Optional[int] = None,  # local-band attention |t - s| <= window
 ) -> torch.Tensor:
-    """diffusers attention with 1/sqrt(dim_head) scale, through
-    ``flash_attention`` (kernel A on CUDA tensors, its plain version on CPU
-    tensors).  A ``window`` (local-band attention) becomes a band bias on
-    the CPU and raises on CUDA, where the banded kernel is not ported yet."""
+    """diffusers attention with 1/sqrt(dim_head) scale.
+
+    Inference: a ``window`` with no bias goes to ``banded_attention``
+    (kernel C on CUDA tensors, at every T); a window with a bias adds the
+    band bias and goes, like the unwindowed case, to ``flash_attention``
+    (kernel A on CUDA tensors).  CPU tensors get the wrappers' plain
+    versions.  Training (``ctx.train``) runs the einsum-softmax in
+    differentiable torch ops on either device: the kernels have no backward
+    and their wrappers raise on an input that requires a gradient, so
+    inference with un-merged adapters runs under ``torch.no_grad()`` or
+    ``torch.inference_mode()``."""
     sp = p.sub(name)
-    q = _split_heads(dense(sp, "to_q", x), heads)
-    k = _split_heads(dense(sp, "to_k", x), heads)
-    v = _split_heads(dense(sp, "to_v", x), heads)
+    q = _split_heads(dense(sp, "to_q", x, ctx), heads)
+    k = _split_heads(dense(sp, "to_k", x, ctx), heads)
+    v = _split_heads(dense(sp, "to_v", x, ctx), heads)
+    scale = q.shape[-1] ** -0.5
+    T = x.shape[1]
+    plain = ctx.train
+    if window is not None and bias is None and not plain:
+        out = banded_attention(q, k, v, scale, window)
+        return dense(sp, "to_out.0", _merge_heads(out), ctx)
     if window is not None:
-        if x.device.type == "cuda":
-            raise NotImplementedError("banded estimator attention is not ported to CUDA yet")
-        T = x.shape[1]
         band = M.band_bias(T, window, x.dtype, x.device)[None]
-        bias = band.expand(x.shape[0], T, T) if bias is None else bias + band
-    out = flash_attention(q, k, v, bias, q.shape[-1] ** -0.5)
-    return dense(sp, "to_out.0", _merge_heads(out))
+        bias = band.expand(x.shape[0], T, T).contiguous() if bias is None else bias + band
+    if plain:
+        scores = torch.einsum("bhtd,bhsd->bhts", q, k) * scale
+        attn = _softmax(scores, None if bias is None else bias[:, None]).to(x.dtype)
+        out = torch.einsum("bhts,bhsd->bhtd", attn, v)
+    else:
+        out = flash_attention(q, k, v, bias, scale)
+    return dense(sp, "to_out.0", _merge_heads(out), ctx)

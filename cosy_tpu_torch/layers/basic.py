@@ -1,10 +1,13 @@
 """Primitive layers over flat torch-named params.
 
-The port of the JAX package's ``layers/basic.py``, inference only (no LoRA
-delta yet).  Each function reads ``name + ".weight"`` / ``".bias"`` through a
-``P`` view and applies the op with torch semantics.  The ``_nwc`` variants
-take channels-last (B, T, C) activations, the layout the JAX package keeps
-at these functions' boundaries.
+The port of the JAX package's ``layers/basic.py``.  Each function reads
+``name + ".weight"`` / ``".bias"`` through a ``P`` view and applies the op
+with torch semantics.  LoRA adapters are consulted through the ``Ctx``: when
+``ctx.lora`` holds ``<full name>.lora_A`` / ``.lora_B`` (Linear) or
+``.lora_A.weight`` / ``.lora_B.weight`` (1x1 conv), the low-rank delta
+``(drop(x) @ A^T) @ B^T * scale`` is added.  The ``_nwc`` variants take
+channels-last (B, T, C) activations, the layout the JAX package keeps at
+these functions' boundaries.
 """
 
 from __future__ import annotations
@@ -14,14 +17,35 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..ctx import EVAL, Ctx
 from ..params import P
 
 
-def dense(p: P, name: str, x: torch.Tensor) -> torch.Tensor:
-    """torch nn.Linear: weight (out, in), y = x @ W^T + b."""
+def _lora_delta(ctx: Ctx, full_name: str, x: torch.Tensor, conv: bool):
+    """The LoRA delta of a Linear, or of a 1x1 conv on a (B, C, T)
+    activation (adapters stored as (r, in, 1) / (out, r, 1) conv kernels);
+    None when the module has no adapter."""
+    suffix = ".weight" if conv else ""
+    a = ctx.lora.get(full_name + ".lora_A" + suffix)
+    if a is None:
+        return None
+    b = ctx.lora[full_name + ".lora_B" + suffix]
+    xd = ctx.dropout(x, ctx.lora_dropout)
+    if conv:
+        return F.conv1d(F.conv1d(xd, a.to(x.dtype)), b.to(x.dtype)) * ctx.lora_scale
+    return F.linear(F.linear(xd, a.to(x.dtype)), b.to(x.dtype)) * ctx.lora_scale
+
+
+def dense(p: P, name: str, x: torch.Tensor, ctx: Ctx = EVAL) -> torch.Tensor:
+    """torch nn.Linear: weight (out, in), y = x @ W^T + b, plus the LoRA delta."""
     b = p.get(name + ".bias")
-    return F.linear(x, p[name + ".weight"].to(x.dtype),
-                    None if b is None else b.to(x.dtype))
+    y = F.linear(x, p[name + ".weight"].to(x.dtype),
+                 None if b is None else b.to(x.dtype))
+    if ctx.lora is not None:
+        delta = _lora_delta(ctx, p.full(name), x, conv=False)
+        if delta is not None:
+            y = y + delta
+    return y
 
 
 def embedding(p: P, name: str, ids: torch.Tensor,
@@ -32,19 +56,25 @@ def embedding(p: P, name: str, ids: torch.Tensor,
 
 
 def conv1d(p: P, name: str, x: torch.Tensor, stride: int = 1, padding: int = 0,
-           dilation: int = 1, groups: int = 1) -> torch.Tensor:
-    """torch nn.Conv1d on (B, C, T): weight (out, in/groups, k)."""
+           dilation: int = 1, groups: int = 1, ctx: Ctx = EVAL) -> torch.Tensor:
+    """torch nn.Conv1d on (B, C, T): weight (out, in/groups, k); a 1x1
+    ungrouped conv takes a LoRA delta."""
     b = p.get(name + ".bias")
-    return F.conv1d(x, p[name + ".weight"].to(x.dtype),
-                    None if b is None else b.to(x.dtype),
-                    stride=stride, padding=padding, dilation=dilation, groups=groups)
+    w = p[name + ".weight"]
+    y = F.conv1d(x, w.to(x.dtype), None if b is None else b.to(x.dtype),
+                 stride=stride, padding=padding, dilation=dilation, groups=groups)
+    if ctx.lora is not None and w.shape[-1] == 1 and groups == 1:
+        delta = _lora_delta(ctx, p.full(name), x, conv=True)
+        if delta is not None:
+            y = y + delta
+    return y
 
 
 def conv1d_nwc(p: P, name: str, x: torch.Tensor, stride: int = 1, padding: int = 0,
-               dilation: int = 1, groups: int = 1) -> torch.Tensor:
+               dilation: int = 1, groups: int = 1, ctx: Ctx = EVAL) -> torch.Tensor:
     """nn.Conv1d semantics on a channels-last (B, T, C) activation."""
     return conv1d(p, name, x.transpose(1, 2), stride, padding, dilation,
-                  groups).transpose(1, 2)
+                  groups, ctx).transpose(1, 2)
 
 
 def conv_transpose1d(p: P, name: str, x: torch.Tensor, stride: int,

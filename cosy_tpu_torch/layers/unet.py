@@ -1,5 +1,5 @@
 """U-Net ConditionalDecoder, the CFM velocity estimator (the port of the JAX
-package's ``layers/unet.py``, non-causal inference path).
+package's ``layers/unet.py``, non-causal path).
 
     down_blocks.i = [ResnetBlock1D, [BasicTransformerBlock]*n, Down/Conv]
     mid_blocks.i  = [ResnetBlock1D, [BasicTransformerBlock]*n]
@@ -7,8 +7,12 @@ package's ``layers/unet.py``, non-causal inference path).
     final_block (Block1D), final_proj (1x1 conv), time_mlp
 
 Internals are channels-last (B, T, C), as in the JAX package, so the
-transformer blocks read their rows contiguously.  On CUDA tensors every
-transformer block runs the fused-block kernel chain (``ops/fused_block``).
+transformer blocks read their rows contiguously.  At inference on CUDA
+tensors a transformer block runs the fused-block kernel chain
+(``ops/fused_block``), or, on a level with an attention window, plain ops
+around banded-attention kernel C.  Training (``ctx.train``) and un-merged
+LoRA run the unfused differentiable layer sequence, and training drops the
+window.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from typing import Optional
 import torch
 
 from ..config import EstimatorConfig
+from ..ctx import EVAL, Ctx
 from ..ops import masks as M
 from ..ops.fused_block import fused_transformer_block, use_fused_block
 from ..params import P, Spec
@@ -32,11 +37,12 @@ def _mul_mask(x: torch.Tensor, mask) -> torch.Tensor:
     return x if mask is None else x * mask
 
 
-def block1d(p: P, name: str, x: torch.Tensor, mask, frames_valid=None) -> torch.Tensor:
+def block1d(p: P, name: str, x: torch.Tensor, mask, ctx: Ctx = EVAL,
+            frames_valid=None) -> torch.Tensor:
     """Conv3 + GroupNorm(8) + Mish, masked before and after; x (B, T, C),
     mask (B, T, 1) or None."""
     sp = p.sub(name)
-    h = conv1d_nwc(sp, "block.0", _mul_mask(x, mask), padding=1)
+    h = conv1d_nwc(sp, "block.0", _mul_mask(x, mask), padding=1, ctx=ctx)
     if frames_valid is not None:
         h = group_norm_nwc(sp, "block.1", _mul_mask(h, mask), num_groups=8,
                            frames_valid=frames_valid)
@@ -46,20 +52,21 @@ def block1d(p: P, name: str, x: torch.Tensor, mask, frames_valid=None) -> torch.
 
 
 def resnet_block1d(p: P, name: str, x: torch.Tensor, mask, t: torch.Tensor,
-                   frames_valid=None) -> torch.Tensor:
+                   ctx: Ctx = EVAL, frames_valid=None) -> torch.Tensor:
     """ResNet block with timestep conditioning; x (B, T, C), t (B, time_embed_dim)."""
     sp = p.sub(name)
-    h = block1d(sp, "block1", x, mask, frames_valid)
-    h = h + dense(sp, "mlp.1", mish(t))[:, None, :]
-    h = block1d(sp, "block2", h, mask, frames_valid)
-    return h + conv1d_nwc(sp, "res_conv", _mul_mask(x, mask))
+    h = block1d(sp, "block1", x, mask, ctx, frames_valid)
+    h = h + dense(sp, "mlp.1", mish(t), ctx)[:, None, :]
+    h = block1d(sp, "block2", h, mask, ctx, frames_valid)
+    return h + conv1d_nwc(sp, "res_conv", _mul_mask(x, mask), ctx=ctx)
 
 
-def feed_forward(p: P, name: str, x: torch.Tensor, act_fn: str,
-                 gelu_approximate: bool = True) -> torch.Tensor:
-    """diffusers FeedForward: net.0 = activation with projection, net.2 = Linear."""
+def feed_forward(p: P, name: str, x: torch.Tensor, act_fn: str, ctx: Ctx = EVAL,
+                 gelu_approximate: bool = True, dropout: float = 0.0) -> torch.Tensor:
+    """diffusers FeedForward: net.0 = activation with projection, dropout,
+    net.2 = Linear."""
     sp = p.sub(name)
-    h = dense(sp, "net.0.proj", x)
+    h = dense(sp, "net.0.proj", x, ctx)
     if act_fn in ("gelu", "gelu-approximate"):
         h = gelu(h, approximate=gelu_approximate or act_fn == "gelu-approximate")
     elif act_fn == "geglu":
@@ -67,7 +74,7 @@ def feed_forward(p: P, name: str, x: torch.Tensor, act_fn: str,
         h = h * gelu(gate)
     else:
         raise ValueError(f"unported act_fn {act_fn}")
-    return dense(sp, "net.2", h)
+    return dense(sp, "net.2", ctx.dropout(h, dropout), ctx)
 
 
 def basic_transformer_block(
@@ -77,14 +84,17 @@ def basic_transformer_block(
     attn_bias: Optional[torch.Tensor],
     heads: int,
     act_fn: str,
+    ctx: Ctx = EVAL,
     gelu_approximate: bool = True,
+    dropout: float = 0.0,
     window: Optional[int] = None,
 ) -> torch.Tensor:
     """attn1 + ff with norm1/norm3.  CUDA tensors take the fused-block kernel
-    chain whenever ``use_fused_block`` allows; CPU tensors run the unfused
-    layer sequence."""
+    chain whenever ``use_fused_block`` allows (inference without LoRA,
+    dropout or a window); everything else runs the unfused layer sequence."""
     sp = p.sub(name)
-    if use_fused_block(x, act_fn, None if attn_bias is None else attn_bias.ndim, window):
+    if dropout == 0.0 and use_fused_block(
+            x, act_fn, None if attn_bias is None else attn_bias.ndim, window, ctx):
         wq = sp["attn1.to_q.weight"]
         return fused_transformer_block(
             x.contiguous(), attn_bias,
@@ -98,9 +108,9 @@ def basic_transformer_block(
             gelu_approximate=gelu_approximate or act_fn == "gelu-approximate")
 
     h = layer_norm(sp, "norm1", x)
-    x = x + diffusers_attention(sp, "attn1", h, attn_bias, heads, window=window)
+    x = x + diffusers_attention(sp, "attn1", h, attn_bias, heads, ctx, window=window)
     h = layer_norm(sp, "norm3", x)
-    return x + feed_forward(sp, "ff", h, act_fn, gelu_approximate)
+    return x + feed_forward(sp, "ff", h, act_fn, ctx, gelu_approximate, dropout)
 
 
 def _level_bias(mask: torch.Tensor, T_full: int, prompt_lens, dtype) -> torch.Tensor:
@@ -110,11 +120,9 @@ def _level_bias(mask: torch.Tensor, T_full: int, prompt_lens, dtype) -> torch.Te
     valid = mask.bool()[:, :, 0]
     bias = M.mask_to_bias(valid[:, None, :], dtype).expand(B, T_l, T_l)
     if prompt_lens is not None:
-        iso = []
-        for pl in torch.as_tensor(prompt_lens).reshape(-1).tolist():
-            scaled = max(1, (int(pl) * T_l) // T_full) if pl > 0 else 0
-            iso.append(M.prompt_isolation_bias(T_l, scaled, dtype, mask.device))
-        bias = bias + torch.stack(iso)
+        pl = torch.as_tensor(prompt_lens, device=mask.device).reshape(-1).long()
+        scaled = torch.where(pl > 0, torch.clamp((pl * T_l) // T_full, min=1), 0)
+        bias = bias + M.prompt_isolation_bias(T_l, scaled, dtype)
     return bias.contiguous()
 
 
@@ -127,6 +135,7 @@ def conditional_decoder(
     t: torch.Tensor,  # (B,) timestep in [0, 1]
     spks: torch.Tensor,  # (B, 80)
     cond: torch.Tensor,  # (B, 80, T)
+    ctx: Ctx = EVAL,
     prompt_lens=None,  # (B,) ints, 0 = no isolation
     frames_valid=None,  # (B,) true frame counts (masked GroupNorm statistics)
 ) -> torch.Tensor:
@@ -139,7 +148,7 @@ def conditional_decoder(
 
     temb = timestep_embedding(t, cfg.in_channels).to(dtype)
     sp_t = p.sub("time_mlp")
-    temb = dense(sp_t, "linear_2", silu(dense(sp_t, "linear_1", temb)))
+    temb = dense(sp_t, "linear_2", silu(dense(sp_t, "linear_1", temb, ctx)), ctx)
 
     spks_t = spks[:, None, :].expand(B, T, spks.shape[1]).to(dtype)
     h = torch.cat([x.transpose(1, 2), mu.transpose(1, 2), spks_t,
@@ -164,7 +173,9 @@ def conditional_decoder(
         level_valid = [torch.as_tensor(frames_valid, device=x.device).reshape(-1)]
         for _ in range(n_levels - 1):
             level_valid.append((level_valid[-1] + 1) // 2)
-    if cfg.attn_window:
+    # the window is for inference on levels without a bias; it halves with
+    # each level, and one that covers its level is exactly full attention
+    if cfg.attn_window and cfg.attn_window > 0 and not ctx.train:
         level_lens = [T]
         for _ in range(n_levels - 1):
             level_lens.append(-(-level_lens[-1] // 2))
@@ -179,25 +190,25 @@ def conditional_decoder(
         for j in range(cfg.n_blocks):
             ht = basic_transformer_block(
                 p, f"{prefix}.{j}", ht, level_bias[lvl], cfg.num_heads, cfg.act_fn,
-                cfg.gelu_approximate, window=level_window[lvl])
+                ctx, cfg.gelu_approximate, cfg.dropout, window=level_window[lvl])
         return ht
 
     hiddens = []
     for i in range(n_levels):
         m = level_masks[i]
-        h = resnet_block1d(p, f"down_blocks.{i}.0", h, m, temb, level_valid[i])
+        h = resnet_block1d(p, f"down_blocks.{i}.0", h, m, temb, ctx, level_valid[i])
         h = run_transformers(f"down_blocks.{i}.1", h, i)
         hiddens.append(h)
         if i < n_levels - 1:
             h = conv1d_nwc(p, f"down_blocks.{i}.2.conv", _mul_mask(h, m), stride=2,
-                           padding=1)
+                           padding=1, ctx=ctx)
         else:
-            h = conv1d_nwc(p, f"down_blocks.{i}.2", _mul_mask(h, m), padding=1)
+            h = conv1d_nwc(p, f"down_blocks.{i}.2", _mul_mask(h, m), padding=1, ctx=ctx)
 
     mid = n_levels - 1
     m = level_masks[mid]
     for i in range(cfg.num_mid_blocks):
-        h = resnet_block1d(p, f"mid_blocks.{i}.0", h, m, temb, level_valid[mid])
+        h = resnet_block1d(p, f"mid_blocks.{i}.0", h, m, temb, ctx, level_valid[mid])
         h = run_transformers(f"mid_blocks.{i}.1", h, mid)
 
     for i in range(n_levels):
@@ -205,17 +216,17 @@ def conditional_decoder(
         m = level_masks[lvl]
         skip = hiddens.pop()
         h = torch.cat([h[:, : skip.shape[1], :], skip], dim=-1)
-        h = resnet_block1d(p, f"up_blocks.{i}.0", h, m, temb, level_valid[lvl])
+        h = resnet_block1d(p, f"up_blocks.{i}.0", h, m, temb, ctx, level_valid[lvl])
         h = run_transformers(f"up_blocks.{i}.1", h, lvl)
         if i < n_levels - 1:
             h = conv_transpose1d_nwc(p, f"up_blocks.{i}.2.conv", _mul_mask(h, m),
                                      stride=2, padding=1)
         else:
-            h = conv1d_nwc(p, f"up_blocks.{i}.2", _mul_mask(h, m), padding=1)
+            h = conv1d_nwc(p, f"up_blocks.{i}.2", _mul_mask(h, m), padding=1, ctx=ctx)
 
     m = level_masks[0]
-    h = block1d(p, "final_block", h, m, level_valid[0])
-    out = conv1d_nwc(p, "final_proj", _mul_mask(h, m))
+    h = block1d(p, "final_block", h, m, ctx, level_valid[0])
+    out = conv1d_nwc(p, "final_proj", _mul_mask(h, m), ctx=ctx)
     return _mul_mask(out, mask).transpose(1, 2)  # (B, 80, T)
 
 

@@ -1,14 +1,20 @@
-"""Conditional flow-matching mel decoder, inference (the port of the JAX
-package's ``models/flow.py``): token encoder, length regulator and the
-fixed-step Euler CFM solve with its classifier-free-guidance batch of 2."""
+"""Conditional flow-matching mel decoder (the port of the JAX package's
+``models/flow.py``): token encoder, length regulator, the fixed-step Euler
+CFM solve with its classifier-free-guidance batch of 2, and the training
+forward (OT-CFM loss, no-prompt modes, anti-leakage strategies).
+
+Training draws every random number from an explicit ``torch.Generator`` on
+the tensors' device; each draw can also be passed in (``noise=``,
+``draws=``), so a test can feed both packages the same numbers."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
-from ..config import FlowConfig
+from ..config import AntiLeakageConfig, FlowConfig, NoPromptConfig
+from ..ctx import EVAL, Ctx
 from ..layers.basic import conv1d, dense, embedding, group_norm, mish
 from ..layers.conformer import encoder_forward, init_encoder
 from ..layers.unet import conditional_decoder, init_conditional_decoder
@@ -32,12 +38,20 @@ def interpolate_linear(x: torch.Tensor, out_len: int) -> torch.Tensor:
     return x[..., lo] * (1.0 - w) + x[..., hi] * w
 
 
-def regulator_stack(p: P, x: torch.Tensor, stages: int) -> torch.Tensor:
+def regulator_stack(p: P, x: torch.Tensor, stages: int, ctx: Ctx = EVAL) -> torch.Tensor:
     """Conv3 + GroupNorm(1) + Mish, ``stages`` times, then a 1x1 conv; x (B, C, T)."""
     for s in range(stages):
-        x = conv1d(p, f"model.{3 * s}", x, padding=1)
+        x = conv1d(p, f"model.{3 * s}", x, padding=1, ctx=ctx)
         x = mish(group_norm(p, f"model.{3 * s + 1}", x, num_groups=1))
-    return conv1d(p, f"model.{3 * stages}", x)
+    return conv1d(p, f"model.{3 * stages}", x, ctx=ctx)
+
+
+def length_regulator(p: P, x: torch.Tensor, ylens: torch.Tensor, out_len: int,
+                     stages: int, ctx: Ctx = EVAL) -> torch.Tensor:
+    """Training regulator: (B, T_tok, C) -> (B, out_len, C), masked by ylens."""
+    mask = M.make_non_pad_mask(ylens, out_len)[:, :, None].to(x.dtype)
+    h = interpolate_linear(x.transpose(1, 2), out_len)
+    return regulator_stack(p, h, stages, ctx).transpose(1, 2) * mask
 
 
 def length_regulator_inference(p: P, x1: torch.Tensor, x2: torch.Tensor,
@@ -91,15 +105,242 @@ def cfm_solve_euler(p: P, cfg: FlowConfig, z: torch.Tensor, mask, mu: torch.Tens
     return x.float()
 
 
+def cfm_compute_loss(
+    p: P,
+    cfg: FlowConfig,
+    generator: Optional[torch.Generator],
+    x1: torch.Tensor,  # (B, 80, T) target mel (normalized)
+    mask: torch.Tensor,  # (B, 1, T) valid mask
+    mu: torch.Tensor,  # (B, 80, T) encoder output
+    spks: torch.Tensor,  # (B, 80)
+    cond: torch.Tensor,  # (B, 80, T)
+    ctx: Ctx,
+    prompt_lens: Optional[torch.Tensor] = None,  # (B,) int
+    leak: Optional[AntiLeakageConfig] = None,
+    noise: Optional[tuple] = None,  # (t_uniform (B,1,1), z (B,80,T), cfg_uniform (B,))
+) -> torch.Tensor:
+    """OT-CFM loss with prompt masking and boundary weighting.  ``noise``
+    overrides the three random draws (pre-scheduler t uniform, z and the
+    CFG-dropout uniform), which otherwise come from ``generator``."""
+    B, _, T = x1.shape
+    dev = x1.device
+    leak = leak or AntiLeakageConfig()
+    if noise is not None:
+        t, z, cfg_u = (torch.as_tensor(a, device=dev).to(x1.dtype) for a in noise)
+    else:
+        t = torch.rand((B, 1, 1), generator=generator, device=dev).to(x1.dtype)
+        z = torch.randn(x1.shape, generator=generator, device=dev).to(x1.dtype)
+        cfg_u = torch.rand((B,), generator=generator, device=dev)
+    if cfg.cfm.t_scheduler == "cosine":
+        t = 1.0 - torch.cos(t * 0.5 * PI)
+
+    sigma = cfg.cfm.sigma_min
+    y = (1.0 - (1.0 - sigma) * t) * z + t * x1
+    u = x1 - (1.0 - sigma) * z
+
+    if cfg.cfm.training_cfg_rate > 0:
+        keep = (cfg_u > cfg.cfm.training_cfg_rate).to(x1.dtype)
+        mu = mu * keep[:, None, None]
+        spks = spks * keep[:, None]
+        cond = cond * keep[:, None, None]
+
+    pred = conditional_decoder(p, cfg.estimator, y, mask, mu, t[:, 0, 0], spks, cond,
+                               ctx, prompt_lens=prompt_lens)
+
+    loss_mask = mask
+    if prompt_lens is not None:
+        idx = torch.arange(T, device=dev)[None, :]
+        pl = prompt_lens[:, None]
+        w = torch.where(idx < pl, 0.0, 1.0)
+        if leak.boundary_loss_enabled:
+            in_boundary = (idx >= pl) & (idx < pl + leak.boundary_frames) & (pl > 0)
+            w = torch.where(in_boundary, leak.boundary_loss_weight, w)
+        loss_mask = loss_mask * w[:, None, :].to(mask.dtype)
+
+    # the weight rides INSIDE the square while the denominator is linear:
+    # boundary frames get weight^2 / weight = weight times the emphasis.
+    # That is the reference's formula, kept for loss-curve parity.
+    diff = (pred - u) * loss_mask
+    valid = loss_mask.sum() * u.shape[1]
+    return torch.square(diff).sum() / torch.clamp(valid, min=1.0)
+
+
+def normalize_mel(cfg, mel):
+    return (mel - cfg.mel_mean) / cfg.mel_std
+
+
+def denormalize_mel(cfg, mel):
+    return mel * cfg.mel_std + cfg.mel_mean
+
+
 def flow_encode(p: P, cfg: FlowConfig, token: torch.Tensor,
-                token_len: torch.Tensor) -> torch.Tensor:
+                token_len: torch.Tensor, ctx: Ctx = EVAL) -> torch.Tensor:
     """input_embedding -> conformer encoder -> encoder_proj."""
     tok_mask = M.make_non_pad_mask(token_len, token.shape[1])[:, :, None]
     emb = embedding(p, "input_embedding", token, clamp_min=0)
     emb = emb * tok_mask.to(emb.dtype)
-    h, _ = encoder_forward(p.sub("encoder"), cfg.encoder, emb, token_len,
+    h, _ = encoder_forward(p.sub("encoder"), cfg.encoder, emb, token_len, ctx,
                            xscale=cfg.encoder_xscale, conformer=True)
-    return dense(p, "encoder_proj", h)
+    return dense(p, "encoder_proj", h, ctx)
+
+
+def _draw(draws: Optional[dict], key: str, B: int, generator, device) -> torch.Tensor:
+    """The (B,) uniform draw ``key``: the caller's, or a fresh one."""
+    if draws is not None and key in draws:
+        return torch.as_tensor(draws[key], device=device)
+    return torch.rand((B,), generator=generator, device=device)
+
+
+def flow_forward_train(
+    p: P,
+    cfg: FlowConfig,
+    generator: Optional[torch.Generator],
+    batch: Dict[str, torch.Tensor],
+    ctx: Ctx,
+    leak: AntiLeakageConfig = AntiLeakageConfig(),
+    no_prompt: Union[bool, NoPromptConfig] = False,
+    mel_norm: Optional[Tuple[float, float]] = (-6.0, 2.0),
+    vendored_style: bool = False,
+    noise: Optional[tuple] = None,  # override of cfm_compute_loss's draws
+    draws: Optional[dict] = None,  # override of the strategy draws, by name
+) -> torch.Tensor:
+    """Training forward with the anti-leakage strategies; returns the scalar
+    flow loss.
+
+    batch keys: speech_token (B, T_tok), speech_token_len (B,), speech_feat
+    (B, T, 80), speech_feat_len (B,), embedding (B, 192), optional
+    cross_sample_mel (B, Tc, 80) + cross_sample_mel_len (B,).
+
+    ``no_prompt``: the promptless fine-tune ('full': no prompt at all;
+    'mixed': a short own-mel prompt with probability 1 - no_prompt_ratio).
+    ``vendored_style`` reproduces the stock CosyVoice training instead: no
+    mel normalization, 50% prompt dropout with a prompt of U{0..0.3 len}
+    frames, no prompt-loss masking, boundary weighting or isolation.
+    Otherwise strategies 1 (silence band), 2 (dynamic prompt length), 3
+    (prompt dropout), 5 (cross-sample prompt) and 6 (text blinding) apply.
+
+    ``draws`` names: mixed ``bare_u``, ``plen_u``; vendored ``drop``
+    (bool), ``plen_u``; strategies ``dropout_u``, ``prompt_u``, ``blind_u``,
+    ``sil_tok`` (ints): (B,) each, uniforms in [0, 1)."""
+    if vendored_style:
+        mel_norm = None
+    mean, std = mel_norm if mel_norm is not None else (0.0, 1.0)
+    token = batch["speech_token"].long()
+    token_len = batch["speech_token_len"]
+    feat = (batch["speech_feat"] - mean) / std  # online mel normalization
+    feat_len = batch["speech_feat_len"]
+    B, T, _ = feat.shape
+    dev = feat.device
+
+    spk = dense(p, "spk_embed_affine_layer",
+                _l2_normalize(batch["embedding"].to(feat.dtype), dim=1), ctx)
+    h = flow_encode(p, cfg, token, token_len, ctx)
+    h = length_regulator(p.sub("length_regulator"), h, feat_len, T, cfg.regulator_stages, ctx)
+
+    feat_bc = feat.transpose(1, 2)  # (B, 80, T)
+    mask = M.make_non_pad_mask(feat_len, T)[:, None, :].to(h.dtype)
+    idx = torch.arange(T, device=dev)[None, :]
+    j = feat_len.long()
+    est = p.sub("decoder.estimator")
+
+    def floor_mul(ratio: float) -> torch.Tensor:
+        """int(ratio * j) in f32, the reference's arithmetic."""
+        return (ratio * j.float()).long()
+
+    def loss(conds, prompt_lens):
+        return cfm_compute_loss(est, cfg, generator, feat_bc, mask, h.transpose(1, 2), spk,
+                                conds.transpose(1, 2), ctx, prompt_lens=prompt_lens,
+                                leak=leak, noise=noise)
+
+    if no_prompt:
+        np_cfg = no_prompt if isinstance(no_prompt, NoPromptConfig) else NoPromptConfig()
+        if np_cfg.mode == "mixed":
+            # per sample: no prompt with probability no_prompt_ratio, else a
+            # short prompt ~ randint(1, max(2, 0.1 * len)) of its own mel
+            bare = _draw(draws, "bare_u", B, generator, dev) < np_cfg.no_prompt_ratio
+            top = torch.clamp(floor_mul(0.1), min=2)
+            plen = 1 + (_draw(draws, "plen_u", B, generator, dev) * top).long()
+            plen = torch.where(bare, 0, torch.minimum(plen, top))
+            conds = torch.where((idx < plen[:, None])[:, :, None], feat, 0.0)
+        else:  # 'full': 100% promptless
+            conds = torch.zeros_like(feat)
+            plen = torch.zeros((B,), dtype=torch.long, device=dev)
+        return loss(conds, plen)
+
+    if vendored_style:
+        drop = (torch.as_tensor(draws["drop"], device=dev).bool()
+                if draws is not None and "drop" in draws
+                else torch.rand((B,), generator=generator, device=dev) < 0.5)
+        # randint(0, int(0.3 * len)) is inclusive: uniform over {0..K}
+        k_top = floor_mul(0.3)
+        plen = torch.minimum(
+            (_draw(draws, "plen_u", B, generator, dev) * (k_top + 1)).long(), k_top)
+        plen = torch.where(drop, 0, plen)
+        conds = torch.where((idx < plen[:, None])[:, :, None], feat, 0.0)
+        return loss(conds, None)
+
+    # strategy 3: prompt dropout
+    if leak.prompt_dropout_enabled:
+        dropped = _draw(draws, "dropout_u", B, generator, dev) < leak.prompt_dropout_prob
+    else:
+        dropped = torch.zeros((B,), dtype=torch.bool, device=dev)
+
+    # strategy 2: dynamic prompt length ~ randint[min_idx, max_idx] inclusive
+    if leak.dynamic_prompt_enabled:
+        min_idx = torch.clamp(floor_mul(leak.prompt_min_ratio), min=1)
+        max_idx = torch.maximum(min_idx + 1, floor_mul(leak.prompt_max_ratio))
+        span = max_idx - min_idx + 1
+        prompt_lens = min_idx + (_draw(draws, "prompt_u", B, generator, dev) * span).long()
+    else:
+        prompt_lens = torch.clamp(floor_mul(0.3), min=1)
+
+    # strategy 5: cross-sample prompt source
+    cross_mel = batch.get("cross_sample_mel")
+    if leak.cross_sample_enabled and cross_mel is not None:
+        cross_mel = (cross_mel - mean) / std
+        # the collate pads cross_sample_mel to its own bucket: align it to the
+        # feat length (frames beyond cross_len are never read)
+        Tc = cross_mel.shape[1]
+        if Tc < T:
+            cross_mel = torch.nn.functional.pad(cross_mel, (0, 0, 0, T - Tc))
+        elif Tc > T:
+            cross_mel = cross_mel[:, :T]
+        cross_len = batch["cross_sample_mel_len"].long()
+        use_cross = cross_len > 0
+        prompt_lens = torch.where(use_cross, torch.minimum(prompt_lens, cross_len),
+                                  prompt_lens)
+        prompt_src = torch.where(use_cross[:, None, None], cross_mel.to(feat.dtype), feat)
+    else:
+        prompt_src = feat
+
+    prompt_lens = torch.where(dropped, 0, prompt_lens)
+    in_prompt = idx < prompt_lens[:, None]  # (B, T)
+    conds = torch.where(in_prompt[:, :, None], prompt_src, 0.0)
+    # text blinding (strategy 6) covers the ORIGINAL prompt region only, even
+    # when the recorded prompt_lens gains the silence band
+    in_blind = in_prompt
+
+    # strategy 1: silence isolation band (off by default)
+    if leak.silence_padding_enabled:
+        if draws is not None and "sil_tok" in draws:
+            sil_tok = torch.as_tensor(draws["sil_tok"], device=dev).long()
+        else:
+            sil_tok = torch.randint(leak.silence_min_tokens, leak.silence_max_tokens + 1,
+                                    (B,), generator=generator, device=dev)
+        sil_frames = torch.clamp(sil_tok * 22050 // 256 // cfg.input_frame_rate, 3, 20)
+        fits = (prompt_lens + sil_frames < j) & (prompt_lens > 0)
+        sil_val = (leak.silence_mel_value - mean) / std
+        in_sil = ((idx >= prompt_lens[:, None])
+                  & (idx < (prompt_lens + sil_frames)[:, None]) & fits[:, None])
+        conds = torch.where(in_sil[:, :, None], sil_val, conds)
+        prompt_lens = torch.where(fits, prompt_lens + sil_frames, prompt_lens)
+
+    # strategy 6: text blinding, zero encoder output in the prompt region
+    if leak.text_blinding_enabled:
+        blind = _draw(draws, "blind_u", B, generator, dev) < leak.text_blinding_prob
+        h = torch.where((blind[:, None] & in_blind)[:, :, None], 0.0, h)
+
+    return loss(conds, prompt_lens)
 
 
 def flow_inference(

@@ -1,5 +1,7 @@
-"""Speech-token LLM (TransformerLM), inference: text -> 50 Hz speech tokens
-(the port of the JAX package's ``models/llm.py``).
+"""Speech-token LLM (TransformerLM): text -> 50 Hz speech tokens (the port of
+the JAX package's ``models/llm.py``): the no-prompt training forward
+(``llm_forward_train`` over the dense ``pack_lm_inputs`` layout) and the AR
+decode.
 
 The AR decode keeps a fixed-capacity KV cache per layer and projects every
 layer's positional keys once, before the loop: the Transformer-XL
@@ -12,12 +14,13 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..config import LLMConfig
+from ..ctx import EVAL, Ctx
 from ..layers.attention import _split_heads
 from ..layers.basic import ACT, dense, embedding, layer_norm
 from ..layers.conformer import (encoder_forward, init_encoder, positionwise_ff,
@@ -41,14 +44,137 @@ def _token_embed_legacy(p_llm: P, x: torch.Tensor) -> torch.Tensor:
     return x * math.sqrt(x.shape[-1])
 
 
+IGNORE_ID = -1  # padding label of the LM target
+
+
 def llm_encode_text(p: P, cfg: LLMConfig, text_token: torch.Tensor,
-                    text_len: torch.Tensor) -> torch.Tensor:
+                    text_len: torch.Tensor, ctx: Ctx = EVAL) -> torch.Tensor:
     """text_embedding -> causal conformer -> affine."""
     emb = embedding(p, "text_embedding", text_token)
-    h, _ = encoder_forward(p.sub("text_encoder"), cfg.text_encoder, emb, text_len,
+    h, _ = encoder_forward(p.sub("text_encoder"), cfg.text_encoder, emb, text_len, ctx,
                            decoding_chunk_size=1, num_decoding_left_chunks=-1,
                            conformer=True)
-    return dense(p, "text_encoder_affine_layer", h)
+    return dense(p, "text_encoder_affine_layer", h, ctx)
+
+
+# ---------------------------------------------------------------------------
+# Training forward
+# ---------------------------------------------------------------------------
+
+
+def pack_lm_inputs(
+    p: P,
+    cfg: LLMConfig,
+    text_enc: torch.Tensor,  # (B, Tt, D) encoded text
+    text_len: torch.Tensor,  # (B,)
+    spk_emb: torch.Tensor,  # (B, D) projected speaker embedding
+    speech_emb: torch.Tensor,  # (B, Ts, D)
+    speech_len: torch.Tensor,  # (B,)
+    speech_token: torch.Tensor,  # (B, Ts) int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Build (lm_input (B, S, D), lm_len (B,), lm_target (B, S)) densely,
+    S = 3 + Tt + Ts.  Layout per row:
+
+        input : [sos, spk, text_0..text_{tl-1}, task, sp_0..sp_{sl-1}, pad]
+        target: [IGNORE x (2+tl),              sp_0..sp_{sl-1}, EOS,  IGNORE]
+    """
+    B, Tt, D = text_enc.shape
+    Ts = speech_emb.shape[1]
+    S = 3 + Tt + Ts
+    dt, dev = text_enc.dtype, text_enc.device
+    emb = p["llm_embedding.weight"]
+    sos, task = emb[cfg.sos_eos].to(dt), emb[cfg.task_id].to(dt)
+
+    pos = torch.arange(S, device=dev)[None, :]  # (1, S)
+    tl = text_len.long()[:, None]
+    sl = speech_len.long()[:, None]
+
+    text_idx = torch.clamp(pos - 2, 0, Tt - 1).expand(B, S)
+    speech_idx = torch.clamp(pos - 3 - tl, 0, Ts - 1)
+    g_text = torch.gather(text_enc, 1, text_idx[:, :, None].expand(B, S, D))
+    g_speech = torch.gather(speech_emb, 1, speech_idx[:, :, None].expand(B, S, D))
+
+    is_text = (pos >= 2) & (pos < 2 + tl)
+    is_task = pos == 2 + tl
+    is_speech = (pos > 2 + tl) & (pos < 3 + tl + sl)
+    lm_input = torch.where(is_speech[:, :, None], g_speech, torch.zeros((), dtype=dt, device=dev))
+    lm_input = torch.where(is_task[:, :, None], task[None, None, :], lm_input)
+    lm_input = torch.where(is_text[:, :, None], g_text, lm_input)
+    lm_input = torch.where((pos == 1)[:, :, None], spk_emb[:, None, :].to(dt), lm_input)
+    lm_input = torch.where((pos == 0)[:, :, None], sos[None, None, :], lm_input)
+    lm_len = (3 + tl + sl)[:, 0]
+
+    tgt_idx = torch.clamp(pos - 2 - tl, 0, Ts - 1)
+    g_tok = torch.gather(speech_token.long(), 1, tgt_idx)
+    is_tgt_speech = (pos >= 2 + tl) & (pos < 2 + tl + sl)
+    is_eos = pos == 2 + tl + sl
+    lm_target = torch.where(
+        is_tgt_speech, g_tok,
+        torch.where(is_eos, cfg.speech_token_size, IGNORE_ID))
+    return lm_input, lm_len, lm_target
+
+
+def label_smoothing_loss(
+    logits: torch.Tensor,  # (B, S, V)
+    target: torch.Tensor,  # (B, S) with IGNORE_ID padding
+    smoothing: float = 0.0,
+    normalize_length: bool = True,
+) -> torch.Tensor:
+    """KL(true_dist || softmax(logits)) with label smoothing, summed over
+    the non-ignored positions and divided by their count (or by B)."""
+    B, S, V = logits.shape
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    valid = target != IGNORE_ID
+    tgt = torch.where(valid, target, 0)
+    logp_tgt = torch.gather(logp, 2, tgt[:, :, None])[:, :, 0]
+    if smoothing > 0.0:
+        # kl = sum_v true * (log true - logp), split into target + others
+        confidence = 1.0 - smoothing
+        low = smoothing / (V - 1)
+        ent = confidence * math.log(confidence) + (V - 1) * low * math.log(low)
+        kl = ent - (confidence - low) * logp_tgt - low * logp.sum(dim=-1)
+    else:
+        kl = -logp_tgt
+    kl = torch.where(valid, kl, 0.0)
+    denom = torch.clamp(valid.sum(), min=1) if normalize_length else B
+    return kl.sum() / denom
+
+
+def th_accuracy(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Argmax accuracy over the non-ignored positions."""
+    pred = logits.argmax(dim=-1)
+    valid = target != IGNORE_ID
+    correct = (valid & (pred == target)).sum()
+    return correct / torch.clamp(valid.sum(), min=1)
+
+
+def llm_forward_train(p: P, cfg: LLMConfig, batch: Dict[str, torch.Tensor],
+                      ctx: Ctx) -> Dict[str, torch.Tensor]:
+    """No-prompt training forward.  batch keys: text_token (B, Tt),
+    text_token_len (B,), speech_token (B, Ts), speech_token_len (B,),
+    embedding (B, 192).  Returns {'loss', 'acc'}."""
+    text_len = batch["text_token_len"]
+    speech_token = batch["speech_token"].long()
+    speech_len = batch["speech_token_len"]
+
+    text_enc = llm_encode_text(p, cfg, batch["text_token"].long(), text_len, ctx)
+    spk_emb = dense(p, "spk_embed_affine_layer",
+                    _l2_normalize(batch["embedding"].to(text_enc.dtype), dim=1), ctx)
+    speech_emb = embedding(p, "speech_embedding", speech_token, clamp_min=0)
+
+    lm_input, lm_len, lm_target = pack_lm_inputs(
+        p, cfg, text_enc, text_len, spk_emb, speech_emb, speech_len, speech_token)
+    lm_out, _ = encoder_forward(p.sub("llm"), cfg.llm, lm_input, lm_len, ctx,
+                                conformer=False)
+    logits = dense(p, "llm_decoder", lm_out, ctx)
+    loss = label_smoothing_loss(logits, lm_target, cfg.lsm_weight,
+                                cfg.length_normalized_loss)
+    return {"loss": loss, "acc": th_accuracy(logits, lm_target)}
+
+
+# ---------------------------------------------------------------------------
+# Autoregressive decode
+# ---------------------------------------------------------------------------
 
 
 @dataclass

@@ -6,10 +6,10 @@ from typing import Dict
 
 
 def _wrappers():
-    from .flash_attention import flash_attention
+    from .flash_attention import banded_attention, flash_attention
     from .fused_block import fused_transformer_block, gemm, layer_norm_rows
 
-    return {"flash_attention": flash_attention,
+    return {"flash_attention": flash_attention, "banded_attention": banded_attention,
             "fused_transformer_block": fused_transformer_block,
             "layer_norm_rows": layer_norm_rows, "gemm": gemm}
 

@@ -44,6 +44,9 @@ SIGNATURES = {
     "cosy_flash_attention": ("flash_attention.cu", [
         _i, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i,
         ctypes.POINTER(ctypes.c_longlong), _f, _vp]),
+    "cosy_banded_attention": ("flash_attention.cu", [
+        _i, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i,
+        ctypes.POINTER(ctypes.c_longlong), _f, _i, _vp]),
     "cosy_layer_norm": ("fused_block.cu", [
         _i, _i, _i, _vp, _vp, _vp, _vp, _i, _i, _f, _vp]),
     "cosy_gemm": ("fused_block.cu", [
@@ -122,6 +125,17 @@ def check(err: int, what: str):
     launch never runs, and a later synchronize would not report it)."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def refuse_grad(what: str, *tensors):
+    """Raise when autograd would record through a kernel wrapper: the
+    kernels have no backward, so a tensor that requires a gradient must take
+    the plain torch ops (the training path never enters a kernel)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what} has no backward: an input requires a gradient; training "
+            "runs the plain torch ops (Ctx.train / the gates in layers)")
 
 
 def stream_ptr(t: torch.Tensor) -> int:

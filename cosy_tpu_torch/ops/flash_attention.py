@@ -1,11 +1,17 @@
-"""Flash attention: softmax(scale * QK^T + bias) V with a head-shared bias.
+"""Flash attention: softmax(scale * QK^T + bias) V with a head-shared bias,
+and its banded (windowed) variant.
 
 ``flash_attention`` launches the hand-written CUDA kernel A
 (``csrc/flash_attention.cu``) for CUDA tensors and runs the plain PyTorch
 version, ``flash_attention_ref``, for CPU tensors; any other device raises.
 It is the port of the JAX package's ``ops/flash_attention.py`` Pallas
 kernels (one-tile, q-blocked and streaming): one kernel serves every key
-length.  Banded attention is not ported yet.
+length.  ``banded_attention`` is kernel C, the port of that module's
+``banded_attention``: self-attention over the keys with ``|t - s| <=
+window`` and ``s < k_valid[b]``, with ``banded_attention_ref`` beside it.
+
+The kernels have no backward: every wrapper refuses an input that requires
+a gradient (the training path runs plain torch ops).
 """
 
 from __future__ import annotations
@@ -100,6 +106,7 @@ def flash_attention(
     """Fused attention.  CUDA tensors launch kernel A (strided q/k/v/out
     views are taken as they are, no copies); CPU tensors run the plain
     version; anything else raises."""
+    _cuda.refuse_grad("flash_attention", q, k, v, bias)
     if q.device.type == "cpu":
         res = flash_attention_ref(q, k, v, bias, scale, k_valid)
         if out is None:
@@ -116,3 +123,71 @@ def flash_attention(
 
 
 flash_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel C: banded self-attention
+# ---------------------------------------------------------------------------
+
+
+def banded_attention_ref(q, k, v, scale: float, window: int, k_valid=None) -> torch.Tensor:
+    """Plain PyTorch version, following the Pallas banded kernel's
+    arithmetic: f32 scores; a key outside the band ``|t - s| <= window`` or
+    at ``s >= k_valid[b]`` has its score replaced by -1e10; probabilities
+    rounded to v's type before PV with f32 accumulation; denominator clamped
+    at 1e-30; output in q's type.  A row with no admissible key averages V
+    over all T keys (such rows lie at ``t >= k_valid[b] + window``)."""
+    T = q.shape[2]
+    pos = torch.arange(T, device=q.device)
+    ok = ((pos[:, None] - pos[None, :]).abs() <= window)[None, None]
+    if k_valid is not None:
+        ok = ok & (pos[None, None, None, :] < k_valid.reshape(-1, 1, 1, 1))
+    s = torch.einsum("bhtd,bhsd->bhts", q.float(), k.float()) * scale
+    s = torch.where(ok, s, NEG_BIAS)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.einsum("bhts,bhsd->bhtd", p.to(v.dtype).float(), v.float())
+    return (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
+
+
+def banded_attention(
+    q: torch.Tensor,  # (B, H, T, d)
+    k: torch.Tensor,  # (B, H, T, d): self-attention, S == T
+    v: torch.Tensor,  # (B, H, T, d)
+    scale: float,
+    window: int,  # a query attends the keys with |t - s| <= window
+    k_valid: Optional[torch.Tensor] = None,  # (B,) int32 valid key counts
+) -> torch.Tensor:
+    """Local-band attention.  CUDA tensors launch kernel C (strided views
+    taken as they are; T need not be a multiple of anything; a window >= T
+    is full attention); CPU tensors run the plain version; anything else
+    raises.  Rows ``t >= k_valid[b] + window`` have no admissible key: the
+    kernel and the plain version both give finite values there, not the
+    same ones, and callers discard them."""
+    _cuda.refuse_grad("banded_attention", q, k, v)
+    if q.ndim != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError("banded attention is self-attention: q, k, v must share "
+                         f"one (B, H, T, d) shape, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if int(window) != window or window < 0:
+        raise ValueError(f"window must be a non-negative integer, got {window}")
+    if q.device.type == "cpu":
+        return banded_attention_ref(q, k, v, scale, int(window), k_valid)
+    if q.device.type != "cuda":
+        raise ValueError(f"banded_attention runs on cuda or cpu tensors, got {q.device}")
+    check_kernel_args(q, k, v, None, k_valid)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    B, H, T, d = q.shape
+    strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
+                                       *v.stride()[:3], *out.stride()[:3])
+    fn = _cuda.function("cosy_banded_attention")
+    _cuda.check(fn(_cuda.DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                   _cuda.ptr(k_valid), out.data_ptr(), B, H, T, d, strides,
+                   float(scale), min(int(window), T), _cuda.stream_ptr(q)),
+                "banded_attention")
+    banded_attention.launches += 1
+    return out
+
+
+banded_attention.launches = 0

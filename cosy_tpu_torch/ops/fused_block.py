@@ -20,6 +20,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..ctx import EVAL, Ctx
 from . import _cuda
 from .flash_attention import flash_attention, flash_attention_ref
 
@@ -42,6 +43,7 @@ def layer_norm_rows_ref(x, w, b, out_dtype, eps: float = 1e-5) -> torch.Tensor:
 
 def layer_norm_rows(x, w, b, out_dtype, eps: float = 1e-5) -> torch.Tensor:
     """(rows, C) LayerNorm.  ``x`` is f32 or of the weights' dtype."""
+    _cuda.refuse_grad("layer_norm_rows", x, w, b)
     if x.device.type == "cpu":
         return layer_norm_rows_ref(x, w, b, out_dtype, eps)
     if x.device.type != "cuda":
@@ -97,6 +99,7 @@ def gemm(a, weights, bias=None, residual=None, out_dtype=None,
     dtype; ``gelu`` is None or "tanh" (the kernel's only GELU; the plain
     version also takes "erf")."""
     out_dtype = out_dtype or a.dtype
+    _cuda.refuse_grad("gemm", a, *weights, bias, residual)
     if a.device.type == "cpu":
         return gemm_ref(a, weights, bias, residual, out_dtype, gelu)
     if a.device.type != "cuda":
@@ -183,6 +186,8 @@ def fused_transformer_block(
     """One inference diffusers block: seven kernel launches on CUDA tensors,
     the plain version on CPU tensors.  The kernels' GELU is the tanh
     approximation (the estimator's); erf GELU raises on CUDA."""
+    _cuda.refuse_grad("fused_transformer_block", x, bias, n1w, n1b, wq, wk, wv, wo, bo,
+                      n3w, n3b, w1, b1, w2, b2)
     if x.device.type == "cpu":
         return fused_transformer_block_ref(x, bias, n1w, n1b, wq, wk, wv, wo, bo,
                                            n3w, n3b, w1, b1, w2, b2, heads, scale,
@@ -211,10 +216,12 @@ fused_transformer_block.launches = 0
 
 
 def use_fused_block(x: torch.Tensor, act_fn: str, bias_ndim: Optional[int],
-                    window: Optional[int]) -> bool:
+                    window: Optional[int], ctx: Ctx = EVAL) -> bool:
     """Route basic_transformer_block through the kernel chain: CUDA tensors
-    (the port is inference-only, with no LoRA yet), a GELU activation, a
-    bias that is None or (B, T, T), no attention window.  True at every T:
-    the H100's engage bands are a measurement still to make."""
-    return (x.device.type == "cuda" and act_fn in ("gelu", "gelu-approximate")
+    at inference without LoRA (the chain has no backward and reads the base
+    weights only), a GELU activation, a bias that is None or (B, T, T), no
+    attention window.  True at every T: the H100's engage bands are a
+    measurement still to make."""
+    return (x.device.type == "cuda" and not ctx.train and ctx.lora is None
+            and act_fn in ("gelu", "gelu-approximate")
             and bias_ndim in (None, 3) and window is None)

@@ -55,9 +55,9 @@ def add_optional_chunk_mask(
     """(B, T, T) bool attention mask: padding plus chunk structure, with
     fully masked rows opened up (they would otherwise be all-bias).
 
-    Inference only: the random dynamic-chunk draw of training
-    (``decoding_chunk_size == 0`` with a dynamic chunk) arrives with the
-    training slice and raises here."""
+    The random dynamic-chunk draw of training (``decoding_chunk_size == 0``
+    with ``use_dynamic_chunk``) is not ported and raises: no CosyVoice-300M
+    encoder config sets ``use_dynamic_chunk``."""
     dev = masks.device
     if use_dynamic_chunk:
         if decoding_chunk_size < 0:
@@ -83,12 +83,13 @@ def mask_to_bias(mask: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     return (1.0 - mask.to(dtype)) * NEG_BIAS
 
 
-def prompt_isolation_bias(seq_len: int, prompt_len: int, dtype=torch.float32,
-                          device=None) -> torch.Tensor:
-    """(seq_len, seq_len) additive bias blocking prompt <-> target attention
-    (prompt_len 0 disables)."""
-    idx = torch.arange(seq_len, device=device)
-    in_prompt = idx < prompt_len
-    cross = in_prompt[:, None] != in_prompt[None, :]
-    valid = 0 < prompt_len < seq_len
-    return torch.where(cross & valid, NEG_BIAS, 0.0).to(dtype)
+def prompt_isolation_bias(seq_len: int, prompt_lens: torch.Tensor,
+                          dtype=torch.float32) -> torch.Tensor:
+    """(B, seq_len, seq_len) additive bias blocking prompt <-> target
+    attention, one prompt length per sample; a length of 0, or one that
+    covers the sequence, disables it for that sample."""
+    idx = torch.arange(seq_len, device=prompt_lens.device)
+    in_prompt = idx[None, :] < prompt_lens[:, None]
+    cross = in_prompt[:, :, None] != in_prompt[:, None, :]
+    live = ((prompt_lens > 0) & (prompt_lens < seq_len))[:, None, None]
+    return torch.where(cross & live, NEG_BIAS, 0.0).to(dtype)

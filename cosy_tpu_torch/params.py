@@ -58,6 +58,10 @@ class P:
     def get(self, key: str, default=None):
         return self.d.get(self.prefix + key, default)
 
+    def full(self, key: str) -> str:
+        """The flat name of ``key`` (LoRA adapters are keyed by it)."""
+        return self.prefix + key
+
     def sub(self, key: str) -> "P":
         return P(self.d, self.prefix + key + ".")
 

@@ -36,10 +36,25 @@ def t(x, dtype=torch.float32) -> torch.Tensor:
 
 
 def port_config(jcfg):
-    """The port's copy of a JAX config dataclass, with the same field values."""
-    kw = {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)}
+    """The port's copy of a JAX config dataclass, with the same field values
+    (fields the port's class leaves out, TrainConfig's mesh axis and PRNG
+    implementation, are dropped)."""
+    cls = getattr(TC, type(jcfg).__name__)
+    names = {f.name for f in dataclasses.fields(cls)}
+    kw = {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg) if f.name in names}
     kw = {k: port_config(v) if dataclasses.is_dataclass(v) else v for k, v in kw.items()}
-    return getattr(TC, type(jcfg).__name__)(**kw)
+    return cls(**kw)
+
+
+def grad_agreement(got: dict, want: dict):
+    """(cosine, max relative error) of two gradient dicts over the same
+    keys, each flattened into one vector; the relative error is
+    max|got - want| over max|want|."""
+    assert sorted(got) == sorted(want)
+    g = np.concatenate([np.asarray(got[k], np.float64).ravel() for k in sorted(got)])
+    w = np.concatenate([np.asarray(want[k], np.float64).ravel() for k in sorted(want)])
+    cos = float(g @ w / (np.linalg.norm(g) * np.linalg.norm(w)))
+    return cos, float(np.abs(g - w).max() / np.abs(w).max())
 
 
 def golden_np(name):

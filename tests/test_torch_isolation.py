@@ -17,7 +17,8 @@ def test_import_in_fresh_interpreter_loads_no_jax():
     # the port's doing: only what the import adds counts
     code = ("import sys\nbefore = set(sys.modules)\n"
             "import cosy_tpu_torch, cosy_tpu_torch.infer.pipeline, "
-            "cosy_tpu_torch.infer.__main__\n"
+            "cosy_tpu_torch.infer.__main__, cosy_tpu_torch.train.trainer, "
+            "cosy_tpu_torch.merge, cosy_tpu_torch.lora, cosy_tpu_torch.models.joint\n"
             "bad = sorted(m for m in set(sys.modules) - before if m == 'jax' or "
             "m.startswith('jax.') or m == 'cosy_tpu' or m.startswith('cosy_tpu.'))\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
