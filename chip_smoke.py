@@ -10,7 +10,10 @@ Phases, each fatal on failure (nothing is caught and passed over):
   3. every kernel against its plain PyTorch version on the card, on the same
      inputs, within a stated tolerance, with its time, the plain version's
      time and one library call's time as a yardstick (TF32 off for matmul
-     and cuDNN in every comparison);
+     and cuDNN in every comparison; CUDA-event means of back-to-back calls,
+     and beside them the kernels' own time on the card from torch.profiler
+     (ops/plan_sweep.py device_ms), which leaves out the waits for the host);
+     the plans that split return the same bits on two calls;
   4. one full-width estimator call on the card (kernels) against the same
      call on the CPU (plain versions);
   5. full-width prompt-free CosyVoice-300M synthesis on random seeded
@@ -30,7 +33,8 @@ Phases, each fatal on failure (nothing is caught and passed over):
      8, 250 mel frames): finite losses, a gradient, a falling loss, base
      weights bit-identical, no kernel launched, and merged weights that
      synthesize.
-It prints a JSON "kernels" line, the nvidia-smi line, and last
+It prints a JSON "kernels" line (its times are the on-card ones of phase 3),
+the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Without CUDA, or outside a checkout of the
 repository, it exits non-zero before printing any result.
 """
@@ -62,12 +66,13 @@ from cosy_tpu_torch.models.flow import Flow, flow_inference, init_flow_params  #
 from cosy_tpu_torch.models.hift import init_hift_params  # noqa: E402
 from cosy_tpu_torch.models.llm import TransformerLM, init_llm_params  # noqa: E402
 from cosy_tpu_torch.ops import _cuda  # noqa: E402
-from cosy_tpu_torch.ops.flash_attention import (banded_attention,  # noqa: E402
-                                                banded_attention_ref, flash_attention,
-                                                flash_attention_ref)
-from cosy_tpu_torch.ops.fused_block import (fused_transformer_block,  # noqa: E402
+from cosy_tpu_torch.ops.flash_attention import (_attention_plan,  # noqa: E402
+                                                banded_attention, banded_attention_ref,
+                                                flash_attention, flash_attention_ref)
+from cosy_tpu_torch.ops.fused_block import (_gemm_plan, fused_transformer_block,  # noqa: E402
                                             fused_transformer_block_ref, gemm, gemm_ref,
                                             layer_norm_rows, layer_norm_rows_ref)
+from cosy_tpu_torch.ops.plan_sweep import device_ms  # noqa: E402
 from cosy_tpu_torch.params import P, load_torch_checkpoint  # noqa: E402
 from cosy_tpu_torch.train.trainer import JointTrainer  # noqa: E402
 
@@ -85,6 +90,9 @@ TOL = {
     ("block", torch.bfloat16): (5e-2, 2e-2),
     ("layer_norm", torch.float32): (1e-5, 1e-5),
     ("gemm", torch.float32): (1e-4, 1e-4),
+    # both round one f32 sum to bf16; sums taken in another order can land on
+    # the neighbouring bf16 value, one ulp (2^-8 relative) away
+    ("gemm", torch.bfloat16): (1e-2, 1e-2),
 }
 
 
@@ -157,7 +165,11 @@ def attention_case(g, B, H, T, S, dtype, masked=True, iters=20):
                   iters)
     bms, by = bound(4 * B * H * T * S * 64, nbytes(q, k, v, got, bias, kv), dtype)
     return dict(err=err, ok=ok, tol=tol, ms=ms, plain_ms=plain, library_ms=lib,
-                bound_ms=bms, bound_by=by)
+                bound_ms=bms, bound_by=by,
+                dev_ms=device_ms(lambda: flash_attention(q, k, v, bias, scale, kv)),
+                plain_dev_ms=device_ms(lambda: flash_attention_ref(q, k, v, bias, scale, kv), 3),
+                lib_dev_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, scale=scale)))
 
 
 # ---------------------------------------------------------------------------
@@ -197,7 +209,12 @@ def banded_case(g, B, H, T, window, dtype, kv=None, iters=10):
     a_ms = cuda_ms(lambda: flash_attention(q, k, v, bias, scale), iters)
     bms, by = bound(4 * H * pairs * 64, nbytes(q, k, v, got, k_valid), dtype)
     return dict(err=err, ok=good, tol=tol, ms=ms, plain_ms=plain, library_ms=lib,
-                kernel_a_ms=a_ms, bound_ms=bms, bound_by=by)
+                kernel_a_ms=a_ms, bound_ms=bms, bound_by=by,
+                dev_ms=device_ms(lambda: banded_attention(q, k, v, scale, window, k_valid)),
+                plain_dev_ms=device_ms(
+                    lambda: banded_attention_ref(q, k, v, scale, window, k_valid), 3),
+                lib_dev_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=ok[:, None], scale=scale)))
 
 
 # ---------------------------------------------------------------------------
@@ -258,7 +275,12 @@ def block_case(g, B, T, dtype, with_bias, iters=20, heads=8):
     flops = 2 * B * T * (3 * C * inner + inner * C + 2 * C * ff) + 4 * B * heads * T * T * (inner // heads)
     bms, by = bound(flops, nbytes(x, got, bias, *W), dtype)
     return dict(err=err, ok=ok, tol=tol, ms=ms, plain_ms=plain, library_ms=None,
-                unfused_ms=unfused, bound_ms=bms, bound_by=by)
+                unfused_ms=unfused, bound_ms=bms, bound_by=by,
+                dev_ms=device_ms(lambda: fused_transformer_block(x, bias, *W, heads=heads,
+                                                                 scale=scale)),
+                plain_dev_ms=device_ms(lambda: fused_transformer_block_ref(
+                    x, bias, *W, heads=heads, scale=scale), 3),
+                lib_dev_ms=device_ms(library_block(x, bias, W, heads)))
 
 
 def layer_norm_case(g, rows, C=256, iters=50):
@@ -273,19 +295,22 @@ def layer_norm_case(g, rows, C=256, iters=50):
     lib = cuda_ms(lambda: F.layer_norm(x, (C,), w, b, 1e-5), iters)
     bms, by = bound(8 * rows * C, nbytes(x, w, b, got), dtype)
     return dict(err=err, ok=ok, tol=tol, ms=ms, plain_ms=plain, library_ms=lib,
-                bound_ms=bms, bound_by=by)
+                bound_ms=bms, bound_by=by,
+                dev_ms=device_ms(lambda: layer_norm_rows(x, w, b, dtype)),
+                plain_dev_ms=device_ms(lambda: layer_norm_rows_ref(x, w, b, dtype), 3),
+                lib_dev_ms=device_ms(lambda: F.layer_norm(x, (C,), w, b, 1e-5)))
 
 
-def gemm_case(g, M, K, seg, nseg=1, bias=False, gelu=None, residual=False, iters=50):
+def gemm_case(g, M, K, seg, nseg=1, bias=False, gelu=None, residual=False, iters=50,
+              dtype=torch.float32):
     """One of the block's products with its epilogue: ``nseg`` (seg, K)
     weight segments read in place (3 for the QKV product), optional bias,
     tanh GELU and f32 residual, as the block's four launches use them."""
-    dtype = torch.float32
     N = nseg * seg
-    a = torch.randn(M, K, device=DEV, generator=g)
-    ws = [torch.randn(seg, K, device=DEV, generator=g) * 0.05 for _ in range(nseg)]
+    a = torch.randn(M, K, device=DEV, generator=g).to(dtype)
+    ws = [(torch.randn(seg, K, device=DEV, generator=g) * 0.05).to(dtype) for _ in range(nseg)]
     w_cat = torch.cat(ws)
-    b = torch.randn(N, device=DEV, generator=g) * 0.05 if bias else None
+    b = (torch.randn(N, device=DEV, generator=g) * 0.05).to(dtype) if bias else None
     r = torch.randn(M, N, device=DEV, generator=g) if residual else None
 
     def run():
@@ -297,7 +322,7 @@ def gemm_case(g, M, K, seg, nseg=1, bias=False, gelu=None, residual=False, iters
     def run_lib():
         y = F.linear(a, w_cat, b)
         y = F.gelu(y, approximate="tanh") if gelu else y
-        return y + r if residual else y
+        return (y + r).to(dtype) if residual else y
 
     got = run()
     torch.cuda.synchronize()
@@ -307,7 +332,29 @@ def gemm_case(g, M, K, seg, nseg=1, bias=False, gelu=None, residual=False, iters
     lib = cuda_ms(run_lib, iters)
     bms, by = bound(2 * M * N * K, nbytes(a, w_cat, b, r, got), dtype)
     return dict(err=err, ok=ok, tol=tol, ms=ms, plain_ms=plain, library_ms=lib,
-                bound_ms=bms, bound_by=by)
+                bound_ms=bms, bound_by=by, plan=_gemm_plan(M, N, K, dtype),
+                dev_ms=device_ms(run), plain_dev_ms=device_ms(run_ref, 3),
+                lib_dev_ms=device_ms(run_lib))
+
+
+def same_twice(g):
+    """The plans that split (K of a product over a cluster, the keys of an
+    attention call over a cluster) sum in a fixed order: two calls on the
+    same inputs must return the same bits."""
+    a = torch.randn(312, 1024, device=DEV, generator=g)
+    w = [torch.randn(256, 1024, device=DEV, generator=g) * 0.05]
+    r = torch.randn(312, 256, device=DEV, generator=g)
+    q = torch.randn(2, 8, 128, 64, device=DEV, generator=g)
+    k, v = (torch.randn(2, 8, 8320, 64, device=DEV, generator=g) for _ in range(2))
+    gp, ap = _gemm_plan(312, 256, 1024, torch.float32), _attention_plan(16, 128, 8320)
+    if gp[2] < 2 or ap[1] < 2:
+        raise SystemExit(f"chip_smoke: the plans {gp}, {ap} do not split where they should")
+    same_g = torch.equal(gemm(a, w, None, r), gemm(a, w, None, r))
+    same_a = torch.equal(flash_attention(q, k, v, None, 0.125), flash_attention(q, k, v, None, 0.125))
+    log(f"  two calls, same bits: gemm (312,1024)x(256,1024) plan {gp} {same_g}; "
+        f"flash_attention (2,8,128,64) S=8320 plan {ap} {same_a}")
+    if not (same_g and same_a):
+        raise SystemExit("chip_smoke: a split plan's result changed from one call to the next")
 
 
 def profile_device(fn):
@@ -554,10 +601,15 @@ def training_steps(cfg, llm, flow, hift, steps=3):
 
 
 def report(name, r):
+    def dev(key):
+        return "" if r.get(key) is None else f" ({r[key]:.4f} on the card)"
+
     log(f"  {name:<44} max_abs_err {r['err']:.3e} ({r['tol']}) {'ok' if r['ok'] else 'FAIL'}"
-        f" | kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+        f" | kernel {r['ms']:.4f} ms{dev('dev_ms')}, plain {r['plain_ms']:.4f} ms"
+        f"{dev('plain_dev_ms')}, "
         + (f"library {r['library_ms']:.4f} ms" if r["library_ms"] is not None
-           else f"library none (unfused library calls {r['unfused_ms']:.4f} ms)")
+           else f"library none (unfused library calls {r['unfused_ms']:.4f} ms")
+        + dev("lib_dev_ms") + ("" if r["library_ms"] is not None else ")")
         + (f", kernel A with a band bias {r['kernel_a_ms']:.4f} ms"
            if "kernel_a_ms" in r else "")
         + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
@@ -610,6 +662,24 @@ def main():
             raise SystemExit(f"chip_smoke: kernel C accepted {what}")
     if banded_attention.launches != n0:
         raise SystemExit("chip_smoke: kernel C launched on a refused input")
+    # what the 16-byte copies of the redesigned kernels do not take
+    n0 = (flash_attention.launches, gemm.launches)
+    q65 = torch.zeros((1, 1, 8, 65), device=DEV)[..., :64]
+    a = torch.zeros((64, 64), device=DEV)
+    for what, call in (
+            ("rows off a 16-byte boundary", lambda: flash_attention(q65, q65, q65, None, 1.0)),
+            ("a GEMM with K = 60", lambda: gemm(a[:, :60].contiguous(), [a[:, :60].contiguous()])),
+            ("a GEMM operand off a 16-byte boundary",
+             lambda: gemm(torch.zeros(64 * 64 + 1, device=DEV)[1:].view(64, 64), [a])),
+            ("a non-contiguous GEMM operand", lambda: gemm(a.t(), [a]))):
+        try:
+            call()
+        except ValueError as e:
+            log(f"  refused {what} on CUDA: {e}")
+        else:
+            raise SystemExit(f"chip_smoke: a kernel accepted {what}")
+    if (flash_attention.launches, gemm.launches) != n0:
+        raise SystemExit("chip_smoke: a kernel launched on a refused input")
     for dtype in (torch.float32, torch.bfloat16):
         # the windowed path's shapes, the aligned shapes beside them, a
         # ragged T with a short k_valid, a window covering T, and a narrow
@@ -646,6 +716,8 @@ def main():
     report("A main path (2,8,312,64) f32 bias", attention_case(g, 2, 8, 312, 312, torch.float32))
     main_a = attention_case(g, 2, 8, 156, 156, torch.float32)
     report("A main path (2,8,156,64) f32 bias", main_a)
+    for T in (312, 156):
+        report(f"A main path (2,8,{T},64) bf16 bias", attention_case(g, 2, 8, T, T, torch.bfloat16))
     report("B main path (2,312,256) f32 bias", block_case(g, 2, 312, torch.float32, True))
     main_b = block_case(g, 2, 156, torch.float32, True)
     report("B main path (2,156,256) f32 bias", main_b)
@@ -653,15 +725,25 @@ def main():
     report("LayerNorm main path (624,256) f32", layer_norm_case(g, 2 * 312))
     main_ln = layer_norm_case(g, 2 * 156)
     report("LayerNorm main path (312,256) f32", main_ln)
-    for rows in (2 * 312, 2 * 156):
-        level = {}
-        level["QKV"] = gemm_case(g, rows, 256, 512, 3)
-        level["out-proj"] = gemm_case(g, rows, 512, 256, bias=True, residual=True)
-        level["FF1"] = gemm_case(g, rows, 256, 1024, bias=True, gelu="tanh")
-        level["FF2"] = gemm_case(g, rows, 1024, 256, bias=True, residual=True)
-        for what, r in level.items():
-            report(f"GEMM main path {what} M={rows} f32", r)
-    main_gemm = level["QKV"]
+    # the four products at the long utterance's rows (2 x 2558) and at the
+    # short synthesis's two levels, f32 and bf16.  The kernels line reports
+    # FF2 at 312 rows in f32, the case furthest behind the library
+    for dtype in (torch.float32, torch.bfloat16):
+        for rows in (2 * 2558, 2 * 312, 2 * 156):
+            it = 10 if rows > 1000 else 50
+            level = {}
+            level["QKV"] = gemm_case(g, rows, 256, 512, 3, iters=it, dtype=dtype)
+            level["out-proj"] = gemm_case(g, rows, 512, 256, bias=True, residual=True,
+                                          iters=it, dtype=dtype)
+            level["FF1"] = gemm_case(g, rows, 256, 1024, bias=True, gelu="tanh", iters=it,
+                                     dtype=dtype)
+            level["FF2"] = gemm_case(g, rows, 1024, 256, bias=True, residual=True, iters=it,
+                                     dtype=dtype)
+            for what, r in level.items():
+                report(f"GEMM main path {what} M={rows} {str(dtype)[6:]} plan {r['plan']}", r)
+        if dtype == torch.float32:
+            main_gemm = level["FF2"]
+    same_twice(g)
 
     cfg = ModelConfig()
     log("[4] full-width estimator call, B=2, T=208 (valid 207: mask + bias)")
@@ -729,11 +811,19 @@ def main():
     training_steps(cfg, llm, flow, hift)
 
     def entry(name, source, replaces, r, launches=None):
+        # times on the card (torch.profiler) where the profiler gave them,
+        # else the CUDA-event means: on a slow host the event mean of a small
+        # kernel is the host's launch rate, not the kernel
+        def on_card(key, event_key):
+            return r[event_key] if r.get(key) is None else r[key]
+
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": counts[name] if launches is None else launches,
-                "max_abs_err": r["err"], "ms": r["ms"],
-                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+                "max_abs_err": r["err"], "ms": on_card("dev_ms", "ms"),
+                "plain_ms": on_card("plain_dev_ms", "plain_ms"), "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"],
+                "library_ms": None if r["library_ms"] is None
+                else on_card("lib_dev_ms", "library_ms")}
 
     kernels = [
         entry("flash_attention", "cosy_tpu_torch/csrc/flash_attention.cu",

@@ -34,6 +34,20 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
 template <typename T>
 __device__ __forceinline__ float round_to(float v) { return to_f(from_f<T>(v)); }
 
+// two neighbouring values at once (p 8-byte aligned for float, 4 for bf16)
+__device__ __forceinline__ float2 load_pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ void store_pair(float* p, float2 v) {
+  *reinterpret_cast<float2*>(p) = v;
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float2 v) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __float22bfloat162_rn(v);
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

@@ -18,15 +18,41 @@
 // Ragged T and S edges are masked here: rows t >= T are not written and keys
 // s >= S are excluded outright (p = 0), so the caller pads nothing.
 //
-// What bounds it on an H100: at the estimator's shapes (d = 64, T = S = 200
+// What bounds it on an H100: at the estimator's shapes (d = 64, T = S = 156
 // to 2 600, B*H = 16) the work is 4*B*H*T*S*d flops against (3+1)*B*H*T*d
-// elements of q/k/v/out plus the B*T*S bias, i.e. operations, not bytes.
-// This first version computes on the CUDA cores in f32 (peak 67 TFLOP/s),
-// not on the tensor cores: one block per (b, h, 64-row q tile), K/V streamed
-// through shared memory in 32-key tiles with an online softmax, 4x4 register
-// tiles for QK^T and 8x4 for PV.  Nothing is written to device memory but
-// the output; the score tile never leaves shared memory.  wgmma/TMA tiles
-// are later work.
+// elements of q/k/v/out plus the B*T*S bias, i.e. operations, not bytes; at
+// the short shapes (T = 156: 48 blocks of 64 rows) and at T = 128 with
+// S = 8320 (32 blocks, each walking 130 key tiles alone) it is the number of
+// blocks in flight.
+//
+// What the kernel does about it:
+//  - Both products run on the tensor cores (mma.cuh): bf16 through
+//    mma.sync.m16n8k16, f32 through error-compensated 3xTF32 on
+//    mma.sync.m16n8k8, which holds the f32 tolerance (atol = rtol = 1e-5
+//    against the exact plain version) where single-pass TF32 does not.  A
+//    warp owns 16 query rows.  The score fragment of a 64-key tile stays in
+//    registers: scale, bias, masks, the row max and sum (two shuffles within
+//    the quad) and the exponentials are applied there, and the probabilities,
+//    rounded to the input type, are the A operand of P V as they stand.  No
+//    score tile goes through shared memory.
+//  - K and V tiles of 64 keys are double-buffered with 16-byte cp.async
+//    copies, so the next tile loads while this one is multiplied; two block
+//    barriers a tile.  Rows are padded by 16 bytes, which keeps ldmatrix and
+//    the scalar tf32 fragment loads free of bank conflicts.  A bias row is
+//    not 16-byte aligned (S may be odd), so the bias is read with plain loads
+//    straight into the score fragment's layout, one tile ahead of its use.
+//  - Enough blocks: a block has 64 query rows (4 warps; 32-row blocks of 2
+//    warps were measured and lost), and the wrapper picks a split of the key
+//    range over the blocks of a thread block cluster (gridDim.z) from
+//    (B*H, T, S, window).  Each block of a cluster
+//    keeps its unnormalised o, running max m and sum l in its own shared
+//    memory; after a cluster barrier each block combines a share of the rows
+//    over all ranks in rank order through distributed shared memory
+//    (weights exp(m_i - m), one division) and writes them.  A split that
+//    holds only masked keys has m_i = -1e10 and l_i = its key count, so a
+//    fully masked row still comes out as the uniform average over all S
+//    keys; a split that walks no tile has l_i = 0 and o_i = 0 and weighs
+//    nothing.  No atomics: the result is the same on every run.
 //
 // Kernel C: banded (windowed) self-attention, the kBanded instantiation of the
 // same kernel.  Replaces the Pallas kernel of banded_attention
@@ -35,198 +61,343 @@
 // S == T.  The TPU kernel loads three Bq-wide key tiles (previous, own, next)
 // per query block, because a block spec names whole tiles, and masks the rest
 // by position.  Here a block walks only the keys of
-// [q0 - window, q0 + 63 + window] & [0, min(T, k_valid[b])) in 32-key tiles,
+// [q0 - window, q0 + Bq - 1 + window] & [0, min(T, k_valid[b])) in 64-key tiles,
 // so no clamped duplicate tile exists and no fully masked tile is loaded; a
 // key inside the walked range but outside a row's band has its score
 // REPLACED by -1e10, as in the Pallas kernel.  The walk shortens the work to
-// 4*B*H*T*(2*window+1)*d flops, still bound by operations on the CUDA cores.
+// 4*B*H*T*(2*window+1)*d flops, bound by operations.
 // A row with no admissible key (t >= k_valid[b] + window, discarded by the
 // caller) gives the finite average over the keys its block walked, or 0 when
 // the block walked none; the Pallas kernel averages over its three padded
 // tiles there.
-#include "common.cuh"
+#include <cooperative_groups.h>
+
+#include "mma.cuh"
 
 namespace cosy {
 namespace {
 
-constexpr int kBQ = 64;    // q rows per block
-constexpr int kBKV = 32;   // keys per shared-memory tile
-constexpr int kThreads = 128;
+namespace cg = cooperative_groups;
+
+constexpr int kD = 64;    // head dim
+constexpr int kBKV = 64;  // keys per shared-memory tile
 
 struct Strides {  // element strides of the (b, h, t) axes; d is contiguous
   long long qb, qh, qt, kb, kh, kt, vb, vh, vt, ob, oh, ot;
 };
 
-template <typename T, int D, bool kBanded>
-__global__ void __launch_bounds__(kThreads)
+template <typename T>
+__device__ __forceinline__ float exp_of(float x);
+template <>
+__device__ __forceinline__ float exp_of<float>(float x) { return expf(x); }
+template <>
+__device__ __forceinline__ float exp_of<__nv_bfloat16>(float x) { return __expf(x); }
+
+// One block: WARPS * 16 query rows of one (b, h), over the key tiles of its
+// rank in the cluster (blockIdx.z of gridDim.z splits).
+template <typename T, int WARPS, bool kBanded>
+__global__ void __launch_bounds__(WARPS * 32)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const T* __restrict__ bias,
                        const int* __restrict__ k_valid, T* __restrict__ out,
                        int H, int Tq, int S, Strides st, float scale, int window) {
-  static_assert(D == 64, "thread mapping assumes a head dim of 64");
-  __shared__ float Qs[kBQ][D + 1];
-  __shared__ float Ks[kBKV][D + 1];
-  __shared__ __align__(16) float Vs[kBKV][D];
-  __shared__ float Ps[kBQ][kBKV + 1];
-  __shared__ float alpha_s[kBQ];
-  __shared__ float l_s[kBQ];
+  using MM = Mma<T>;
+  constexpr int kThreads = WARPS * 32;
+  constexpr int BQ = WARPS * 16;
+  constexpr int EPC = 16 / sizeof(T);  // elements a 16-byte chunk
+  constexpr int CPR = kD / EPC;        // chunks a row
+  constexpr int LD = kD + EPC;         // padded row: 68 f32 (272 B), 72 bf16 (144 B)
+  constexpr int OLD = kD + 4;          // row of the combine's o tile, in floats
+  static_assert(BQ * (OLD + 2) * 4 <= (BQ + 4 * kBKV) * LD * (int)sizeof(T),
+                "the combine's tiles fit over the K/V ring");
 
-  const int tid = threadIdx.x;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* Qs = reinterpret_cast<T*>(smem);  // [BQ][LD]
+  T* Ks = Qs + BQ * LD;                // [2][kBKV][LD]
+  T* Vs = Ks + 2 * kBKV * LD;          // [2][kBKV][LD]
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane >> 2, t4 = lane & 3;
   const int b = blockIdx.y / H;
   const int h = blockIdx.y % H;
-  const int q0 = blockIdx.x * kBQ;
+  const int q0 = blockIdx.x * BQ;
+  const int splits = gridDim.z, rank = blockIdx.z;
   const int kv = k_valid != nullptr ? k_valid[b] : S;
-  // keys this block walks: all of [0, S), or the band's reach of this q tile
+  // keys this q tile walks: all of [0, S), or the band's reach of the tile
   // cut at the valid keys (global positions; no overflow for window <= S)
   const int s_begin = kBanded ? max(0, q0 - window) : 0;
-  const int s_end = kBanded ? min(min(S, kv), q0 + kBQ + window) : S;
+  const int s_end = kBanded ? min(min(S, kv), q0 + BQ + window) : S;
+  // ... and the tiles of them that are this rank's
+  const int n_tiles = s_end > s_begin ? (s_end - s_begin + kBKV - 1) / kBKV : 0;
+  const int per_rank = (n_tiles + splits - 1) / splits;
+  const int tile_begin = min(n_tiles, rank * per_rank);
+  const int tile_end = min(n_tiles, tile_begin + per_rank);
 
   const T* qp = q + b * st.qb + h * st.qh;
   const T* kp = k + b * st.kb + h * st.kh;
   const T* vp = v + b * st.vb + h * st.vh;
   const T* bp = bias != nullptr ? bias + (long long)b * Tq * S : nullptr;
 
-  for (int i = tid; i < kBQ * D; i += kThreads) {
-    const int r = i / D, c = i % D, t = q0 + r;
-    Qs[r][c] = t < Tq ? to_f(qp[t * st.qt + c]) : 0.f;
+  // rows past the end are zero-filled: a zero V row keeps p = 0 times it finite
+  auto load_kv = [&](int tile) {
+    const int s0 = s_begin + tile * kBKV;
+    T* ks = Ks + (tile & 1) * kBKV * LD;
+    T* vs = Vs + (tile & 1) * kBKV * LD;
+    for (int c = tid; c < kBKV * CPR; c += kThreads) {
+      const int r = c / CPR, ch = c % CPR, s = s0 + r;
+      const bool ok = s < s_end;
+      cp_async_16(ks + r * LD + ch * EPC, ok ? kp + s * st.kt + ch * EPC : kp, ok);
+      cp_async_16(vs + r * LD + ch * EPC, ok ? vp + s * st.vt + ch * EPC : vp, ok);
+    }
+  };
+
+  for (int c = tid; c < BQ * CPR; c += kThreads) {
+    const int r = c / CPR, ch = c % CPR, t = q0 + r;
+    const bool ok = t < Tq;
+    cp_async_16(Qs + r * LD + ch * EPC, ok ? qp + t * st.qt + ch * EPC : qp, ok);
   }
+  if (tile_begin < tile_end) load_kv(tile_begin);
+  cp_async_commit();
 
-  // scores: each thread owns a 4x4 tile of the 64x32 score block
-  const int sr0 = (tid / 8) * 4, sc0 = (tid % 8) * 4;
-  // softmax statistics: two threads per q row, 16 keys each
-  const int row = tid >> 1, half = tid & 1;
-  // PV: each thread owns an 8x4 tile of the 64x64 output block
-  const int pr0 = (tid / 16) * 8, pc0 = (tid % 16) * 4;
-
-  float m_run = kNegBias, l_run = 0.f;
-  float acc[8][4];
+  // this thread's rows of the tile (fragment rows g and g + 8 of its warp)
+  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  float m_run[2] = {kNegBias, kNegBias};
+  float l_run[2] = {0.f, 0.f};  // this thread's share of the row sum
+  float o[kD / 8][4];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int j = 0; j < kD / 8; ++j)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
 
-  for (int s0 = s_begin; s0 < s_end; s0 += kBKV) {
-    __syncthreads();  // Q is loaded / the previous tile's PV is done
-    for (int i = tid; i < kBKV * D; i += kThreads) {
-      const int r = i / D, c = i % D, s = s0 + r;
-      float kk = 0.f, vv = 0.f;
-      if (s < s_end) {
-        kk = to_f(kp[s * st.kt + c]);
-        vv = to_f(vp[s * st.vt + c]);
+  // The bias of this thread's scores in a tile (fragment order).  It is
+  // asked for one tile ahead, right after the previous tile's bias has been
+  // used, so that the loads fly under a P V and a Q K^T product.  Rows of an
+  // even S are 4-byte aligned in bf16 too: then a (2t, 2t+1) pair is one load.
+  float bv[kBKV / 8][4];
+  const bool bias_pairs = (S & 1) == 0;
+  auto load_bias = [&](int tile) {
+    const int s0 = s_begin + tile * kBKV;
+#pragma unroll
+    for (int j = 0; j < kBKV / 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int t = row[r], s = s0 + j * 8 + 2 * t4;
+        const T* src = bp + (long long)t * S + s;
+        float b0 = 0.f, b1 = 0.f;
+        if (t < Tq && s < s_end) {
+          if (bias_pairs) {
+            const float2 pr = load_pair(src);
+            b0 = pr.x;
+            b1 = pr.y;
+          } else {
+            b0 = to_f(src[0]);
+            if (s + 1 < s_end) b1 = to_f(src[1]);
+          }
+        }
+        bv[j][2 * r] = b0;
+        bv[j][2 * r + 1] = b1;
       }
-      Ks[r][c] = kk;
-      Vs[r][c] = vv;
-    }
-    __syncthreads();
+  };
+  if (bp != nullptr && tile_begin < tile_end) load_bias(tile_begin);
 
-    float sc[4][4];
+  for (int tile = tile_begin; tile < tile_end; ++tile) {
+    if (tile + 1 < tile_end) load_kv(tile + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile (and Q) have landed
+    __syncthreads();
+    const int s0 = s_begin + tile * kBKV;
+    const T* ks = Ks + (tile & 1) * kBKV * LD;
+    const T* vs = Vs + (tile & 1) * kBKV * LD;
+
+    // scores of 16 rows x 64 keys, in C fragments
+    float sc[kBKV / 8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < kBKV / 8; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-#pragma unroll 8
-    for (int c = 0; c < D; ++c) {
-      float a[4], kk[4];
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Qs[sr0 + i][c];
+    for (int kk = 0; kk < kD; kk += MM::kK) {
+      typename MM::A a;
+      MM::load_a(a, Qs + warp * 16 * LD + kk, LD, lane);
+      typename MM::B kb[kBKV / 8];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kk[j] = Ks[sc0 + j][c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(a[i], kk[j], sc[i][j]);
+      for (int j = 0; j < kBKV / 8; ++j) MM::load_b(kb[j], ks + j * 8 * LD + kk, LD, lane);
+      mma_grid<MM, 1, kBKV / 8>(&sc, &a, kb);
     }
+
+    float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int t = q0 + sr0 + i;
+    for (int j = 0; j < kBKV / 8; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int s = s0 + sc0 + j;
+      for (int e = 0; e < 4; ++e) {
+        const int t = row[e >> 1], s = s0 + j * 8 + 2 * t4 + (e & 1);
         float val;
         if (s >= s_end) {
           val = -INFINITY;  // not a key: excluded, never averaged in
         } else {
-          val = sc[i][j] * scale;
-          if (bp != nullptr && t < Tq) val += to_f(bp[(long long)t * S + s]);
+          val = sc[j][e] * scale;
+          if (bp != nullptr) val += bv[j][e];
           if (s >= kv) val = kNegBias;
           if (kBanded && abs(t - s) > window) val = kNegBias;
         }
-        Ps[sr0 + i][sc0 + j] = val;
+        sc[j][e] = val;
+        mx[e >> 1] = fmaxf(mx[e >> 1], val);
       }
-    }
-    __syncthreads();
+    if (bp != nullptr && tile + 1 < tile_end) load_bias(tile + 1);
 
-    // online softmax over this tile; m_run starts finite, so exp never sees
-    // (-inf) - (-inf)
-    float mx = -INFINITY;
+    // online softmax; m_run starts finite, so exp never sees (-inf) - (-inf)
+    float alpha[2];
 #pragma unroll
-    for (int j = 0; j < 16; ++j) mx = fmaxf(mx, Ps[row][half * 16 + j]);
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m_run, mx);
-    const float alpha = expf(m_run - m_new);
-    float sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const float p = expf(Ps[row][half * 16 + j] - m_new);
-      sum += p;
-      Ps[row][half * 16 + j] = round_to<T>(p);
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m_run[r], mx[r]);
+      alpha[r] = exp_of<T>(m_run[r] - m_new);
+      m_run[r] = m_new;
+      l_run[r] *= alpha[r];
     }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    l_run = l_run * alpha + sum;
-    m_run = m_new;
-    if (half == 0) alpha_s[row] = alpha;
-    __syncthreads();
-
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float al = alpha_s[pr0 + i];
+    for (int j = 0; j < kBKV / 8; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] *= al;
-    }
-#pragma unroll 4
-    for (int kk = 0; kk < kBKV; ++kk) {
-      const float4 vv = *reinterpret_cast<const float4*>(&Vs[kk][pc0]);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float p = Ps[pr0 + i][kk];
-        acc[i][0] = fmaf(p, vv.x, acc[i][0]);
-        acc[i][1] = fmaf(p, vv.y, acc[i][1]);
-        acc[i][2] = fmaf(p, vv.z, acc[i][2]);
-        acc[i][3] = fmaf(p, vv.w, acc[i][3]);
+      for (int e = 0; e < 4; ++e) {
+        const float pe = exp_of<T>(sc[j][e] - m_run[e >> 1]);
+        l_run[e >> 1] += pe;
+        sc[j][e] = pe;
       }
+    // o = alpha o + P V, P taken from the score fragments (rounded to T
+    // there).  The tile's product goes into a zeroed fragment and is added
+    // on the CUDA cores: the tensor cores add by truncation, and a chain over
+    // thousands of keys would drift (mma.cuh)
+    float pv[kD / 8][4];
+#pragma unroll
+    for (int j = 0; j < kD / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pv[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kBKV; kk += MM::kK) {
+      typename MM::A pa;
+      MM::a_from_acc(pa, &sc[kk / 8][0]);
+      typename MM::B vb[kD / 8];
+#pragma unroll
+      for (int j = 0; j < kD / 8; ++j) MM::load_b_kn(vb[j], vs + kk * LD + j * 8, LD, lane);
+      mma_grid<MM, 1, kD / 8>(&pv, &pa, vb);
     }
+#pragma unroll
+    for (int j = 0; j < kD / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[j][e] = fmaf(o[j][e], alpha[e >> 1], pv[j][e]);
+    __syncthreads();  // the tile is consumed before the next load lands on it
   }
 
-  if (half == 0) l_s[row] = l_run;
-  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+  }
   T* op = out + b * st.ob + h * st.oh;
+
+  if (splits == 1) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int t = q0 + pr0 + i;
-    if (t >= Tq) continue;
-    const float l = fmaxf(l_s[pr0 + i], 1e-30f);
+    for (int r = 0; r < 2; ++r) {
+      if (row[r] >= Tq) continue;
+      const float inv = 1.f / fmaxf(l_run[r], 1e-30f);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) op[t * st.ot + pc0 + j] = from_f<T>(acc[i][j] / l);
+      for (int j = 0; j < kD / 8; ++j)
+        store_pair(op + row[r] * st.ot + j * 8 + 2 * t4,
+                   make_float2(o[j][2 * r] * inv, o[j][2 * r + 1] * inv));
+    }
+    cp_async_wait<0>();
+    return;
   }
+
+  // split over keys: (o, m, l) of every rank meet in shared memory
+  cg::cluster_group cluster = cg::this_cluster();
+  float* Os = reinterpret_cast<float*>(smem);  // [BQ][OLD], over the ring
+  float* Ms = Os + BQ * OLD;                   // [BQ]
+  float* Ls = Ms + BQ;                         // [BQ]
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with Q and the ring
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int lr = warp * 16 + g + r * 8;
+#pragma unroll
+    for (int j = 0; j < kD / 8; ++j)
+      store_pair(Os + lr * OLD + j * 8 + 2 * t4, make_float2(o[j][2 * r], o[j][2 * r + 1]));
+    if (t4 == 0) {
+      Ms[lr] = m_run[r];
+      Ls[lr] = l_run[r];
+    }
+  }
+  cluster.sync();
+  // rank r combines rows r, r + splits, ...; the sums run over the ranks in
+  // order, so they are the same sums on every run
+  for (int idx = tid; idx < ((BQ - rank + splits - 1) / splits) * (kD / 2); idx += kThreads) {
+    const int lr = rank + (idx / (kD / 2)) * splits, c = (idx % (kD / 2)) * 2;
+    const int t = q0 + lr;
+    if (t >= Tq) continue;
+    float m = kNegBias;
+    for (int i = 0; i < splits; ++i) m = fmaxf(m, cluster.map_shared_rank(Ms, i)[lr]);
+    float l = 0.f, ox = 0.f, oy = 0.f;
+    for (int i = 0; i < splits; ++i) {
+      const float w = exp_of<T>(cluster.map_shared_rank(Ms, i)[lr] - m);
+      l += w * cluster.map_shared_rank(Ls, i)[lr];
+      const float2 oi = load_pair(cluster.map_shared_rank(Os, i) + lr * OLD + c);
+      ox += w * oi.x;
+      oy += w * oi.y;
+    }
+    const float inv = 1.f / fmaxf(l, 1e-30f);
+    store_pair(op + t * st.ot + c, make_float2(ox * inv, oy * inv));
+  }
+  cluster.sync();  // no block leaves while its tiles are being read
+}
+
+template <typename T, int WARPS, bool kBanded>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* bias,
+                   const int* k_valid, void* out, int B, int H, int Tq, int S,
+                   const Strides& st, float scale, int window, int kv_splits,
+                   cudaStream_t stream) {
+  auto kernel = flash_attention_kernel<T, WARPS, kBanded>;
+  constexpr int BQ = WARPS * 16;
+  constexpr int kSmem = (BQ + 4 * kBKV) * (kD * (int)sizeof(T) + 16);
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (attr != cudaSuccess) return attr;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((Tq + BQ - 1) / BQ, B * H, kv_splits);
+  cfg.blockDim = dim3(WARPS * 32);
+  cfg.dynamicSmemBytes = kSmem;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = 1;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = kv_splits;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(bias), k_valid, static_cast<T*>(out),
+      H, Tq, S, st, scale, window);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 template <typename T, bool kBanded>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* bias,
-                   const int* k_valid, void* out, int B, int H, int Tq, int S,
-                   const Strides& st, float scale, int window, cudaStream_t stream) {
-  const dim3 grid((Tq + kBQ - 1) / kBQ, B * H);
-  flash_attention_kernel<T, 64, kBanded><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(bias), k_valid, static_cast<T*>(out), H, Tq, S, st, scale,
-      window);
-  return cudaGetLastError();
+cudaError_t launch_rows(int block_q, const void* q, const void* k, const void* v,
+                        const void* bias, const int* k_valid, void* out, int B, int H,
+                        int Tq, int S, const Strides& st, float scale, int window,
+                        int kv_splits, cudaStream_t s) {
+  if (block_q != 64) return cudaErrorInvalidValue;  // the one instantiation
+  return launch<T, 4, kBanded>(q, k, v, bias, k_valid, out, B, H, Tq, S, st, scale, window,
+                               kv_splits, s);
 }
 
 template <bool kBanded>
 int dispatch(int dtype, const void* q, const void* k, const void* v, const void* bias,
              const int* k_valid, void* out, int B, int H, int T, int S, int d,
-             const long long* strides, float scale, int window, void* stream) {
-  if (d != 64 || B <= 0 || H <= 0 || T <= 0 || S <= 0 || B * H > 65535)
+             const long long* strides, float scale, int window, int block_q,
+             int kv_splits, void* stream) {
+  if (d != kD || B <= 0 || H <= 0 || T <= 0 || S <= 0 || B * H > 65535 || kv_splits < 1 ||
+      kv_splits > 8)
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides st{strides[0], strides[1], strides[2], strides[3],
                    strides[4], strides[5], strides[6], strides[7],
@@ -234,11 +405,11 @@ int dispatch(int dtype, const void* q, const void* k, const void* v, const void*
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == kF32) {
-    err = launch<float, kBanded>(q, k, v, bias, k_valid, out, B, H, T, S, st, scale,
-                                 window, s);
+    err = launch_rows<float, kBanded>(block_q, q, k, v, bias, k_valid, out, B, H, T, S, st,
+                                      scale, window, kv_splits, s);
   } else if (dtype == kBF16) {
-    err = launch<__nv_bfloat16, kBanded>(q, k, v, bias, k_valid, out, B, H, T, S, st,
-                                         scale, window, s);
+    err = launch_rows<__nv_bfloat16, kBanded>(block_q, q, k, v, bias, k_valid, out, B, H, T,
+                                              S, st, scale, window, kv_splits, s);
   } else {
     err = cudaErrorInvalidValue;
   }
@@ -249,16 +420,19 @@ int dispatch(int dtype, const void* q, const void* k, const void* v, const void*
 }  // namespace cosy
 
 // q/k/v/out: (B, H, T|S, d) views given by element strides (12 values:
-// q_b, q_h, q_t, k_b, k_h, k_t, v_b, v_h, v_t, o_b, o_h, o_t), d contiguous.
-// bias: contiguous (B, T, S) of the input type, or null.  k_valid: (B,)
-// int32 on the device, or null (= S).  Returns a cudaError_t code.
+// q_b, q_h, q_t, k_b, k_h, k_t, v_b, v_h, v_t, o_b, o_h, o_t), d contiguous,
+// every pointer and row start 16-byte aligned.  bias: contiguous (B, T, S) of
+// the input type from a 16-byte-aligned start, or null.  k_valid: (B,) int32 on the device, or null (= S).
+// block_q: query rows a block, 64; kv_splits: 1 to 8 blocks share a query
+// tile's keys.  Returns a cudaError_t code.
 extern "C" int cosy_flash_attention(int dtype, const void* q, const void* k,
                                     const void* v, const void* bias,
                                     const int* k_valid, void* out, int B, int H,
                                     int T, int S, int d, const long long* strides,
-                                    float scale, void* stream) {
+                                    float scale, int block_q, int kv_splits,
+                                    void* stream) {
   return cosy::dispatch<false>(dtype, q, k, v, bias, k_valid, out, B, H, T, S, d,
-                               strides, scale, 0, stream);
+                               strides, scale, 0, block_q, kv_splits, stream);
 }
 
 // Kernel C.  q/k/v/out as above with S == T; no bias; a key is admitted when
@@ -269,8 +443,10 @@ extern "C" int cosy_banded_attention(int dtype, const void* q, const void* k,
                                      const void* v, const int* k_valid, void* out,
                                      int B, int H, int T, int d,
                                      const long long* strides, float scale,
-                                     int window, void* stream) {
+                                     int window, int block_q, int kv_splits,
+                                     void* stream) {
   if (window < 0) return static_cast<int>(cudaErrorInvalidValue);
   return cosy::dispatch<true>(dtype, q, k, v, nullptr, k_valid, out, B, H, T, T, d,
-                              strides, scale, window < T ? window : T, stream);
+                              strides, scale, window < T ? window : T, block_q,
+                              kv_splits, stream);
 }

@@ -29,7 +29,9 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cosy_tpu_torch"
 SOURCES = ("flash_attention.cu", "fused_block.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+SMS = 132  # streaming multiprocessors of an H100: what the kernels' plans fill
 
 # codes of csrc/common.cuh ``enum DType``; fp16 is refused (the -1e10
 # attention bias overflows it)
@@ -43,14 +45,15 @@ _f = ctypes.c_float
 SIGNATURES = {
     "cosy_flash_attention": ("flash_attention.cu", [
         _i, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i,
-        ctypes.POINTER(ctypes.c_longlong), _f, _vp]),
+        ctypes.POINTER(ctypes.c_longlong), _f, _i, _i, _vp]),
     "cosy_banded_attention": ("flash_attention.cu", [
         _i, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i,
-        ctypes.POINTER(ctypes.c_longlong), _f, _i, _vp]),
+        ctypes.POINTER(ctypes.c_longlong), _f, _i, _i, _i, _vp]),
     "cosy_layer_norm": ("fused_block.cu", [
         _i, _i, _i, _vp, _vp, _vp, _vp, _i, _i, _f, _vp]),
     "cosy_gemm": ("fused_block.cu", [
-        _i, _i, _i, _vp, _vp, _vp, _vp, _i, _vp, _vp, _vp, _i, _i, _i, _i, _vp]),
+        _i, _i, _i, _vp, _vp, _vp, _vp, _i, _vp, _vp, _vp, _i, _i, _i, _i,
+        _i, _i, _i, _vp]),
 }
 
 _lock = threading.Lock()
@@ -95,6 +98,8 @@ def build() -> List[Path]:
         if proc.returncode != 0:
             failed.append(f"--- {source} (rc {proc.returncode})\n{log}")
             continue
+        # ptxas -v: each kernel's registers, shared memory and spills
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
@@ -136,6 +141,11 @@ def refuse_grad(what: str, *tensors):
         raise RuntimeError(
             f"{what} has no backward: an input requires a gradient; training "
             "runs the plain torch ops (Ctx.train / the gates in layers)")
+
+
+def cdiv(a: int, b: int) -> int:
+    """ceil(a / b) for positive ints."""
+    return -(-a // b)
 
 
 def stream_ptr(t: torch.Tensor) -> int:

@@ -17,6 +17,7 @@ a gradient (the training path runs plain torch ops).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -27,11 +28,78 @@ from .masks import NEG_BIAS
 HEAD_DIM = 64  # kernel A is instantiated for the estimator's head dim only
 
 
-def flash_attention_ref(q, k, v, bias, scale: float, k_valid=None) -> torch.Tensor:
+BLOCK_Q = 64  # query rows a block (four warps of 16)
+KV_TILE = 64  # keys a block takes at a time; a split is whole tiles (csrc)
+# key tiles a split must keep: an f32 block spends long enough on one tile
+# for a split down to single tiles to pay; a bf16 block does not
+_MIN_TILES = {torch.float32: 1, torch.bfloat16: 8}
+_SPLITS = (1, 2, 3, 4, 8)  # the cluster sizes a plan names
+
+
+@functools.lru_cache(maxsize=None)
+def _attention_plan(BH: int, T: int, S: int, window: Optional[int] = None,
+                    dtype=torch.float32):
+    """(block_q, kv_splits) of kernels A and C.  A block has ``BLOCK_Q``
+    query rows (32-row blocks were measured and lost at every shape of the
+    path).  Where that grid has no block for every SM, the keys a query tile
+    walks are split over the blocks of a cluster: the fewest of ``_SPLITS``
+    that fill the SMs, while every split keeps ``_MIN_TILES`` key tiles.  The
+    rule follows the sweep of ``python -m cosy_tpu_torch.ops.plan_sweep`` on the
+    card (PERF.md).  A pure function of shape and type: it is passed to the
+    kernel, and is no caller's option."""
+    blocks = _cuda.cdiv(T, BLOCK_Q) * BH
+    keys = S if window is None else min(S, BLOCK_Q + 2 * window)
+    tiles = _cuda.cdiv(keys, KV_TILE)
+    need, limit = _cuda.cdiv(_cuda.SMS, blocks), max(1, tiles // _MIN_TILES[dtype])
+    splits = min([n for n in _SPLITS if n >= need] or _SPLITS[-1:])
+    return BLOCK_Q, max(n for n in _SPLITS if n <= min(splits, limit))
+
+
+def _softmax_pv(s, v, out_dtype, kv_splits: int = 1):
+    """softmax(s) v over masked f32 scores s (B, H, T, S): probabilities
+    rounded to v's type before PV with f32 accumulation, denominator clamped
+    at 1e-30.  With ``kv_splits`` > 1 the keys are cut into that many runs
+    of whole ``KV_TILE`` tiles; each gives its unnormalised o_i, its max m_i
+    (started at -1e10, like the kernel's running max) and its sum l_i, and
+    they are combined as the kernel combines them: weights exp(m_i - m),
+    sums in split order, one division."""
+    if kv_splits == 1:
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m)
+        l = p.sum(dim=-1, keepdim=True)
+        acc = torch.einsum("bhts,bhsd->bhtd", p.to(v.dtype).float(), v.float())
+        return (acc / torch.clamp(l, min=1e-30)).to(out_dtype)
+    S = s.shape[-1]
+    per = _cuda.cdiv(_cuda.cdiv(S, KV_TILE), kv_splits) * KV_TILE
+    parts = []
+    for i in range(kv_splits):
+        si, vi = s[..., i * per:(i + 1) * per], v[:, :, i * per:(i + 1) * per]
+        if si.shape[-1] == 0:  # a split with no key: weighs nothing
+            m_i = torch.full(s.shape[:-1] + (1,), NEG_BIAS, device=s.device)
+            parts.append((m_i, torch.zeros_like(m_i),
+                          torch.zeros(s.shape[:-1] + (v.shape[-1],), device=s.device)))
+            continue
+        m_i = si.amax(dim=-1, keepdim=True).clamp(min=NEG_BIAS)
+        p = torch.exp(si - m_i)
+        parts.append((m_i, p.sum(dim=-1, keepdim=True),
+                      torch.einsum("bhts,bhsd->bhtd", p.to(v.dtype).float(), vi.float())))
+    m = torch.stack([pt[0] for pt in parts]).amax(dim=0).clamp(min=NEG_BIAS)
+    l, acc = 0.0, 0.0
+    for m_i, l_i, o_i in parts:
+        w = torch.exp(m_i - m)
+        l = l + w * l_i
+        acc = acc + w * o_i
+    return (acc / torch.clamp(l, min=1e-30)).to(out_dtype)
+
+
+def flash_attention_ref(q, k, v, bias, scale: float, k_valid=None,
+                        kv_splits: int = 1) -> torch.Tensor:
     """Plain PyTorch version, following the Pallas one-tile kernel's
     arithmetic: f32 scores, bias added, keys at ``kpos >= k_valid`` replaced
     by -1e10, probabilities rounded to v's type before PV with f32
-    accumulation, denominator clamped at 1e-30, output in q's type."""
+    accumulation, denominator clamped at 1e-30, output in q's type.
+    ``kv_splits`` computes it the way the kernel does under a split of the
+    keys (``_softmax_pv``)."""
     s = torch.einsum("bhtd,bhsd->bhts", q.float(), k.float()) * scale
     if bias is not None:
         s = s + bias.float()[:, None]
@@ -39,18 +107,16 @@ def flash_attention_ref(q, k, v, bias, scale: float, k_valid=None) -> torch.Tens
         kpos = torch.arange(k.shape[2], device=q.device)
         s = torch.where(kpos[None, None, None, :] < k_valid.reshape(-1, 1, 1, 1),
                         s, NEG_BIAS)
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m)
-    l = p.sum(dim=-1, keepdim=True)
-    acc = torch.einsum("bhts,bhsd->bhtd", p.to(v.dtype).float(), v.float())
-    return (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
+    return _softmax_pv(s, v, q.dtype, kv_splits)
 
 
 def check_kernel_args(q, k, v, bias, k_valid, out=None):
     """Raise on anything kernel A does not take: a dtype other than f32 or
     bf16, a head dim other than 64, mismatched shapes or devices, a
-    non-contiguous head dim, a bias that is not a contiguous (B, T, S) of
-    q's dtype, a ``k_valid`` that is not (B,) int32."""
+    non-contiguous head dim, a q/k/v/out row that does not start on a
+    16-byte boundary (the kernel copies 16 bytes at a time), a bias that is
+    not a contiguous (B, T, S) of q's dtype, a ``k_valid`` that is not (B,)
+    int32."""
     if q.dtype not in _cuda.DTYPE_CODE:
         raise TypeError(f"flash_attention kernel takes f32 or bf16, got {q.dtype}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
@@ -70,9 +136,15 @@ def check_kernel_args(q, k, v, bias, k_valid, out=None):
         raise ValueError("all flash_attention tensors must be on one device")
     if any(t.stride(-1) != 1 for t in (q, k, v) + ((out,) if out is not None else ())):
         raise ValueError("the head dim of q/k/v/out must be contiguous")
+    per16 = 16 // q.element_size()
+    if any(t.data_ptr() % 16 or any(n % per16 for n in t.stride()[:3])
+           for t in (q, k, v) + ((out,) if out is not None else ())):
+        raise ValueError("every (b, h, t) row of q/k/v/out must start on a 16-byte "
+                         "boundary")
     if bias is not None and (bias.shape != (B, T, S) or bias.dtype != q.dtype
-                             or not bias.is_contiguous()):
-        raise ValueError("bias must be a contiguous (B, T, S) tensor of q's dtype")
+                             or not bias.is_contiguous() or bias.data_ptr() % 16):
+        raise ValueError("bias must be a contiguous (B, T, S) tensor of q's dtype "
+                         "from a 16-byte-aligned start")
     if k_valid is not None and (k_valid.shape != (B,) or k_valid.dtype != torch.int32
                                 or not k_valid.is_contiguous()):
         raise ValueError("k_valid must be a contiguous (B,) int32 tensor")
@@ -90,7 +162,8 @@ def _launch(q, k, v, bias, scale: float, k_valid, out):
     _cuda.check(fn(_cuda.DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
                    v.data_ptr(), _cuda.ptr(bias), _cuda.ptr(k_valid),
                    out.data_ptr(), B, H, T, S, d, strides, float(scale),
-                   _cuda.stream_ptr(q)), "flash_attention")
+                   *_attention_plan(B * H, T, S, None, q.dtype), _cuda.stream_ptr(q)),
+                "flash_attention")
     flash_attention.launches += 1
 
 
@@ -130,13 +203,15 @@ flash_attention.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def banded_attention_ref(q, k, v, scale: float, window: int, k_valid=None) -> torch.Tensor:
+def banded_attention_ref(q, k, v, scale: float, window: int, k_valid=None,
+                         kv_splits: int = 1) -> torch.Tensor:
     """Plain PyTorch version, following the Pallas banded kernel's
     arithmetic: f32 scores; a key outside the band ``|t - s| <= window`` or
     at ``s >= k_valid[b]`` has its score replaced by -1e10; probabilities
     rounded to v's type before PV with f32 accumulation; denominator clamped
     at 1e-30; output in q's type.  A row with no admissible key averages V
-    over all T keys (such rows lie at ``t >= k_valid[b] + window``)."""
+    over all T keys (such rows lie at ``t >= k_valid[b] + window``).
+    ``kv_splits`` as in ``flash_attention_ref``."""
     T = q.shape[2]
     pos = torch.arange(T, device=q.device)
     ok = ((pos[:, None] - pos[None, :]).abs() <= window)[None, None]
@@ -144,11 +219,7 @@ def banded_attention_ref(q, k, v, scale: float, window: int, k_valid=None) -> to
         ok = ok & (pos[None, None, None, :] < k_valid.reshape(-1, 1, 1, 1))
     s = torch.einsum("bhtd,bhsd->bhts", q.float(), k.float()) * scale
     s = torch.where(ok, s, NEG_BIAS)
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m)
-    l = p.sum(dim=-1, keepdim=True)
-    acc = torch.einsum("bhts,bhsd->bhtd", p.to(v.dtype).float(), v.float())
-    return (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
+    return _softmax_pv(s, v, q.dtype, kv_splits)
 
 
 def banded_attention(
@@ -184,8 +255,9 @@ def banded_attention(
     fn = _cuda.function("cosy_banded_attention")
     _cuda.check(fn(_cuda.DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                    _cuda.ptr(k_valid), out.data_ptr(), B, H, T, d, strides,
-                   float(scale), min(int(window), T), _cuda.stream_ptr(q)),
-                "banded_attention")
+                   float(scale), min(int(window), T),
+                   *_attention_plan(B * H, T, T, min(int(window), T), q.dtype),
+                   _cuda.stream_ptr(q)), "banded_attention")
     banded_attention.launches += 1
     return out
 
