@@ -13,13 +13,17 @@ Phases, each fatal on failure (nothing is caught and passed over):
      and cuDNN in every comparison; CUDA-event means of back-to-back calls,
      and beside them the kernels' own time on the card from torch.profiler
      (ops/plan_sweep.py device_ms), which leaves out the waits for the host);
-     the plans that split return the same bits on two calls;
+     the block's kernels B1 (ln_gemm) and B2 (block_tail) at 312, 624 and
+     5116 rows in f32 and bf16, the block beside the seven-launch chain of
+     the kept LayerNorm and GEMM kernels; the plans that split return the
+     same bits on two calls;
   4. one full-width estimator call on the card (kernels) against the same
      call on the CPU (plain versions);
   5. full-width prompt-free CosyVoice-300M synthesis on random seeded
      weights through TTSPipeline.synthesize, with the launch counters reset
      just before and read just after: every kernel of the path must have
-     run, and the fused block exactly 64 x NFE times;
+     run, the fused block, B1 and B2 exactly 64 x NFE times (three launches
+     a block) and the LayerNorm and GEMM kernels not at all;
   6. where the time goes: one estimator call at the main path's shape under
      torch.profiler (device busy share, device time by kernel);
   7. the windowed long-utterance configuration: full-width synthesis of 1485
@@ -69,9 +73,12 @@ from cosy_tpu_torch.ops import _cuda  # noqa: E402
 from cosy_tpu_torch.ops.flash_attention import (_attention_plan,  # noqa: E402
                                                 banded_attention, banded_attention_ref,
                                                 flash_attention, flash_attention_ref)
-from cosy_tpu_torch.ops.fused_block import (_gemm_plan, fused_transformer_block,  # noqa: E402
+from cosy_tpu_torch.ops.fused_block import (_gemm_plan, _ln_gemm_plan,  # noqa: E402
+                                            _tail_plan, block_tail, block_tail_ref,
+                                            fused_transformer_block,
                                             fused_transformer_block_ref, gemm, gemm_ref,
-                                            layer_norm_rows, layer_norm_rows_ref)
+                                            layer_norm_rows, layer_norm_rows_ref, ln_gemm,
+                                            ln_gemm_ref)
 from cosy_tpu_torch.ops.plan_sweep import device_ms  # noqa: E402
 from cosy_tpu_torch.params import P, load_torch_checkpoint  # noqa: E402
 from cosy_tpu_torch.train.trainer import JointTrainer  # noqa: E402
@@ -93,6 +100,10 @@ TOL = {
     # both round one f32 sum to bf16; sums taken in another order can land on
     # the neighbouring bf16 value, one ulp (2^-8 relative) away
     ("gemm", torch.bfloat16): (1e-2, 1e-2),
+    ("ln_gemm", torch.float32): (1e-4, 1e-4),
+    ("ln_gemm", torch.bfloat16): (1e-2, 1e-2),
+    ("block_tail", torch.float32): (1e-4, 1e-4),
+    ("block_tail", torch.bfloat16): (1e-2, 1e-2),
 }
 
 
@@ -130,7 +141,13 @@ def compare(kind, got, want, dtype):
     err = (got.float() - want.float()).abs().max().item()
     ok = bool(torch.isfinite(got).all()) and torch.allclose(got.float(), want.float(),
                                                             atol=atol, rtol=rtol)
-    return err, ok, f"tol atol={atol:g} rtol={rtol:g}"
+    tol = f"tol atol={atol:g} rtol={rtol:g}"
+    if dtype == torch.bfloat16:
+        # the error in bf16 ulps at the output's scale, 2^(e - 7) for
+        # max|want| in [2^e, 2^(e+1))
+        ulp = 2.0 ** (np.floor(np.log2(max(want.float().abs().max().item(), 2 ** -126))) - 7)
+        tol += f"; {err / ulp:.2f} ulp of max|y|"
+    return err, ok, tol
 
 
 # ---------------------------------------------------------------------------
@@ -254,6 +271,28 @@ def library_block(x, bias, W, heads):
     return run
 
 
+def seven_launch_block(x, bias, W, heads, scale):
+    """The block as the seven-launch chain of the port's kept LayerNorm and
+    GEMM kernels with kernel A between them (the block's path before B1 and
+    B2 existed): a yardstick of the same arithmetic in more launches."""
+    B, T, C = x.shape
+    n1w, n1b, wq, wk, wv, wo, bo, n3w, n3b, w1, b1, w2, b2 = W
+    inner, cd = wq.shape[0], x.dtype
+    d = inner // heads
+
+    def run():
+        x2 = x.reshape(B * T, C)
+        qkv = gemm(layer_norm_rows(x2, n1w, n1b, cd), (wq, wk, wv)).view(B, T, 3, heads, d)
+        q, k, v = (qkv[:, :, i].permute(0, 2, 1, 3) for i in range(3))
+        a = torch.empty((B, T, heads, d), dtype=cd, device=x.device)
+        flash_attention(q, k, v, bias, scale, out=a.permute(0, 2, 1, 3))
+        x1 = gemm(a.reshape(B * T, inner), (wo,), bias=bo, residual=x2, out_dtype=torch.float32)
+        f = gemm(layer_norm_rows(x1, n3w, n3b, cd), (w1,), bias=b1, gelu="tanh")
+        return gemm(f, (w2,), bias=b2, residual=x1, out_dtype=cd).view(B, T, C)
+
+    return run
+
+
 def block_case(g, B, T, dtype, with_bias, iters=20, heads=8):
     W = block_weights(g, dtype)
     C, inner, ff = 256, 512, 1024
@@ -272,10 +311,14 @@ def block_case(g, B, T, dtype, with_bias, iters=20, heads=8):
     plain = cuda_ms(lambda: fused_transformer_block_ref(x, bias, *W, heads=heads, scale=scale),
                     max(2, iters // 4))
     unfused = cuda_ms(library_block(x, bias, W, heads), iters)
+    chain7 = seven_launch_block(x, bias, W, heads, scale)
+    err7 = (chain7().float() - want.float()).abs().max().item()
     flops = 2 * B * T * (3 * C * inner + inner * C + 2 * C * ff) + 4 * B * heads * T * T * (inner // heads)
     bms, by = bound(flops, nbytes(x, got, bias, *W), dtype)
     return dict(err=err, ok=ok, tol=tol, ms=ms, plain_ms=plain, library_ms=None,
                 unfused_ms=unfused, bound_ms=bms, bound_by=by,
+                chain7_ms=cuda_ms(chain7, iters), chain7_dev_ms=device_ms(chain7),
+                chain7_err=err7,
                 dev_ms=device_ms(lambda: fused_transformer_block(x, bias, *W, heads=heads,
                                                                  scale=scale)),
                 plain_dev_ms=device_ms(lambda: fused_transformer_block_ref(
@@ -335,6 +378,72 @@ def gemm_case(g, M, K, seg, nseg=1, bias=False, gelu=None, residual=False, iters
                 bound_ms=bms, bound_by=by, plan=_gemm_plan(M, N, K, dtype),
                 dev_ms=device_ms(run), plain_dev_ms=device_ms(run_ref, 3),
                 lib_dev_ms=device_ms(run_lib))
+
+
+def ln_gemm_case(g, M, dtype, iters=20, C=256, inner=512):
+    """Kernel B1 on the block's QKV product: LN1 of x (M, C) and the three
+    (inner, C) segments read in place, against ln_gemm_ref; the library
+    yardstick is F.layer_norm then one F.linear (two calls: no single
+    PyTorch call computes it)."""
+    x = torch.randn(M, C, device=DEV, generator=g).to(dtype)
+    w = (torch.randn(C, device=DEV, generator=g) * 0.05 + 1.0).to(dtype)
+    b = (torch.randn(C, device=DEV, generator=g) * 0.05).to(dtype)
+    ws = [(torch.randn(inner, C, device=DEV, generator=g) * 0.05).to(dtype) for _ in range(3)]
+    w_cat = torch.cat(ws)
+    plan = _ln_gemm_plan(M, 3 * inner, C, dtype)
+
+    def run():
+        return ln_gemm(x, w, b, ws)
+
+    def run_ref():
+        return ln_gemm_ref(x, w, b, ws)
+
+    def run_lib():
+        return F.linear(F.layer_norm(x, (C,), w, b, 1e-5), w_cat)
+
+    got = run()
+    torch.cuda.synchronize()
+    err, ok, tol = compare("ln_gemm", got, run_ref(), dtype)
+    bms, by = bound(2 * M * 3 * inner * C + 8 * M * C, nbytes(x, w, b, w_cat, got), dtype)
+    return dict(err=err, ok=ok, tol=tol, ms=cuda_ms(run, iters), plain_ms=cuda_ms(run_ref, iters),
+                library_ms=None, unfused_ms=cuda_ms(run_lib, iters), bound_ms=bms, bound_by=by,
+                plan=plan, dev_ms=device_ms(run), plain_dev_ms=device_ms(run_ref, 3),
+                lib_dev_ms=device_ms(run_lib), same=torch.equal(run(), run()))
+
+
+def tail_case(g, M, dtype, iters=20, C=256, inner=512, ff=1024):
+    """Kernel B2 on the block's shapes against block_tail_ref with the
+    plan's ranks; the library yardstick is the unfused sequence F.linear,
+    add, F.layer_norm, F.linear, F.gelu, F.linear, add."""
+    def mk(*shape, scale=0.05, one=False):
+        t = torch.randn(*shape, device=DEV, generator=g) * scale
+        return (t + 1.0 if one else t).to(dtype)
+
+    a, x = mk(M, inner, scale=1.0), mk(M, C, scale=1.0)
+    W = (mk(C, inner), mk(C), mk(C, one=True), mk(C), mk(ff, C), mk(ff), mk(C, ff), mk(C))
+    wo, bo, n3w, n3b, w1, b1, w2, b2 = W
+    plan = _tail_plan(M, C, inner, ff, dtype)
+
+    def run():
+        return block_tail(a, x, *W)
+
+    def run_ref():
+        return block_tail_ref(a, x, *W, ranks=plan[1])
+
+    def run_lib():
+        x1 = x.float() + F.linear(a, wo, bo)
+        f = F.gelu(F.linear(F.layer_norm(x1.to(dtype), (C,), n3w, n3b, 1e-5), w1, b1),
+                   approximate="tanh")
+        return (x1 + F.linear(f, w2, b2)).to(dtype)
+
+    got = run()
+    torch.cuda.synchronize()
+    err, ok, tol = compare("block_tail", got, run_ref(), dtype)
+    bms, by = bound(2 * M * (C * inner + 2 * C * ff), nbytes(a, x, *W, got), dtype)
+    return dict(err=err, ok=ok, tol=tol, ms=cuda_ms(run, iters), plain_ms=cuda_ms(run_ref, iters),
+                library_ms=None, unfused_ms=cuda_ms(run_lib, iters), bound_ms=bms, bound_by=by,
+                plan=plan, dev_ms=device_ms(run), plain_dev_ms=device_ms(run_ref, 3),
+                lib_dev_ms=device_ms(run_lib), same=torch.equal(run(), run()))
 
 
 def same_twice(g):
@@ -452,9 +561,10 @@ def windowed_synthesis(cfg, llm, flow, hift, n_tokens=1485, window=256):
             raise SystemExit(f"chip_smoke: {name} synthesis output has the wrong shape or is not finite")
     cw, cf = out["windowed"][0], out["full"][0]
     if cw["banded_attention"] != 64 * nfe or cw["fused_transformer_block"] != 0 \
-            or cw["flash_attention"] != 0:
+            or cw["flash_attention"] != 0 or cw["ln_gemm"] != 0 or cw["block_tail"] != 0:
         raise SystemExit(f"chip_smoke: windowed launch counts {cw} off 64 x NFE {nfe} of kernel C")
-    if cf["fused_transformer_block"] != 64 * nfe or cf["banded_attention"] != 0:
+    if cf["fused_transformer_block"] != 64 * nfe or cf["ln_gemm"] != 64 * nfe \
+            or cf["block_tail"] != 64 * nfe or cf["banded_attention"] != 0:
         raise SystemExit(f"chip_smoke: full-attention launch counts {cf} off 64 x NFE {nfe}")
     # the two mels from one initial noise
     z = torch.randn((1, 80, T_mel), device=DEV, generator=torch.Generator(device=DEV).manual_seed(10))
@@ -612,9 +722,13 @@ def report(name, r):
         + dev("lib_dev_ms") + ("" if r["library_ms"] is not None else ")")
         + (f", kernel A with a band bias {r['kernel_a_ms']:.4f} ms"
            if "kernel_a_ms" in r else "")
+        + (f", seven-launch chain {r['chain7_ms']:.4f} ms{dev('chain7_dev_ms')} "
+           f"(err {r['chain7_err']:.2e})" if "chain7_ms" in r else "")
         + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     if not r["ok"]:
         raise SystemExit(f"chip_smoke: {name} disagrees with its plain version")
+    if not r.get("same", True):
+        raise SystemExit(f"chip_smoke: {name} changed its result from one call to the next")
 
 
 def main():
@@ -680,6 +794,36 @@ def main():
             raise SystemExit(f"chip_smoke: a kernel accepted {what}")
     if (flash_attention.launches, gemm.launches) != n0:
         raise SystemExit("chip_smoke: a kernel launched on a refused input")
+    # what kernels B1 and B2 do not take
+    n0 = (ln_gemm.launches, block_tail.launches)
+    v = torch.zeros(256, device=DEV)
+    w96 = torch.zeros(64, 96, device=DEV)
+    tail_w = [torch.zeros(s, device=DEV) for s in ((256, 512), (256,), (256,), (256,), (1024, 256),
+                                                   (1024,), (256, 1024), (256,))]
+    for what, call, exc in (
+            ("an LN prologue over K = 96", lambda: ln_gemm(torch.zeros(8, 96, device=DEV), v[:96],
+                                                          v[:96], [w96]), ValueError),
+            ("an LN prologue over K = 512", lambda: ln_gemm(
+                torch.zeros(8, 512, device=DEV), torch.zeros(512, device=DEV),
+                torch.zeros(512, device=DEV), [torch.zeros(64, 512, device=DEV)]), ValueError),
+            ("a block tail of width 128", lambda: block_tail(
+                torch.zeros(8, 512, device=DEV), torch.zeros(8, 128, device=DEV),
+                *[torch.zeros(t.shape[0] // 2 if t.shape[0] == 256 else t.shape[0],
+                              *t.shape[1:], device=DEV) for t in tail_w]), ValueError),
+            ("a bf16 block tail with f32 weights", lambda: block_tail(
+                torch.zeros(8, 512, device=DEV, dtype=torch.bfloat16),
+                torch.zeros(8, 256, device=DEV, dtype=torch.bfloat16), *tail_w), TypeError),
+            ("a block tail input that requires a gradient", lambda: block_tail(
+                torch.zeros(8, 512, device=DEV, requires_grad=True),
+                torch.zeros(8, 256, device=DEV), *tail_w), RuntimeError)):
+        try:
+            call()
+        except exc as e:
+            log(f"  refused {what} on CUDA: {e}")
+        else:
+            raise SystemExit(f"chip_smoke: a block kernel accepted {what}")
+    if (ln_gemm.launches, block_tail.launches) != n0:
+        raise SystemExit("chip_smoke: a block kernel launched on a refused input")
     for dtype in (torch.float32, torch.bfloat16):
         # the windowed path's shapes, the aligned shapes beside them, a
         # ragged T with a short k_valid, a window covering T, and a narrow
@@ -743,6 +887,19 @@ def main():
                 report(f"GEMM main path {what} M={rows} {str(dtype)[6:]} plan {r['plan']}", r)
         if dtype == torch.float32:
             main_gemm = level["FF2"]
+    # kernels B1 and B2 at the short synthesis's two levels and the long
+    # utterance's rows; the kernels line reports 312 rows in f32 (the T/2
+    # level, where 56 of the 64 blocks run)
+    for dtype in (torch.float32, torch.bfloat16):
+        for rows in (2 * 156, 2 * 312, 2 * 2558):
+            it = 10 if rows > 1000 else 20
+            r1, r2 = ln_gemm_case(g, rows, dtype, iters=it), tail_case(g, rows, dtype, iters=it)
+            report(f"B1 ln_gemm M={rows} {str(dtype)[6:]} plan {r1['plan']} same bits twice "
+                   f"{r1['same']}", r1)
+            report(f"B2 block_tail M={rows} {str(dtype)[6:]} plan {r2['plan']} same bits twice "
+                   f"{r2['same']}", r2)
+            if rows == 2 * 156 and dtype == torch.float32:
+                main_b1, main_b2 = r1, r2
     same_twice(g)
 
     cfg = ModelConfig()
@@ -799,9 +956,11 @@ def main():
     blocks = 64 * nfe
     if wav.shape != (1, 256 * T_mel) or not np.isfinite(wav).all():
         raise SystemExit("chip_smoke: synthesis output has the wrong shape or is not finite")
-    if counts["fused_transformer_block"] != blocks or counts["flash_attention"] < blocks \
-            or counts["gemm"] != 4 * blocks or counts["layer_norm_rows"] != 2 * blocks:
-        raise SystemExit(f"chip_smoke: launch counts {counts} off the path's 64 x NFE {nfe}")
+    if counts["fused_transformer_block"] != blocks or counts["ln_gemm"] != blocks \
+            or counts["block_tail"] != blocks or counts["flash_attention"] < blocks \
+            or counts["gemm"] != 0 or counts["layer_norm_rows"] != 0:
+        raise SystemExit(f"chip_smoke: launch counts {counts} off the path's 64 x NFE {nfe} "
+                         "blocks of three launches")
 
     log("[6] where the time goes: one estimator call at the main path's shape "
         "(B=2, T=312, valid 311), torch.profiler")
@@ -834,6 +993,10 @@ def main():
               "cosy_tpu/ops/fused_block.py:49", main_ln),
         entry("gemm", "cosy_tpu_torch/csrc/fused_block.cu",
               "cosy_tpu/ops/fused_block.py:51", main_gemm),
+        entry("ln_gemm", "cosy_tpu_torch/csrc/fused_block.cu",
+              "cosy_tpu/ops/fused_block.py:49", main_b1),
+        entry("block_tail", "cosy_tpu_torch/csrc/block_tail.cu",
+              "cosy_tpu/ops/fused_block.py:74", main_b2),
         # launches on the windowed path (phase 7); times at its T/2 level
         entry("banded_attention", "cosy_tpu_torch/csrc/flash_attention.cu",
               "cosy_tpu/ops/flash_attention.py:275", main_c,

@@ -1,6 +1,8 @@
 // Tensor-core and asynchronous-copy building blocks of the Hopper kernels:
 // cp.async (16-byte global -> shared copies with zero fill), ldmatrix and the
-// warp-level mma.sync instructions, behind one interface per element type.
+// warp-level mma.sync instructions, behind one interface per element type;
+// then the pieces the block's kernels share: the stream of K slices through
+// a cp.async ring, one slice's product and the tanh GELU.
 //
 //   Mma<__nv_bfloat16>: mma.sync.m16n8k16, bf16 x bf16 -> f32.  A product of
 //     two bf16 values is exact in f32, so only the order of the sum differs
@@ -185,6 +187,135 @@ __device__ __forceinline__ void mma_grid(float (*c)[NT][4], const typename MM::A
       for (int i = 0; i < MT; ++i) MM::template mma<kPass>(c[i][j], a[i], b[j]);
     mma_grid<MM, MT, NT, kPass + 1>(c, a, b);
   }
+}
+
+// ---------------------------------------------------------------------------
+// The block's products: one mainloop for the GEMM kernel (with or without
+// its LayerNorm prologue) and the three products of the block tail
+// ---------------------------------------------------------------------------
+
+constexpr int kSliceBytes = 128;  // K advances 128 bytes of a row at a time
+constexpr int kRowBytes = 144;    // a slice row in shared memory, padded
+
+// COSY_TRACE builds (ops/phase_trace.py's, never the library's) record
+// %globaltimer at numbered phases of block 0, thread 0 into trace_ns
+#ifdef COSY_TRACE
+__device__ long long trace_ns[32];
+#define COSY_PHASE(i)                                                         \
+  do {                                                                        \
+    if (blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0 && threadIdx.x == 0) { \
+      long long t_;                                                           \
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_));                  \
+      trace_ns[i] = t_;                                                       \
+    }                                                                         \
+  } while (0)
+#else
+#define COSY_PHASE(i)
+#endif
+
+// K advances through a ring of shared-memory stages in slices of
+// kSliceBytes a row, filled by 16-byte cp.async copies.  The slices a
+// kernel multiplies form one stream: a kernel of several products (the
+// block tail) numbers them across its products, so that the copies of the
+// next product's first slices are in flight while the block finishes the
+// previous one, reduces across its cluster or normalises.
+//
+// stream_start issues slices 0 .. STAGES-2; stream_slices then consumes the
+// n slices first .. first + n - 1 in order, one __syncthreads() a slice,
+// issuing slice i + STAGES - 1 as slice i is consumed.  issue(i) starts the
+// copies of stream slice i into stage i % STAGES (no commit).  One commit a
+// slice (an empty one past the end) keeps the count of groups uniform, so
+// cp.async.wait_group STAGES - 2 means "slice i has landed".
+template <int STAGES, typename Issue>
+__device__ __forceinline__ void stream_start(int total, Issue issue) {
+  static_assert(STAGES >= 2, "the ring needs two stages");
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < total) issue(s);
+    cp_async_commit();
+  }
+}
+template <int STAGES, typename Issue, typename Compute>
+__device__ __forceinline__ void stream_slices(int first, int n, int total, Issue issue,
+                                              Compute compute) {
+  for (int it = 0; it < n; ++it) {
+    const int i = first + it;
+    cp_async_wait<STAGES - 2>();  // slice i has landed
+    __syncthreads();              // ... for every thread, and slice i-1 is consumed
+    if (i + STAGES - 1 < total) issue(i + STAGES - 1);
+    cp_async_commit();
+    compute(i % STAGES, it);
+  }
+}
+
+// the copies of one K slice of ROWS rows into a stage (rows kRowBytes
+// apart): row r from row(r) + k0, zero for rows >= valid or K >= k_len
+template <typename T, int ROWS, int kThreads, typename Row>
+__device__ __forceinline__ void load_slice_rows(T* dst, Row row, int valid, int k0, int k_len) {
+  constexpr int EPC = 16 / sizeof(T), CPR = kSliceBytes / 16, LD = kRowBytes / sizeof(T);
+  for (int c = threadIdx.x; c < ROWS * CPR; c += kThreads) {
+    const int r = c / CPR, ch = c % CPR, gk = k0 + ch * EPC;
+    const bool ok = r < valid && gk < k_len;
+    cp_async_16(dst + r * LD + ch * EPC, ok ? row(r) + gk : row(0), ok);
+  }
+}
+
+// acc (BM x BN, WARPS_M x WARPS_N warps, each a (BM / WARPS_M) x
+// (BN / WARPS_N) part as m16n8 fragments) += the product of one K slice:
+// A rows lda elements apart at the slice's first k (a stage, or a tile
+// resident in shared memory whose rows are 16 mod 128 bytes apart, which
+// keeps the fragment loads free of bank conflicts) and W's BN rows of a
+// stage.  Under Mma<float> (kPromote) the slice is summed into a zeroed
+// fragment and added to acc on the CUDA cores, rounding to nearest.
+template <typename T, int BM, int BN, int WARPS_M, int WARPS_N>
+__device__ __forceinline__ void slice_product(
+    float (&acc)[BM / WARPS_M / 16][BN / WARPS_N / 8][4], const T* a, int lda, const T* w) {
+  using MM = Mma<T>;
+  constexpr int BK = kSliceBytes / sizeof(T);   // 32 f32 or 64 bf16 values
+  constexpr int LD = kRowBytes / sizeof(T);     // padded stage row, in elements
+  constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N, MT = WM / 16, NT = WN / 8;
+  static_assert(WM % 16 == 0 && WN % 8 == 0, "warp tile must hold whole fragments");
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const T* as = a + (warp / WARPS_N) * WM * lda;
+  const T* ws = w + (warp % WARPS_N) * WN * LD;
+  float part[MM::kPromote ? MT : 1][NT][4];
+  if constexpr (MM::kPromote) {
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[i][j][e] = 0.f;
+  }
+#pragma unroll
+  for (int kk = 0; kk < BK; kk += MM::kK) {
+    typename MM::A af[MT];
+#pragma unroll
+    for (int i = 0; i < MT; ++i) MM::load_a(af[i], as + i * 16 * lda + kk, lda, lane);
+    typename MM::B bf[NT];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) MM::load_b(bf[j], ws + j * 8 * LD + kk, LD, lane);
+    if constexpr (MM::kPromote) mma_grid<MM, MT, NT>(part, af, bf);
+    else mma_grid<MM, MT, NT>(acc, af, bf);
+  }
+  if constexpr (MM::kPromote) {
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
+  }
+}
+
+enum Act : int { kNone = 0, kGeluTanh = 1 };
+
+__device__ __forceinline__ float activate(float v, int act) {
+  if (act == kGeluTanh) {
+    const float c = 0.7978845608028654f;  // sqrt(2 / pi)
+    return 0.5f * v * (1.f + tanhf(c * (v + 0.044715f * v * v * v)));
+  }
+  return v;
 }
 
 }  // namespace cosy

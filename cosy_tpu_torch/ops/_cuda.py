@@ -27,7 +27,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cosy_tpu_torch"
-SOURCES = ("flash_attention.cu", "fused_block.cu")
+SOURCES = ("flash_attention.cu", "fused_block.cu", "block_tail.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -54,6 +54,12 @@ SIGNATURES = {
     "cosy_gemm": ("fused_block.cu", [
         _i, _i, _i, _vp, _vp, _vp, _vp, _i, _vp, _vp, _vp, _i, _i, _i, _i,
         _i, _i, _i, _vp]),
+    "cosy_ln_gemm": ("fused_block.cu", [
+        _i, _i, _i, _vp, _vp, _vp, _vp, _vp, _vp, _i, _vp, _i, _i, _i, _f,
+        _i, _i, _i, _vp]),
+    "cosy_block_tail": ("block_tail.cu", [
+        _i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i,
+        _f, _i, _i, _i, _vp]),
 }
 
 _lock = threading.Lock()
