@@ -15,8 +15,11 @@ Phases, each fatal on failure (nothing is caught and passed over):
      (ops/plan_sweep.py device_ms), which leaves out the waits for the host);
      the block's kernels B1 (ln_gemm) and B2 (block_tail) at 312, 624 and
      5116 rows in f32 and bf16, the block beside the seven-launch chain of
-     the kept LayerNorm and GEMM kernels; the plans that split return the
-     same bits on two calls;
+     the kept LayerNorm and GEMM kernels; A, the block, B1 and B2 at the
+     streaming path's shapes (206 / 103 frames without a bias, the final
+     bucket's 220 / 110 with one; 412, 206, 440 and 220 rows) with the
+     plans they pick; the plans that split return the same bits on two
+     calls;
   4. one full-width estimator call on the card (kernels) against the same
      call on the CPU (plain versions);
   5. full-width prompt-free CosyVoice-300M synthesis on random seeded
@@ -36,7 +39,22 @@ Phases, each fatal on failure (nothing is caught and passed over):
      bf16 compute, 3 steps on one seeded super-batch (accumulation 2 x batch
      8, 250 mel frames): finite losses, a gradient, a falling loss, base
      weights bit-identical, no kernel launched, and merged weights that
-     synthesize.
+     synthesize;
+  9. streaming synthesis at full width: 20 seeded text ids decode exactly
+     400 tokens (EOS held off, cap 400) through
+     TTSPipeline.synthesize(stream=True): three 120-token windows and a
+     bucketed final of 100, chunk lengths as stream_plan says, every chunk
+     finite, counters reset before and read after: 64 x NFE 40 fused
+     blocks of three launches, no LayerNorm or GEMM launch; the streamed
+     tokens equal generate_tokens'; time to the first chunk and seconds per
+     chunk;
+ 10. batched serving: 4 requests of 6-12 ids (120-240 tokens) through
+     synthesize_batch, batched tokens against the 4 solo decodes (equal,
+     or at the first diverging step a teacher-forced logit gap within
+     1e-4 * max(1, max|logit|)), decode tokens/s at B = 4 against B = 1;
+     then 6 requests through ContinuousBatchEngine(slots=4): all finish, one
+     at least admitted mid-flight, each stream its solo decode's, every
+     chunk finite and as planned, 64 x the chunks' NFE fused blocks.
 It prints a JSON "kernels" line (its times are the on-card ones of phase 3),
 the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Without CUDA, or outside a checkout of the
@@ -64,11 +82,14 @@ import torch.nn.functional as F  # noqa: E402
 
 from cosy_tpu_torch import ops  # noqa: E402
 from cosy_tpu_torch.config import InferenceConfig, ModelConfig, TrainConfig  # noqa: E402
-from cosy_tpu_torch.infer.pipeline import TTSPipeline  # noqa: E402
+from cosy_tpu_torch.infer.engine import ContinuousBatchEngine  # noqa: E402
+from cosy_tpu_torch.infer.pipeline import (StreamState, TTSPipeline,  # noqa: E402
+                                           _batch_prefixes, stream_seed)
 from cosy_tpu_torch.layers.unet import conditional_decoder  # noqa: E402
 from cosy_tpu_torch.models.flow import Flow, flow_inference, init_flow_params  # noqa: E402
 from cosy_tpu_torch.models.hift import init_hift_params  # noqa: E402
-from cosy_tpu_torch.models.llm import TransformerLM, init_llm_params  # noqa: E402
+from cosy_tpu_torch.models.llm import (TransformerLM, init_llm_params,  # noqa: E402
+                                       llm_teacher_forced_logits)
 from cosy_tpu_torch.ops import _cuda  # noqa: E402
 from cosy_tpu_torch.ops.flash_attention import (_attention_plan,  # noqa: E402
                                                 banded_attention, banded_attention_ref,
@@ -155,7 +176,10 @@ def compare(kind, got, want, dtype):
 # ---------------------------------------------------------------------------
 
 
-def attention_case(g, B, H, T, S, dtype, masked=True, iters=20):
+def attention_case(g, B, H, T, S, dtype, masked=True, iters=20, pad_from=None):
+    """``masked``: a padding bias, a fully masked row and a short k_valid;
+    else ``pad_from``: the estimator's bias of a masked mel (keys from
+    ``pad_from`` on at -1e10 in every row), or no bias at all."""
     q = torch.randn(B, H, T, 64, device=DEV, generator=g).to(dtype)
     k = torch.randn(B, H, S, 64, device=DEV, generator=g).to(dtype)
     v = torch.randn(B, H, S, 64, device=DEV, generator=g).to(dtype)
@@ -165,7 +189,11 @@ def attention_case(g, B, H, T, S, dtype, masked=True, iters=20):
         bias[-1, :, S - S // 10:] = -1e10  # right padding
         bias[0, min(3, T - 1), :] = -1e10  # one fully masked row
         kv = torch.tensor([S] * (B - 1) + [S - 17], dtype=torch.int32, device=DEV)
-    bias = bias.to(dtype)
+    elif pad_from is not None:
+        bias[:, :, pad_from:] = -1e10
+    else:
+        bias = None
+    bias = None if bias is None else bias.to(dtype)
     scale = 64 ** -0.5
     got = flash_attention(q, k, v, bias, scale, kv)
     torch.cuda.synchronize()
@@ -175,7 +203,7 @@ def attention_case(g, B, H, T, S, dtype, masked=True, iters=20):
     if kv is not None:
         mask = bias.masked_fill(torch.arange(S, device=DEV)[None, None, :]
                                 >= kv[:, None, None], -1e10)
-    mask = mask[:, None]
+    mask = None if mask is None else mask[:, None]
     ms = cuda_ms(lambda: flash_attention(q, k, v, bias, scale, kv), iters)
     plain = cuda_ms(lambda: flash_attention_ref(q, k, v, bias, scale, kv), max(2, iters // 4))
     lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale),
@@ -293,14 +321,17 @@ def seven_launch_block(x, bias, W, heads, scale):
     return run
 
 
-def block_case(g, B, T, dtype, with_bias, iters=20, heads=8):
+def block_case(g, B, T, dtype, with_bias, iters=20, heads=8, pad_from=None):
     W = block_weights(g, dtype)
     C, inner, ff = 256, 512, 1024
     x = torch.randn(B, T, C, device=DEV, generator=g).to(dtype)
     bias = None
     if with_bias:
         bias = torch.zeros(B, T, T, device=DEV)
-        bias[-1, :, T - T // 10:] = -1e10
+        if pad_from is None:
+            bias[-1, :, T - T // 10:] = -1e10
+        else:
+            bias[:, :, pad_from:] = -1e10
         bias = bias.to(dtype)
     scale = (inner // heads) ** -0.5
     got = fused_transformer_block(x, bias, *W, heads=heads, scale=scale)
@@ -710,6 +741,183 @@ def training_steps(cfg, llm, flow, hift, steps=3):
         log_profile(wall_ms, (time.perf_counter() - t0) * 1e3, busy, by_name, top=8)
 
 
+def expect_blocks(counts, nfe, what):
+    """Fail unless ``counts`` show 64 x ``nfe`` fused blocks of three
+    launches and no LayerNorm, GEMM or banded launch."""
+    blocks = 64 * nfe
+    if counts["fused_transformer_block"] != blocks or counts["ln_gemm"] != blocks \
+            or counts["block_tail"] != blocks or counts["flash_attention"] != blocks \
+            or counts["gemm"] != 0 or counts["layer_norm_rows"] != 0 \
+            or counts["banded_attention"] != 0:
+        raise SystemExit(f"chip_smoke: {what} launch counts {counts} off 64 x NFE {nfe} blocks "
+                         "of three launches")
+
+
+def check_same_tokens(pipe, what, got, want, prefix_rows):
+    """The rule for batched against solo tokens on the card: identical, or
+    at the first diverging step j the teacher-forced logits of the row in a
+    left-padded batch (``prefix_rows``: the batch's prefixes, this row
+    first) and of the solo decode agree within 1e-4 * max(1, max|logit|),
+    so the flip is a sampling boundary crossed by a rounding difference."""
+    got, want = list(got), list(want)
+    if got == want:
+        return
+    j = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), min(len(got), len(want)))
+    p, cfg = pipe.llm_p, pipe.cfg.llm
+    prefix, valid, _, _ = _batch_prefixes(prefix_rows)
+    n = min(len(want), j)
+    rows = [want[:n]] + [[0] * n for _ in prefix_rows[1:]]
+    with torch.inference_mode():
+        batched = llm_teacher_forced_logits(p, cfg, prefix, valid, rows)[0, n].float()
+        solo = llm_teacher_forced_logits(p, cfg, prefix_rows[0][0], [prefix_rows[0][0].shape[1]],
+                                         [want[:n]])[0, n].float()
+    gap = (batched - solo).abs().max().item()
+    tol = 1e-4 * max(1.0, solo.abs().max().item())
+    log(f"  {what}: tokens diverge from the solo decode at step {j} of {len(want)}; "
+        f"teacher-forced logit gap there {gap:.3e} (tol {tol:.3e})")
+    if not gap <= tol:
+        raise SystemExit(f"chip_smoke: {what} diverges from its solo decode beyond rounding")
+
+
+def streaming_synthesis(cfg, llm, flow, hift, n_ids=20, cap=400, seed=18):
+    """Phase 9."""
+    icfg = InferenceConfig(min_token_text_ratio=20.0)
+    pipe = TTSPipeline(cfg, llm, flow, hift, icfg, finetuned_norm=True)
+    plan = pipe.stream_plan(cap)
+    nfe = sum(pipe._select_nfe(pipe._mel_len(b - a)) for a, b, _ in plan)
+    log(f"[9] streaming synthesis, full width: {n_ids} seeded text ids, EOS held off to {cap} "
+        f"tokens and the decode capped there; windows {[(a, b) for a, b, _ in plan]} "
+        f"(the last bucketed to {pipe._final_tok_bucket} tokens), NFE {nfe} in all")
+    if [b - a for a, b, _ in plan] != [120, 120, 120, 100] or nfe != 40:
+        raise SystemExit(f"chip_smoke: the streaming plan {plan} is not 3 x 120 + 100 tokens")
+    ids = np.random.default_rng(17).integers(0, 256, (1, n_ids)).astype(np.int64)
+    spk = np.zeros((1, cfg.llm.spk_embed_dim), np.float32)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    chunks, at = [], []
+    for out in pipe.synthesize(ids, max_len_cap=cap, seed=seed, stream=True):
+        chunks.append(out["tts_speech"])
+        at.append(time.perf_counter() - t0)
+    counts = ops.launch_counts()
+    audio_s = sum(c.shape[1] for c in chunks) / cfg.sample_rate
+    log(f"  time to the first chunk {at[0]:.3f} s ({chunks[0].shape[1] / cfg.sample_rate:.3f} s "
+        f"of audio); chunks at {', '.join(f'{x:.3f}' for x in at)} s; seconds per later chunk "
+        f"{', '.join(f'{b - a:.3f}' for a, b in zip(at, at[1:]))}; {audio_s:.2f} s of audio "
+        f"in {at[-1]:.3f} s (RTF {at[-1] / audio_s:.3f})")
+    log(f"  launches: {counts}")
+    if [c.shape[1] for c in chunks] != [s for _, _, s in plan] \
+            or not all(np.isfinite(c).all() for c in chunks):
+        raise SystemExit(f"chip_smoke: streamed chunks {[c.shape for c in chunks]} off the plan "
+                         f"{plan} or not finite")
+    expect_blocks(counts, nfe, "streaming")
+    with torch.inference_mode():
+        whole = pipe.generate_tokens(ids, spk, cap, torch.Generator().manual_seed(
+            stream_seed(seed, 0, 0)))[0]
+        segs = list(pipe.generate_tokens_stream(ids, spk, cap, torch.Generator().manual_seed(
+            stream_seed(seed, 0, 0))))
+    log(f"  decode segments of {[s.shape[1] for s, _ in segs]} tokens; streamed tokens equal "
+        f"generate_tokens: {np.array_equal(segs[-1][0][0], whole)}")
+    if len(whole) != cap or not np.array_equal(segs[-1][0][0], whole):
+        raise SystemExit("chip_smoke: the streamed tokens differ from generate_tokens")
+    log("  where a window's time goes: token2wav of the first 120-token window (fresh carries), "
+        "torch.profiler")
+
+    def window():
+        pipe.token2wav(whole[None, :120], spk, stream_state=StreamState(), finalize=False,
+                       generator=torch.Generator(device=DEV).manual_seed(seed))
+
+    with torch.inference_mode():
+        window()
+        wall_ms, busy, by_name = profile_device(window)
+        plain_wall = cuda_ms(window, 3)
+    log_profile(wall_ms, plain_wall, busy, by_name, top=6)
+
+
+def batched_serving(cfg, llm, flow, hift, seed=21):
+    """Phase 10."""
+    icfg = InferenceConfig(min_token_text_ratio=20.0)
+    pipe = TTSPipeline(cfg, llm, flow, hift, icfg, finetuned_norm=True)
+    spk = np.zeros((1, cfg.llm.spk_embed_dim), np.float32)
+    lens = (6, 8, 10, 12, 7, 9)
+    texts = [np.random.default_rng(30 + i).integers(0, 256, (1, n)).astype(np.int64)
+             for i, n in enumerate(lens)]
+    log(f"[10] batched decode and the continuous-batching engine, full width: requests of "
+        f"{list(lens)} text ids, EOS held off to 20 tokens an id")
+    with torch.inference_mode():
+        built = [pipe._build_prefix(x, spk, 2048) for x in texts]
+        solo = []
+        for n_req in (4, 6):  # the first four, one by one, are the B = 1 yardstick
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            solo += [pipe.generate_tokens(texts[b], spk, 2048, torch.Generator().manual_seed(
+                stream_seed(seed, b, 0)))[0] for b in range(len(solo), n_req)]
+            if n_req == 4:
+                t_solo = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = pipe._decode_batch(texts[:4], [spk] * 4, 2048, seed).run()
+        torch.cuda.synchronize()
+        t_batch = time.perf_counter() - t0
+    n4 = sum(len(s) for s in solo[:4])
+    log(f"  decode tokens/s (host clock, prefills included): B=4 {n4 / t_batch:.1f} ({n4} "
+        f"tokens in {t_batch:.3f} s, {max(len(s) for s in solo[:4])} steps) against B=1 "
+        f"{n4 / t_solo:.1f} (the same four one by one, {t_solo:.3f} s): "
+        f"{t_solo / t_batch:.2f}x")
+    for b in range(4):
+        check_same_tokens(pipe, f"batch row {b}", state.tokens[b], solo[b],
+                          [built[b]] + [built[i] for i in range(4) if i != b])
+    for B in (1, 4):
+        log(f"  where a decode step's time goes, B={B}: 20 steps, torch.profiler")
+        with torch.inference_mode():
+            st = pipe._decode_batch(texts[:B], [spk] * B, 2048, seed)
+            st.run(st.i + 5)
+            wall_ms, busy, by_name = profile_device(lambda: st.run(st.i + 20))
+            t0 = time.perf_counter()
+            st.run(st.i + 20)
+            torch.cuda.synchronize()
+        log_profile(wall_ms, (time.perf_counter() - t0) * 1e3, busy, by_name, top=4)
+    if [len(s) for s in solo] != [20 * n for n in lens]:
+        raise SystemExit(f"chip_smoke: solo decodes of {[len(s) for s in solo]} tokens, "
+                         f"not {[20 * n for n in lens]}")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    wavs = pipe.synthesize_batch(texts[:4], max_len_cap=2048, seed=seed)
+    t_sb = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    nfe = sum(pipe._select_nfe(pipe._mel_len(20 * n)) for n in lens[:4])
+    log(f"  synthesize_batch: {t_sb:.3f} s for {sum(w.shape[1] for w in wavs) / 22050:.2f} s "
+        f"of audio; launches {counts}")
+    if [w.shape[1] for w in wavs] != [256 * pipe._mel_len(20 * n) for n in lens[:4]] \
+            or not all(np.isfinite(w).all() for w in wavs):
+        raise SystemExit("chip_smoke: synthesize_batch output has the wrong shape or is not finite")
+    expect_blocks(counts, nfe, "synthesize_batch")
+
+    eng = ContinuousBatchEngine(pipe, slots=4)
+    plans = [pipe.stream_plan(20 * n) for n in lens]
+    nfe = sum(pipe._select_nfe(pipe._mel_len(b - a)) for pl in plans for a, b, _ in pl)
+    ops.reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        reqs = [eng.submit(x, seed=stream_seed(seed, b, 0)) for b, x in enumerate(texts)]
+        outs = [list(r.chunks(timeout=600)) for r in reqs]
+        t_eng = time.perf_counter() - t0
+    finally:
+        eng.stop()
+    counts = ops.launch_counts()
+    log(f"  engine, 4 slots: {len(reqs)} requests in {t_eng:.3f} s wall, "
+        f"{eng.segments_run} segments; admitted at segments "
+        f"{[r.admitted_segment for r in reqs]}; chunks {[len(o) for o in outs]}; "
+        f"launches {counts}")
+    for b, (r, o) in enumerate(zip(reqs, outs)):
+        if [c.shape[1] for c in o] != [s for _, _, s in plans[b]] \
+                or not all(np.isfinite(c).all() for c in o):
+            raise SystemExit(f"chip_smoke: engine request {b} chunks off its plan or not finite")
+        check_same_tokens(pipe, f"engine request {b}", r.tokens, solo[b], [built[b]])
+    if not any(r.admitted_segment for r in reqs):
+        raise SystemExit("chip_smoke: no request was admitted mid-flight")
+    expect_blocks(counts, nfe, "engine")
+
+
 def report(name, r):
     def dev(key):
         return "" if r.get(key) is None else f" ({r[key]:.4f} on the card)"
@@ -900,6 +1108,25 @@ def main():
                    f"{r2['same']}", r2)
             if rows == 2 * 156 and dtype == torch.float32:
                 main_b1, main_b2 = r1, r2
+    # the streaming path's shapes (phase 9): a 120-token window is 206 mel
+    # frames (even: no mask, no bias) and 103 at the T/2 level; the bucketed
+    # final chunk is 220 frames with its true 172 valid (a (B,T,T) bias),
+    # 110 with 86 valid at T/2.  B1 and B2 run at 412, 206, 440 and 220 rows
+    log("  streaming and final-bucket shapes (phase 9's), plans (block_q, kv_splits) of A, "
+        "(block_m, block_n, cluster) of B1, (block_m, cluster, sub-tile) of B2")
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype)[6:]
+        for T, valid in ((206, None), (103, None), (220, 172), (110, 86)):
+            what = "no bias" if valid is None else f"bias from key {valid}"
+            report(f"A stream (2,8,{T},64) {dn} {what} plan "
+                   f"{_attention_plan(16, T, T, None, dtype)}",
+                   attention_case(g, 2, 8, T, T, dtype, masked=False, pad_from=valid))
+            report(f"B stream (2,{T},256) {dn} {what}",
+                   block_case(g, 2, T, dtype, valid is not None, pad_from=valid))
+        for rows in (412, 206, 440, 220):
+            r1, r2 = ln_gemm_case(g, rows, dtype), tail_case(g, rows, dtype)
+            report(f"B1 stream M={rows} {dn} plan {r1['plan']} same bits twice {r1['same']}", r1)
+            report(f"B2 stream M={rows} {dn} plan {r2['plan']} same bits twice {r2['same']}", r2)
     same_twice(g)
 
     cfg = ModelConfig()
@@ -968,6 +1195,8 @@ def main():
 
     counts_w = windowed_synthesis(cfg, llm, flow, hift)
     training_steps(cfg, llm, flow, hift)
+    streaming_synthesis(cfg, llm, flow, hift)
+    batched_serving(cfg, llm, flow, hift)
 
     def entry(name, source, replaces, r, launches=None):
         # times on the card (torch.profiler) where the profiler gave them,

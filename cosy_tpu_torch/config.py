@@ -346,8 +346,8 @@ class InferenceConfig:
     sampling_top_k: int = 25
     ras_win_size: int = 10
     ras_tau_r: float = 0.1
-    # int8 decode, the bucketed final chunk and the short first streaming
-    # hop belong to paths that later slices port; kept for config parity
+    # int8 decode is not ported (kept for config parity); the bucketed
+    # final streaming chunk and the short first hop are
     int8_decode: bool = False
     bucket_final: bool = True
     first_chunk_tokens: int = 0

@@ -3,7 +3,7 @@
 
     python -m cosy_tpu_torch.infer --text "..." [--device cuda|cpu]
         [--pretrained DIR] [--llm PATH] [--flow PATH] [--output out.wav]
-        [--speed 1.0] [--seed 0] [--tiny] [--attn-window N]
+        [--speed 1.0] [--seed 0] [--tiny] [--attn-window N] [--stream]
 
 Weights load from ``DIR/{llm,flow,hift}.pt`` (``--llm`` / ``--flow``
 override with merged fine-tuned weights); without them every model is
@@ -13,13 +13,16 @@ utf-8 byte ids.  ``--attn-window N`` restricts the estimator's attention to
 the +-N-frame local band (halved per U-Net level; banded-attention kernel C
 on the GPU): a speed/quality trade for long utterances, off by default.  An
 utterance whose mel length is odd is padded and masked, and a level with a
-mask keeps full attention.
+mask keeps full attention.  ``--stream`` synthesizes window by window as
+the decode goes (the first chunk after 120 tokens), writes the chunks
+concatenated and prints the time to the first chunk.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import time
 
 import numpy as np
 
@@ -82,6 +85,8 @@ def main(argv=None):
     ap.add_argument("--attn-window", type=int, default=None, metavar="N",
                     help="local-band estimator attention, +-N mel frames "
                          "(default: full attention)")
+    ap.add_argument("--stream", action="store_true",
+                    help="streamed synthesis; prints the time to the first chunk")
     args = ap.parse_args(argv)
 
     cfg = tiny_model_config() if args.tiny else ModelConfig()
@@ -93,7 +98,16 @@ def main(argv=None):
     pipe = TTSPipeline(cfg, llm, flow, hift, finetuned_norm=True)
     ids = np.asarray([list(args.text.encode("utf-8"))], np.int64)
     print(f"text: {args.text!r} -> {ids.shape[1]} byte ids")
-    wav = next(pipe.synthesize(ids, speed=args.speed, seed=args.seed))["tts_speech"][0]
+    t0 = time.perf_counter()
+    chunks = []
+    for out in pipe.synthesize(ids, speed=args.speed, seed=args.seed, stream=args.stream):
+        chunks.append(out["tts_speech"][0])
+        if len(chunks) == 1 and args.stream:
+            print(f"first chunk after {time.perf_counter() - t0:.3f} s "
+                  f"({len(chunks[0]) / cfg.sample_rate:.2f} s of audio)")
+    wav = np.concatenate(chunks)
+    if args.stream:
+        print(f"{len(chunks)} chunks in {time.perf_counter() - t0:.3f} s")
     save_wav(args.output, wav, cfg.sample_rate)
     print(f"saved {len(wav) / cfg.sample_rate:.2f}s -> {args.output}")
 

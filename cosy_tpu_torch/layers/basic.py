@@ -100,11 +100,18 @@ def layer_norm(p: P, name: str, x: torch.Tensor, eps: float = 1e-5) -> torch.Ten
 
 
 def group_norm(p: P, name: str, x: torch.Tensor, num_groups: int,
-               eps: float = 1e-5) -> torch.Tensor:
-    """torch nn.GroupNorm over (B, C, T) with f32 statistics."""
-    y = F.group_norm(x.float(), num_groups, p[name + ".weight"].float(),
-                     p[name + ".bias"].float(), eps)
-    return y.to(x.dtype)
+               eps: float = 1e-5, frames_valid=None) -> torch.Tensor:
+    """torch nn.GroupNorm over (B, C, T) with f32 statistics.
+
+    ``frames_valid`` ((B,) tensor or int): statistics over the first
+    ``frames_valid`` frames only; x must already be zero beyond them, and
+    callers re-mask the output."""
+    if frames_valid is None:
+        y = F.group_norm(x.float(), num_groups, p[name + ".weight"].float(),
+                         p[name + ".bias"].float(), eps)
+        return y.to(x.dtype)
+    return group_norm_nwc(p, name, x.transpose(1, 2), num_groups, eps,
+                          frames_valid).transpose(1, 2)
 
 
 def group_norm_nwc(p: P, name: str, x: torch.Tensor, num_groups: int,

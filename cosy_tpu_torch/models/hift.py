@@ -1,5 +1,6 @@
 """HiFT NSF-iSTFT vocoder: mel (B, 80, T) -> waveform (B, T * 256) (the port
-of the JAX package's ``models/hift.py``, non-streaming path).
+of the JAX package's ``models/hift.py``), with the streaming source carry
+and the bucket-padded (``mel_valid``) variant of the final chunk.
 
 Weight norm is folded into plain ``.weight`` keys at load
 (``params.fold_weight_norm``).  The sine source's random initial phases and
@@ -25,11 +26,21 @@ def _get_padding(kernel: int, dilation: int = 1) -> int:
     return (kernel * dilation - dilation) // 2
 
 
-def f0_predict(p: P, mel: torch.Tensor) -> torch.Tensor:
-    """(B, 80, T) -> (B, T) f0 in Hz (ConvRNNF0Predictor)."""
-    x = mel
+def _vmask(length: int, valid: int, like: torch.Tensor) -> torch.Tensor:
+    """(1, 1, length) mask of the first ``valid`` frames."""
+    return (torch.arange(length, device=like.device) < valid).to(like.dtype)[None, None]
+
+
+def f0_predict(p: P, mel: torch.Tensor, mel_valid: Optional[int] = None) -> torch.Tensor:
+    """(B, 80, T) -> (B, T) f0 in Hz (ConvRNNF0Predictor).  ``mel_valid``:
+    pad frames are re-zeroed after every conv (elu(bias) is nonzero there
+    and the next conv's window would carry it into the valid tail)."""
+    mask = None if mel_valid is None else _vmask(mel.shape[-1], mel_valid, mel)
+    x = mel if mask is None else mel * mask
     for i in range(5):
         x = F.elu(conv1d(p, f"condnet.{2 * i}", x, padding=1))
+        if mask is not None:
+            x = x * mask
     return torch.abs(dense(p, "classifier", x.transpose(1, 2)))[:, :, 0]
 
 
@@ -64,26 +75,45 @@ def sine_source(
 
 
 def resblock(p: P, name: str, x: torch.Tensor, kernel: int,
-             dilations: Tuple[int, ...]) -> torch.Tensor:
-    """Snake-activated dilated residual block."""
+             dilations: Tuple[int, ...], mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Snake-activated dilated residual block; ``mask`` re-zeroes the conv
+    outputs' pad frames (snake(0) = 0 keeps them zero)."""
     sp = p.sub(name)
     for i, d in enumerate(dilations):
         xt = snake(x, p[f"{name}.activations1.{i}.alpha"].float())
         xt = conv1d(sp, f"convs1.{i}", xt, padding=_get_padding(kernel, d), dilation=d)
+        if mask is not None:
+            xt = xt * mask
         xt = snake(xt, p[f"{name}.activations2.{i}.alpha"].float())
         xt = conv1d(sp, f"convs2.{i}", xt, padding=_get_padding(kernel, 1))
+        if mask is not None:
+            xt = xt * mask
         x = xt + x
     return x
 
 
-def hift_decode(p: P, cfg: HiFTConfig, mel: torch.Tensor,
-                source: torch.Tensor) -> torch.Tensor:
-    """Deterministic decode given an excitation source (B, 1, T * 256)."""
+def hift_decode(p: P, cfg: HiFTConfig, mel: torch.Tensor, source: torch.Tensor,
+                mel_valid: Optional[int] = None) -> torch.Tensor:
+    """Deterministic decode given an excitation source (B, 1, T * 256).
+
+    ``mel_valid``: the bucket-padded variant.  Every conv output is
+    re-zeroed beyond its level's valid length and the iSTFT runs over the
+    valid frames, so samples below ``mel_valid * 256`` equal the unpadded
+    decode's and the rest are zero.  ``mel`` and ``source`` must be zero
+    beyond the valid region, the source carrying the STFT's reflect pad at
+    the true boundary (see hift_inference)."""
     n_fft, hop = cfg.istft_n_fft, cfg.istft_hop_len
     s_re, s_im = stft_center(source[:, 0, :], n_fft, hop)
     s_stft = torch.cat([s_re, s_im], dim=1)  # (B, n_fft + 2, Ts)
+    lvl_valid = mel_valid
+    if mel_valid is not None:
+        # one STFT frame per hop of the valid source, plus one (centred)
+        s_stft = s_stft * _vmask(s_stft.shape[-1],
+                                 mel_valid * int(np.prod(cfg.upsample_rates)) + 1, mel)
 
     x = conv1d(p, "conv_pre", mel, padding=3)
+    if mel_valid is not None:
+        x = x * _vmask(x.shape[-1], mel_valid, x)
     num_up = len(cfg.upsample_rates)
     nk = len(cfg.resblock_kernel_sizes)
     down_cum = list(np.cumprod([1] + list(cfg.upsample_rates)[::-1][:-1])[::-1])
@@ -92,25 +122,34 @@ def hift_decode(p: P, cfg: HiFTConfig, mel: torch.Tensor,
         x = conv_transpose1d(p, f"ups.{i}", x, stride=u, padding=(k - u) // 2)
         if i == num_up - 1:
             x = F.pad(x, (1, 0), mode="reflect")
+        m = None
+        if lvl_valid is not None:
+            lvl_valid = lvl_valid * u + (1 if i == num_up - 1 else 0)
+            m = _vmask(x.shape[-1], lvl_valid, x)
+            x = x * m
         du = int(down_cum[i])
         if du == 1:
             si = conv1d(p, f"source_downs.{i}", s_stft)
         else:
             si = conv1d(p, f"source_downs.{i}", s_stft, stride=du, padding=du // 2)
+        ms = None if m is None else m[:, :, :si.shape[-1]]
+        if ms is not None:
+            si = si * ms
         si = resblock(p, f"source_resblocks.{i}", si, cfg.source_resblock_kernel_sizes[i],
-                      cfg.source_resblock_dilation_sizes[i])
+                      cfg.source_resblock_dilation_sizes[i], ms)
         x = x + si
         xs = None
         for j in range(nk):
             r = resblock(p, f"resblocks.{i * nk + j}", x, cfg.resblock_kernel_sizes[j],
-                         cfg.resblock_dilation_sizes[j])
+                         cfg.resblock_dilation_sizes[j], m)
             xs = r if xs is None else xs + r
         x = xs / nk
 
     x = conv1d(p, "conv_post", leaky_relu(x), padding=3)
     magnitude = torch.clamp(torch.exp(x[:, : n_fft // 2 + 1, :]), max=1e2)
     phase = torch.sin(x[:, n_fft // 2 + 1:, :])
-    wav = istft(magnitude * torch.cos(phase), magnitude * torch.sin(phase), n_fft, hop)
+    wav = istft(magnitude * torch.cos(phase), magnitude * torch.sin(phase), n_fft, hop,
+                valid_frames=lvl_valid)
     return torch.clamp(wav, -cfg.audio_limit, cfg.audio_limit)
 
 
@@ -121,13 +160,30 @@ def hift_inference(
     generator: Optional[torch.Generator] = None,
     phase: Optional[torch.Tensor] = None,
     noise: Optional[torch.Tensor] = None,
+    cache_source: Optional[torch.Tensor] = None,  # (B, 1, L_cache) streaming carry
+    mel_valid: Optional[int] = None,  # true frames of a bucket-padded mel
 ):
-    """mel -> (wav (B, T * 256), source (B, 1, T * 256))."""
+    """mel -> (wav (B, T * 256), source (B, 1, T * 256)).
+
+    The sine source is built at the full length (its noise draw keeps that
+    shape), then ``mel_valid`` zeroes it beyond the true end and writes the
+    STFT's end reflect pad at the true boundary, and ``cache_source``
+    overwrites its head with the previous chunk's tail."""
     up_total = int(np.prod(cfg.upsample_rates)) * cfg.istft_hop_len
-    f0 = f0_predict(p.sub("f0_predictor"), mel)
+    f0 = f0_predict(p.sub("f0_predictor"), mel, mel_valid)
     f0_up = torch.repeat_interleave(f0, up_total, dim=1)[:, None, :]  # nearest
     s = sine_source(p.sub("m_source"), cfg, f0_up, generator, phase, noise)
-    return hift_decode(p, cfg, mel, s), s
+    if mel_valid is not None:
+        L, Lv, pad = s.shape[-1], mel_valid * up_total, cfg.istft_n_fft // 2
+        s = s * _vmask(L, Lv, s)
+        # where the buffer ends at the true boundary, the STFT's own reflect
+        # pad applies
+        if Lv + pad <= L:
+            s[:, :, Lv:Lv + pad] = torch.flip(s[:, :, Lv - pad - 1:Lv - 1], dims=(2,))
+    if cache_source is not None and cache_source.shape[2]:
+        s = s.clone()
+        s[:, :, :cache_source.shape[2]] = cache_source
+    return hift_decode(p, cfg, mel, s, mel_valid), s
 
 
 class HiFT(ParamTree):

@@ -3,18 +3,21 @@ the JAX package's ``models/llm.py``): the no-prompt training forward
 (``llm_forward_train`` over the dense ``pack_lm_inputs`` layout) and the AR
 decode.
 
-The AR decode keeps a fixed-capacity KV cache per layer and projects every
-layer's positional keys once, before the loop: the Transformer-XL
-relative-position keys of step ``L`` are the window ``[S-1-L, S-1-L+S)`` of
-the (2S-1)-row table.  A step attends the first ``L+1`` cache slots only,
-which equals the full-capacity attention with -1e10 on the unwritten slots.
+The AR decode is one resumable object, :class:`DecodeState`, over B rows: a
+solo decode (``llm_decode``) is B = 1, a micro-batch shares each step's
+weight reads, and a continuous-batching engine admits requests into free
+rows (``llm_admit_slot``).  Prefixes are left-padded to a common L0 and
+every layer's positional keys are projected once: the Transformer-XL
+relative-position keys of a query at column ``c`` are the window
+``[S-1-c, S-1-c+W)`` of the (2S-1)-row table.  A step reads only the live
+columns, which equals the full-capacity attention with -1e10 on the others.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -179,71 +182,265 @@ def llm_forward_train(p: P, cfg: LLMConfig, batch: Dict[str, torch.Tensor],
 
 @dataclass
 class KVCache:
-    """Fixed-capacity decode state of one sequence."""
-    k: torch.Tensor  # (nl, H, S, dk)
-    v: torch.Tensor  # (nl, H, S, dk)
+    """Fixed-capacity decode cache of B rows.  Prefixes are LEFT-padded to a
+    common L0: row b's valid prefix keys sit at columns ``[start[b], L0)``
+    and the keys of its generated tokens follow at ``[L0, L0 + n_b)``.  A
+    solo decode is the B = 1 case with ``start`` 0.  Relative positions make
+    a row's logits those of its unpadded run."""
+    k: torch.Tensor  # (nl, B, H, S, dk)
+    v: torch.Tensor  # (nl, B, H, S, dk)
     pos_k: torch.Tensor  # (nl, H, 2S-1, dk) projected positional keys
+    start: torch.Tensor  # (B,) long, first valid prefix column of each row
 
 
-def llm_prefill(p: P, cfg: LLMConfig, prefix_emb: torch.Tensor, capacity: int):
-    """Run the causal backbone over the (1, L0, D) prefix, seed a cache of
-    ``capacity`` slots with its K/V, and return (logits of the next token
-    (V+1,), cache)."""
+def _empty_cache(p: P, cfg: LLMConfig, B: int, capacity: int, dtype, device) -> KVCache:
+    """A zeroed cache of ``capacity`` columns; every layer's positional keys
+    are projected once here: the keys of a query at column ``c`` are the
+    window ``[S-1-c, S-1-c+W)`` of the (2S-1)-row table."""
     ecfg = cfg.llm
-    nl, H, dk = ecfg.num_blocks, ecfg.attention_heads, ecfg.head_dim
+    p_llm = p.sub("llm")
+    table = rel_pos_table(capacity, ecfg.output_size, device).to(dtype)
+    pos_k = torch.stack([
+        _split_heads(dense(p_llm.sub(f"encoders.{i}.self_attn"), "linear_pos", table),
+                     ecfg.attention_heads)[0]
+        for i in range(ecfg.num_blocks)])
+    shape = (ecfg.num_blocks, B, ecfg.attention_heads, capacity, ecfg.head_dim)
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device), pos_k=pos_k,
+                   start=torch.zeros((B,), dtype=torch.long, device=device))
+
+
+def _prefill(p: P, cfg: LLMConfig, prefix_emb: torch.Tensor, start: torch.Tensor):
+    """The causal backbone over (B, L0, D) left-padded prefixes: key k is
+    visible to query q iff ``start[b] <= k <= q``.  Returns (the logits of
+    each row's next token (B, V+1), keys and values (nl, B, H, L0, dk))."""
+    ecfg = cfg.llm
     p_llm = p.sub("llm")
     L0 = prefix_emb.shape[1]
     dt, dev = prefix_emb.dtype, prefix_emb.device
-    table = rel_pos_table(capacity, ecfg.output_size, dev).to(dt)
-    pos_k = torch.stack([
-        _split_heads(dense(p_llm.sub(f"encoders.{i}.self_attn"), "linear_pos", table), H)[0]
-        for i in range(nl)])
-    cache = KVCache(k=torch.zeros((nl, H, capacity, dk), dtype=dt, device=dev),
-                    v=torch.zeros((nl, H, capacity, dk), dtype=dt, device=dev),
-                    pos_k=pos_k)
     h = _token_embed_legacy(p_llm, prefix_emb)
     pe0 = rel_pos_table(L0, ecfg.output_size, dev).to(dt)
-    causal = torch.where(torch.arange(L0, device=dev)[:, None]
-                         >= torch.arange(L0, device=dev)[None, :], 0.0, M.NEG_BIAS)
-    causal = causal[None].to(dt)
-    for i in range(nl):
-        h, (ki, vi) = transformer_layer(p_llm, f"encoders.{i}", ecfg, h, causal, pe0,
+    kq = torch.arange(L0, device=dev)
+    vis = (kq[None, None, :] <= kq[None, :, None]) & (kq[None, None, :] >= start[:, None, None])
+    bias = torch.where(vis, 0.0, M.NEG_BIAS).to(dt)
+    ks, vs = [], []
+    for i in range(ecfg.num_blocks):
+        h, (ki, vi) = transformer_layer(p_llm, f"encoders.{i}", ecfg, h, bias, pe0,
                                         return_kv=True)
-        cache.k[i, :, :L0] = ki[0]
-        cache.v[i, :, :L0] = vi[0]
+        ks.append(ki)
+        vs.append(vi)
     h = layer_norm(p_llm, "after_norm", h, eps=1e-5)
-    return dense(p, "llm_decoder", h[:, -1])[0], cache
+    return dense(p, "llm_decoder", h[:, -1]), torch.stack(ks), torch.stack(vs)
 
 
-def llm_decode_step(p: P, cfg: LLMConfig, cache: KVCache, token: int,
-                    L: int) -> torch.Tensor:
-    """Feed one speech token at absolute position / cache slot ``L``; writes
-    its K/V into the cache and returns the next token's logits (V+1,)."""
+def _prefilled_cache(p: P, cfg: LLMConfig, prefix_emb: torch.Tensor, valid: Sequence[int],
+                     capacity: int):
+    """Prefill B LEFT-padded prefixes (``valid[b]`` real rows each) into a
+    cache of ``capacity`` columns: (next-token logits (B, V+1), cache)."""
+    B, L0 = prefix_emb.shape[:2]
+    cache = _empty_cache(p, cfg, B, capacity, prefix_emb.dtype, prefix_emb.device)
+    cache.start = torch.tensor([L0 - v for v in valid], device=prefix_emb.device)
+    logits, k, v = _prefill(p, cfg, prefix_emb, cache.start)
+    cache.k[:, :, :, :L0] = k
+    cache.v[:, :, :, :L0] = v
+    return logits, cache
+
+
+def llm_prefill(p: P, cfg: LLMConfig, prefix_emb: torch.Tensor, capacity: int):
+    """Solo prefill of a (1, L0, D) prefix: (logits of the next token
+    (V+1,), a cache of ``capacity`` columns seeded with the prefix's K/V)."""
+    logits, cache = _prefilled_cache(p, cfg, prefix_emb, [prefix_emb.shape[1]], capacity)
+    return logits[0], cache
+
+
+def llm_decode_step_batch(p: P, cfg: LLMConfig, cache: KVCache, tokens: Sequence[int],
+                          cols: Sequence[int]) -> torch.Tensor:
+    """Feed row b's token ``tokens[b]`` at cache column ``cols[b]`` (its
+    absolute position); writes its K/V there and returns every row's
+    next-token logits (B, V+1).  Row b attends columns ``[start[b], cols[b]]``
+    with its own positional window.  The step reads only the live columns
+    ``[0, max(cols) + 1)``: the -1e10 bias beyond a row's last column adds
+    exact zeros to its softmax, so a row's result is its solo decode's."""
     ecfg = cfg.llm
     H, dk = ecfg.attention_heads, ecfg.head_dim
-    S = cache.k.shape[2]
+    S = cache.k.shape[3]
+    dev = cache.k.device
     p_llm = p.sub("llm")
     act = ACT[ecfg.activation_type]
     eps = ecfg.layer_norm_eps
-    ids = torch.tensor([[token]], device=cache.k.device)
-    x = _token_embed_legacy(p_llm, embedding(p, "speech_embedding", ids))  # (1, 1, D)
+    B, W = len(tokens), max(cols) + 1
+    rows = torch.arange(B, device=dev)
+    col = torch.tensor(list(cols), device=dev)
+    kpos = torch.arange(W, device=dev)
+    live = (kpos[None, :] >= cache.start[:, None]) & (kpos[None, :] <= col[:, None])
+    bias = torch.where(live, 0.0, M.NEG_BIAS)[:, None, :]  # (B, 1, W) f32
+    pidx = (S - 1 - col)[:, None] + kpos[None, :]  # (B, W): relative positions c .. c-W+1
+    ids = torch.tensor(list(tokens), device=dev)[:, None]
+    x = _token_embed_legacy(p_llm, embedding(p, "speech_embedding", ids))  # (B, 1, D)
     for i in range(ecfg.num_blocks):
         sp = p_llm.sub(f"encoders.{i}")
         sa = sp.sub("self_attn")
         hn = layer_norm(sp, "norm1", x, eps=eps)
-        q = dense(sa, "linear_q", hn).reshape(H, dk)
-        cache.k[i, :, L] = dense(sa, "linear_k", hn).reshape(H, dk)
-        cache.v[i, :, L] = dense(sa, "linear_v", hn).reshape(H, dk)
-        kc, vc = cache.k[i, :, : L + 1], cache.v[i, :, : L + 1]
-        pk = cache.pos_k[i, :, S - 1 - L: S]  # relative positions L .. 0
-        scores = (torch.einsum("hd,hsd->hs", q + sa["pos_bias_u"].to(q.dtype), kc)
-                  + torch.einsum("hd,hsd->hs", q + sa["pos_bias_v"].to(q.dtype), pk))
-        attn = torch.softmax(scores.float() / math.sqrt(dk), dim=-1).to(x.dtype)
-        o = torch.einsum("hs,hsd->hd", attn, vc).reshape(1, 1, H * dk)
+        q = dense(sa, "linear_q", hn).reshape(B, H, dk)
+        cache.k[i, rows, :, col] = dense(sa, "linear_k", hn).reshape(B, H, dk)
+        cache.v[i, rows, :, col] = dense(sa, "linear_v", hn).reshape(B, H, dk)
+        kc, vc = cache.k[i, :, :, :W], cache.v[i, :, :, :W]
+        pk = cache.pos_k[i][:, pidx]  # (H, B, W, dk)
+        scores = (torch.einsum("bhd,bhwd->bhw", q + sa["pos_bias_u"].to(q.dtype), kc)
+                  + torch.einsum("bhd,hbwd->bhw", q + sa["pos_bias_v"].to(q.dtype), pk))
+        attn = torch.softmax(scores.float() / math.sqrt(dk) + bias, dim=-1).to(x.dtype)
+        o = torch.einsum("bhw,bhwd->bhd", attn, vc).reshape(B, 1, H * dk)
         x = x + dense(sa, "linear_out", o)
         x = x + positionwise_ff(sp, "feed_forward", layer_norm(sp, "norm2", x, eps=eps), act)
     x = layer_norm(p_llm, "after_norm", x, eps=1e-5)
-    return dense(p, "llm_decoder", x[:, -1])[0]
+    return dense(p, "llm_decoder", x[:, -1])
+
+
+def llm_decode_step(p: P, cfg: LLMConfig, cache: KVCache, token: int,
+                    L: int) -> torch.Tensor:
+    """Solo step: feed one speech token at absolute position / cache column
+    ``L`` and return the next token's logits (V+1,)."""
+    return llm_decode_step_batch(p, cfg, cache, [token], [L])[0]
+
+
+def llm_teacher_forced_logits(p: P, cfg: LLMConfig, prefix_emb: torch.Tensor,
+                              valid: Sequence[int], tokens: Sequence[Sequence[int]]
+                              ) -> torch.Tensor:
+    """(B, n + 1, V+1) next-token logits of B LEFT-padded prefixes fed the
+    given tokens (B rows of n) through the batched prefill and steps: the
+    logits each step of a batched decode samples from, for those tokens."""
+    B, L0 = prefix_emb.shape[:2]
+    n = len(tokens[0])
+    logits, cache = _prefilled_cache(p, cfg, prefix_emb, valid, L0 + n)
+    out = [logits]
+    for j in range(n):
+        out.append(llm_decode_step_batch(p, cfg, cache, [row[j] for row in tokens], [L0 + j] * B))
+    return torch.stack(out, 1)
+
+
+def _sample_token(logits: torch.Tensor, step: int, min_len: int, decoded: List[int],
+                  eos: int, sampling: Tuple[float, int, int, float],
+                  generator: Optional[torch.Generator]) -> int:
+    """RAS sample of token ``step`` from host logits (V+1,); EOS is masked
+    on the first step and before ``min_len`` (the exact renormalized form of
+    the reference's rejection loop)."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    if step == 0 or step < min_len:
+        logp[eos] = -math.inf
+    return ras_sample(logp, decoded, *sampling, generator=generator)
+
+
+@dataclass
+class DecodeState:
+    """A resumable AR decode of B rows: the JAX package's ``DecodeState``
+    and ``BatchDecodeState`` in one (a solo decode is B = 1).
+
+    Every row keeps its own tokens, EOS floor (``min_lens``), cap
+    (``caps``) and CPU ``torch.Generator``: sampling runs on the host, two
+    uniforms a token from the row's own generator, so row b's tokens are
+    those of a solo decode with that generator.  A row that sampled EOS or
+    reached its cap is frozen (``done``).  ``run(stop_at)`` pauses when the
+    loop-step counter ``i`` reaches ``stop_at`` and resumes where it
+    stopped, so segments give the tokens of one uninterrupted run.  Cache
+    columns are slot-local (:class:`KVCache`): a request admitted into a
+    free row (:func:`llm_admit_slot`) starts at its own column L0 whatever
+    the other rows have decoded."""
+    p: P
+    cfg: LLMConfig
+    cache: KVCache
+    L0: int
+    tokens: List[List[int]]
+    last: List[int]  # each row's previous token, the next step's input
+    done: List[bool]
+    min_lens: List[int]
+    caps: List[int]
+    generators: List[Optional[torch.Generator]]
+    sampling: Tuple[float, int, int, float]  # top_p, top_k, win_size, tau_r
+    i: int = 1  # loop steps so far (the prefill's sample is step 0)
+
+    @property
+    def max_len(self) -> int:
+        """The most tokens a row can hold (the cache's columns past L0)."""
+        return self.cache.k.shape[3] - self.L0
+
+    def _sample(self, b: int, logits: torch.Tensor):
+        toks = self.tokens[b]
+        tok = _sample_token(logits, len(toks), self.min_lens[b], toks,
+                            self.cfg.speech_token_size, self.sampling, self.generators[b])
+        if tok == self.cfg.speech_token_size:
+            self.done[b] = True
+            return
+        toks.append(tok)
+        self.last[b] = tok
+        self.done[b] = len(toks) >= self.caps[b]
+
+    def run(self, stop_at: Optional[int] = None) -> "DecodeState":
+        """Step until every row is done or ``i`` reaches ``stop_at``.  A
+        frozen row is fed at column L0 - 1 and its output dropped, so it
+        neither widens the step nor touches a live row."""
+        while not all(self.done) and (stop_at is None or self.i < stop_at):
+            cols = [self.L0 - 1 if d else self.L0 + len(t) - 1
+                    for t, d in zip(self.tokens, self.done)]
+            live = [b for b, d in enumerate(self.done) if not d]
+            logits = llm_decode_step_batch(self.p, self.cfg, self.cache, self.last,
+                                           cols).float().cpu()
+            for b in live:
+                self._sample(b, logits[b])
+            self.i += 1
+        return self
+
+
+def llm_decode_start(p: P, cfg: LLMConfig, prefix_emb: torch.Tensor,
+                     valid: Sequence[int], min_lens: Sequence[int], caps: Sequence[int],
+                     generators: Sequence[Optional[torch.Generator]],
+                     top_p: float = 0.8, top_k: int = 25, win_size: int = 10,
+                     tau_r: float = 0.1) -> DecodeState:
+    """Prefill B LEFT-padded prefixes (B, L0, D) with ``valid[b]`` real
+    rows each and sample every row's first token: a :class:`DecodeState` of
+    capacity ``max(caps)`` tokens a row, paused after step 0."""
+    B, L0 = prefix_emb.shape[:2]
+    if min(caps) < 1:
+        raise ValueError(f"every cap must be >= 1, got {list(caps)}")
+    logits, cache = _prefilled_cache(p, cfg, prefix_emb, valid, L0 + max(caps))
+    state = DecodeState(p, cfg, cache, L0, [[] for _ in range(B)], [0] * B, [False] * B,
+                        list(min_lens), list(caps), list(generators),
+                        (top_p, top_k, win_size, tau_r))
+    logits = logits.float().cpu()
+    for b in range(B):
+        state._sample(b, logits[b])
+    return state
+
+
+def llm_decode_idle(p: P, cfg: LLMConfig, slots: int, L0: int, max_len: int, dtype, device,
+                    top_p: float = 0.8, top_k: int = 25, win_size: int = 10,
+                    tau_r: float = 0.1) -> DecodeState:
+    """A :class:`DecodeState` of ``slots`` free rows (all done), prefix width
+    L0 and ``max_len`` tokens a row, for :func:`llm_admit_slot` to fill."""
+    cache = _empty_cache(p, cfg, slots, L0 + max_len, dtype, device)
+    return DecodeState(p, cfg, cache, L0, [[] for _ in range(slots)], [0] * slots,
+                       [True] * slots, [0] * slots, [0] * slots, [None] * slots,
+                       (top_p, top_k, win_size, tau_r))
+
+
+def llm_admit_slot(state: DecodeState, prefix_emb: torch.Tensor, valid: int, min_len: int,
+                   cap: int, generator: Optional[torch.Generator], slot: int) -> None:
+    """Admit one request into row ``slot`` of a paused state (the
+    continuous-batching join): prefill its (1, L0, D) LEFT-padded prefix
+    (``valid`` real rows), sample its first token from ITS OWN generator, as
+    a solo decode with that generator does, and splice its cache, tokens,
+    ``last``, ``done`` and bounds into the row.  ``state.i`` is untouched."""
+    if prefix_emb.shape[1] != state.L0 or not 1 <= cap <= state.max_len:
+        raise ValueError(f"prefix width {prefix_emb.shape[1]} (state {state.L0}) or cap "
+                         f"{cap} (state {state.max_len}) does not fit")
+    L0 = state.L0
+    start = torch.tensor([L0 - valid], device=prefix_emb.device)
+    logits, k, v = _prefill(state.p, state.cfg, prefix_emb, start)
+    state.cache.k[:, slot, :, :L0] = k[:, 0]
+    state.cache.v[:, slot, :, :L0] = v[:, 0]
+    state.cache.start[slot] = L0 - valid
+    state.tokens[slot], state.last[slot], state.done[slot] = [], 0, False
+    state.min_lens[slot], state.caps[slot], state.generators[slot] = min_len, cap, generator
+    state._sample(slot, logits[0].float().cpu())
 
 
 def llm_decode(
@@ -258,25 +455,12 @@ def llm_decode(
     tau_r: float = 0.1,
     generator: Optional[torch.Generator] = None,
 ) -> List[int]:
-    """AR decode of up to ``max_len`` speech tokens with RAS sampling; EOS
-    is masked on the first step and before ``min_len`` (the exact
-    renormalized form of the reference's rejection loop).  ``generator`` is
-    a CPU generator: sampling runs on the host."""
-    eos = cfg.speech_token_size
-    L0 = prefix_emb.shape[1]
-    logits, cache = llm_prefill(p, cfg, prefix_emb, L0 + max_len)
-    tokens: List[int] = []
-    for i in range(max_len):
-        logp = torch.log_softmax(logits.float(), dim=-1)
-        if i == 0 or i < min_len:
-            logp[eos] = -math.inf
-        tok = ras_sample(logp, tokens, top_p, top_k, win_size, tau_r, generator)
-        if tok == eos:
-            break
-        tokens.append(tok)
-        if i + 1 < max_len:
-            logits = llm_decode_step(p, cfg, cache, tok, L0 + i)
-    return tokens
+    """AR decode of up to ``max_len`` speech tokens with RAS sampling: one
+    uninterrupted run of a solo :class:`DecodeState`.  ``generator`` is a
+    CPU generator: sampling runs on the host."""
+    state = llm_decode_start(p, cfg, prefix_emb, [prefix_emb.shape[1]], [min_len],
+                             [max_len], [generator], top_p, top_k, win_size, tau_r)
+    return state.run().tokens[0]
 
 
 class TransformerLM(ParamTree):

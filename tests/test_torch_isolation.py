@@ -16,7 +16,7 @@ def test_import_in_fresh_interpreter_loads_no_jax():
     # modules an interpreter start-up hook may have loaded already are not
     # the port's doing: only what the import adds counts
     code = ("import sys\nbefore = set(sys.modules)\n"
-            "import cosy_tpu_torch, cosy_tpu_torch.infer.pipeline, "
+            "import cosy_tpu_torch, cosy_tpu_torch.infer.pipeline, cosy_tpu_torch.infer.engine, "
             "cosy_tpu_torch.infer.__main__, cosy_tpu_torch.train.trainer, "
             "cosy_tpu_torch.merge, cosy_tpu_torch.lora, cosy_tpu_torch.models.joint\n"
             "bad = sorted(m for m in set(sys.modules) - before if m == 'jax' or "
