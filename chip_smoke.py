@@ -38,8 +38,8 @@ Phases, each fatal on failure (nothing is caught and passed over):
   8. the joint LoRA training step at full width: JointTrainer in joint mode,
      bf16 compute, 3 steps on one seeded super-batch (accumulation 2 x batch
      8, 250 mel frames): finite losses, a gradient, a falling loss, base
-     weights bit-identical, no kernel launched, and merged weights that
-     synthesize;
+     weights bit-identical, no kernel launched, and a merge that changes
+     them (phase 11 synthesizes from merged weights);
   9. streaming synthesis at full width: 20 seeded text ids decode exactly
      400 tokens (EOS held off, cap 400) through
      TTSPipeline.synthesize(stream=True): three 120-token windows and a
@@ -54,7 +54,28 @@ Phases, each fatal on failure (nothing is caught and passed over):
      1e-4 * max(1, max|logit|)), decode tokens/s at B = 4 against B = 1;
      then 6 requests through ContinuousBatchEngine(slots=4): all finish, one
      at least admitted mid-flight, each stream its solo decode's, every
-     chunk finite and as planned, 64 x the chunks' NFE fused blocks.
+     chunk finite and as planned, 64 x the chunks' NFE fused blocks;
+ 11. the training CLI at full width (python -m cosy_tpu_torch.train's
+     main() on parquet records when pandas and pyarrow import, else its
+     run() on the same records): 32 seeded records at batch 8 x accum 2
+     (2 steps), a --resume over 16 more (1 step, the counter at 3), the
+     merged and adapter exports, a synthesis from the merged weights;
+     seconds a step, the loader's wait a step, peak memory;
+ 12. CosyVoice2 at full width (Qwen2LMConfig(): Qwen2-0.5B; Flow2Config();
+     the 24 kHz HiFT) on seeded weights through TTS2Pipeline, EOS held off
+     to 150 attempts: (a) whole utterance with a 50-token / 100-frame flow
+     prompt and an LLM prompt, (b) streamed, prompt-free: 25-token hops
+     plus 3 lookahead, each window with the static-chunk (2, T, T) bias,
+     then the bucketed final, (c) 4 requests decoded as one batch against
+     their solo decodes (the phase-10 rule) and synthesize_batch; counters
+     reset before and read after each: 64 x NFE 10 x flow calls fused
+     blocks; one streaming estimator call against the CPU.
+Phase 3 also holds B2 and the GEMM epilogue with exact (erf) GELU beside
+tanh, refuses a GELU code the kernels lack, and runs A, the block, B1 and
+B2 at CosyVoice2's streaming shapes with the chunk bias; phase 4 repeats
+its call with gelu_approximate=False (B1 -> A -> B2-erf in every block)
+against the CPU, and checks the early refusal of a tiny estimator on the
+card (TTSPipeline and the infer CLI).
 It prints a JSON "kernels" line (its times are the on-card ones of phase 3),
 the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Without CUDA, or outside a checkout of the
@@ -103,6 +124,11 @@ from cosy_tpu_torch.ops.fused_block import (_gemm_plan, _ln_gemm_plan,  # noqa: 
 from cosy_tpu_torch.ops.plan_sweep import device_ms  # noqa: E402
 from cosy_tpu_torch.params import P, load_torch_checkpoint  # noqa: E402
 from cosy_tpu_torch.train.trainer import JointTrainer  # noqa: E402
+from cosy_tpu_torch.infer.pipeline2 import TTS2Pipeline, hift24k_config  # noqa: E402
+from cosy_tpu_torch.layers.unet import _stream_bias  # noqa: E402
+from cosy_tpu_torch.models.flow2 import Flow2Config, init_flow2_params  # noqa: E402
+from cosy_tpu_torch.models.qwen2lm import (Qwen2LMConfig, init_qwen2lm_params,  # noqa: E402
+                                           qwen2lm_teacher_forced_logits)
 
 DEV = torch.device("cuda")
 # H100 SXM data-sheet peaks (dense): f32 on the CUDA cores, bf16 on the
@@ -128,7 +154,14 @@ TOL = {
 }
 
 
+T_START = time.time()
+
+
 def log(*a):
+    """Print and flush; a phase header ("[n] ...") carries the seconds
+    since the script started."""
+    if a and str(a[0]).startswith("["):
+        a = (f"{a[0]} (at {time.time() - T_START:.1f} s)",) + a[1:]
     print(*a, flush=True)
 
 
@@ -176,10 +209,11 @@ def compare(kind, got, want, dtype):
 # ---------------------------------------------------------------------------
 
 
-def attention_case(g, B, H, T, S, dtype, masked=True, iters=20, pad_from=None):
+def attention_case(g, B, H, T, S, dtype, masked=True, iters=20, pad_from=None, bias_t=None):
     """``masked``: a padding bias, a fully masked row and a short k_valid;
     else ``pad_from``: the estimator's bias of a masked mel (keys from
-    ``pad_from`` on at -1e10 in every row), or no bias at all."""
+    ``pad_from`` on at -1e10 in every row), else ``bias_t`` (a given
+    (B, T, S) bias, such as the streaming chunk bias), or no bias at all."""
     q = torch.randn(B, H, T, 64, device=DEV, generator=g).to(dtype)
     k = torch.randn(B, H, S, 64, device=DEV, generator=g).to(dtype)
     v = torch.randn(B, H, S, 64, device=DEV, generator=g).to(dtype)
@@ -192,7 +226,7 @@ def attention_case(g, B, H, T, S, dtype, masked=True, iters=20, pad_from=None):
     elif pad_from is not None:
         bias[:, :, pad_from:] = -1e10
     else:
-        bias = None
+        bias = bias_t
     bias = None if bias is None else bias.to(dtype)
     scale = 64 ** -0.5
     got = flash_attention(q, k, v, bias, scale, kv)
@@ -276,7 +310,7 @@ def block_weights(g, dtype, C=256, inner=512, ff=1024):
             mk(C), mk(C, one=True), mk(C), mk(ff, C), mk(ff), mk(C, ff), mk(C)]
 
 
-def library_block(x, bias, W, heads):
+def library_block(x, bias, W, heads, gelu="tanh"):
     """The block as a sequence of PyTorch library calls (layer_norm, linear,
     scaled_dot_product_attention, gelu): a yardstick only.  No single
     PyTorch call computes it (nn.TransformerEncoderLayer needs the attention
@@ -293,7 +327,8 @@ def library_block(x, bias, W, heads):
         q, k, v = F.linear(h, wqkv).view(B, T, 3, heads, d).permute(2, 0, 3, 1, 4)
         a = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
         x1 = x + F.linear(a.transpose(1, 2).reshape(B, T, heads * d), wo, bo)
-        f = F.gelu(F.linear(F.layer_norm(x1, (C,), n3w, n3b, 1e-5), w1, b1), approximate="tanh")
+        f = F.gelu(F.linear(F.layer_norm(x1, (C,), n3w, n3b, 1e-5), w1, b1),
+                   approximate="tanh" if gelu == "tanh" else "none")
         return x1 + F.linear(f, w2, b2)
 
     return run
@@ -321,12 +356,16 @@ def seven_launch_block(x, bias, W, heads, scale):
     return run
 
 
-def block_case(g, B, T, dtype, with_bias, iters=20, heads=8, pad_from=None):
+def block_case(g, B, T, dtype, with_bias, iters=20, heads=8, pad_from=None, bias_t=None,
+               gelu_approximate=True):
+    """The block (B1 -> A -> B2) against its plain version; ``bias_t`` a
+    given (B, T, T) bias, ``gelu_approximate`` False the erf GELU."""
     W = block_weights(g, dtype)
     C, inner, ff = 256, 512, 1024
     x = torch.randn(B, T, C, device=DEV, generator=g).to(dtype)
-    bias = None
-    if with_bias:
+    bias = None if bias_t is None else bias_t.to(dtype)
+    ga = gelu_approximate
+    if with_bias and bias_t is None:
         bias = torch.zeros(B, T, T, device=DEV)
         if pad_from is None:
             bias[-1, :, T - T // 10:] = -1e10
@@ -334,14 +373,22 @@ def block_case(g, B, T, dtype, with_bias, iters=20, heads=8, pad_from=None):
             bias[:, :, pad_from:] = -1e10
         bias = bias.to(dtype)
     scale = (inner // heads) ** -0.5
-    got = fused_transformer_block(x, bias, *W, heads=heads, scale=scale)
+
+    def run():
+        return fused_transformer_block(x, bias, *W, heads=heads, scale=scale, gelu_approximate=ga)
+
+    def run_ref():
+        return fused_transformer_block_ref(x, bias, *W, heads=heads, scale=scale,
+                                           gelu_approximate=ga)
+
+    got = run()
     torch.cuda.synchronize()
-    want = fused_transformer_block_ref(x, bias, *W, heads=heads, scale=scale)
+    want = run_ref()
     err, ok, tol = compare("block", got, want, dtype)
-    ms = cuda_ms(lambda: fused_transformer_block(x, bias, *W, heads=heads, scale=scale), iters)
-    plain = cuda_ms(lambda: fused_transformer_block_ref(x, bias, *W, heads=heads, scale=scale),
-                    max(2, iters // 4))
-    unfused = cuda_ms(library_block(x, bias, W, heads), iters)
+    ms = cuda_ms(run, iters)
+    plain = cuda_ms(run_ref, max(2, iters // 4))
+    lib_block = library_block(x, bias, W, heads, "tanh" if ga else "erf")
+    unfused = cuda_ms(lib_block, iters)
     chain7 = seven_launch_block(x, bias, W, heads, scale)
     err7 = (chain7().float() - want.float()).abs().max().item()
     flops = 2 * B * T * (3 * C * inner + inner * C + 2 * C * ff) + 4 * B * heads * T * T * (inner // heads)
@@ -349,12 +396,8 @@ def block_case(g, B, T, dtype, with_bias, iters=20, heads=8, pad_from=None):
     return dict(err=err, ok=ok, tol=tol, ms=ms, plain_ms=plain, library_ms=None,
                 unfused_ms=unfused, bound_ms=bms, bound_by=by,
                 chain7_ms=cuda_ms(chain7, iters), chain7_dev_ms=device_ms(chain7),
-                chain7_err=err7,
-                dev_ms=device_ms(lambda: fused_transformer_block(x, bias, *W, heads=heads,
-                                                                 scale=scale)),
-                plain_dev_ms=device_ms(lambda: fused_transformer_block_ref(
-                    x, bias, *W, heads=heads, scale=scale), 3),
-                lib_dev_ms=device_ms(library_block(x, bias, W, heads)))
+                chain7_err=err7, dev_ms=device_ms(run), plain_dev_ms=device_ms(run_ref, 3),
+                lib_dev_ms=device_ms(lib_block))
 
 
 def layer_norm_case(g, rows, C=256, iters=50):
@@ -395,7 +438,7 @@ def gemm_case(g, M, K, seg, nseg=1, bias=False, gelu=None, residual=False, iters
 
     def run_lib():
         y = F.linear(a, w_cat, b)
-        y = F.gelu(y, approximate="tanh") if gelu else y
+        y = F.gelu(y, approximate="tanh" if gelu == "tanh" else "none") if gelu else y
         return (y + r).to(dtype) if residual else y
 
     got = run()
@@ -442,10 +485,11 @@ def ln_gemm_case(g, M, dtype, iters=20, C=256, inner=512):
                 lib_dev_ms=device_ms(run_lib), same=torch.equal(run(), run()))
 
 
-def tail_case(g, M, dtype, iters=20, C=256, inner=512, ff=1024):
+def tail_case(g, M, dtype, iters=20, C=256, inner=512, ff=1024, gelu="tanh"):
     """Kernel B2 on the block's shapes against block_tail_ref with the
-    plan's ranks; the library yardstick is the unfused sequence F.linear,
-    add, F.layer_norm, F.linear, F.gelu, F.linear, add."""
+    plan's ranks and the same GELU ("tanh" or "erf"); the library yardstick
+    is the unfused sequence F.linear, add, F.layer_norm, F.linear, F.gelu,
+    F.linear, add."""
     def mk(*shape, scale=0.05, one=False):
         t = torch.randn(*shape, device=DEV, generator=g) * scale
         return (t + 1.0 if one else t).to(dtype)
@@ -456,15 +500,15 @@ def tail_case(g, M, dtype, iters=20, C=256, inner=512, ff=1024):
     plan = _tail_plan(M, C, inner, ff, dtype)
 
     def run():
-        return block_tail(a, x, *W)
+        return block_tail(a, x, *W, gelu=gelu)
 
     def run_ref():
-        return block_tail_ref(a, x, *W, ranks=plan[1])
+        return block_tail_ref(a, x, *W, gelu=gelu, ranks=plan[1])
 
     def run_lib():
         x1 = x.float() + F.linear(a, wo, bo)
         f = F.gelu(F.linear(F.layer_norm(x1.to(dtype), (C,), n3w, n3b, 1e-5), w1, b1),
-                   approximate="tanh")
+                   approximate="tanh" if gelu == "tanh" else "none")
         return (x1 + F.linear(f, w2, b2)).to(dtype)
 
     got = run()
@@ -702,22 +746,16 @@ def training_steps(cfg, llm, flow, hift, steps=3):
     log(f"  base weights bit-identical; kernel launch counts unchanged: {counts0}")
     del base
 
-    llm2, flow2 = TransformerLM(cfg.llm, DEV), Flow(cfg.flow, DEV)
-    llm2.load_state_dict(merged["llm"], strict=True)
-    flow2.load_state_dict(merged["flow"], strict=True)
-    moved = sum(int(not torch.equal(v, flow.state_dict()[k])) for k, v in flow2.state_dict().items())
-    pipe = TTSPipeline(cfg, llm2, flow2, hift, InferenceConfig(min_token_text_ratio=4.0),
-                       finetuned_norm=True)
-    ids = np.random.default_rng(15).integers(0, 256, (1, 8)).astype(np.int64)
-    wav = next(pipe.synthesize(ids, max_len_cap=40, seed=16))["tts_speech"]
-    log(f"  merged weights ({moved} flow tensors changed by the merge) load into TTSPipeline: "
-        f"waveform {wav.shape}, finite {bool(np.isfinite(wav).all())}")
-    if moved == 0 or wav.shape[1] == 0 or not np.isfinite(wav).all():
-        raise SystemExit("chip_smoke: the merged weights did not change or did not synthesize")
-    del llm2, flow2, pipe, merged
+    # the merge changed the weights; phase 11 loads the CLI's merged weights
+    # into TTSPipeline and synthesizes from them
+    base_flow = flow.state_dict()
+    moved = sum(int(not torch.equal(v, base_flow[k].cpu())) for k, v in merged["flow"].items())
+    log(f"  the merge changed {moved} flow tensors")
+    if moved == 0:
+        raise SystemExit("chip_smoke: the merge did not change the weights")
+    del merged
     torch.cuda.empty_cache()
 
-    counts0 = ops.launch_counts()  # the merged-weights synthesis launched kernels
     for mode in ("llm_only", "flow_only"):
         h, sec, pk, _, _ = run(mode, 2)
         log(f"  {mode}: loss {h[0]['loss']:.5f} -> {h[1]['loss']:.5f}, second step {sec[1]:.3f} s, "
@@ -916,6 +954,335 @@ def batched_serving(cfg, llm, flow, hift, seed=21):
     if not any(r.admitted_segment for r in reqs):
         raise SystemExit("chip_smoke: no request was admitted mid-flight")
     expect_blocks(counts, nfe, "engine")
+
+
+def refuse_missing_gelu():
+    """No launch on a GELU code the kernels lack: the wrappers refuse the
+    name, and the C entries refuse code 3 (the wrappers' check bypassed)."""
+    M, rows = 8, []
+    a, x = torch.zeros(M, 512, device=DEV), torch.zeros(M, 256, device=DEV)
+    tail_w = [torch.zeros(sh, device=DEV) for sh in ((256, 512), (256,), (256,), (256,),
+                                                     (1024, 256), (1024,), (256, 1024), (256,))]
+    y = torch.empty(M, 256, device=DEV)
+    n0 = (block_tail.launches, gemm.launches)
+    for gelu in ("sigmoid", None):
+        try:
+            block_tail(a, x, *tail_w, gelu=gelu)
+        except ValueError as e:
+            rows.append(f"block_tail(gelu={gelu!r}): {e}")
+        else:
+            raise SystemExit(f"chip_smoke: block_tail accepted gelu {gelu!r}")
+    code = _cuda.DTYPE_CODE[torch.float32]
+    rc_tail = _cuda.function("cosy_block_tail")(
+        code, *(t.data_ptr() for t in [a, x] + tail_w + [y]), M, 256, 512, 1024, 1e-5, 3,
+        *_tail_plan(M, 256, 512, 1024, torch.float32), _cuda.stream_ptr(x))
+    w = torch.zeros(256, 512, device=DEV)
+    rc_gemm = _cuda.function("cosy_gemm")(
+        code, -1, code, a.data_ptr(), w.data_ptr(), None, None, 256, None, None, y.data_ptr(),
+        M, 256, 512, 3, *_gemm_plan(M, 256, 512, torch.float32), _cuda.stream_ptr(a))
+    torch.cuda.synchronize()
+    log(f"  refused a GELU the kernels lack: {'; '.join(rows)}; C entries with act 3 return "
+        f"{rc_tail} (block_tail) and {rc_gemm} (gemm), cudaErrorInvalidValue = 1")
+    if rc_tail == 0 or rc_gemm == 0 or (block_tail.launches, gemm.launches) != n0:
+        raise SystemExit("chip_smoke: a kernel took a GELU code it lacks")
+
+
+def erf_estimator(est, ecfg, args, est_cpu, y_tanh):
+    """Phase 4, second call: the estimator with gelu_approximate=False on
+    the card (B1 -> A -> B2-erf in every block) against the CPU plain path.
+    Returns its launch counts."""
+    ecfg = dataclasses.replace(ecfg, gelu_approximate=False)
+    log("[4] the same call with gelu_approximate=False (exact GELU in B2)")
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        y = conditional_decoder(est, ecfg, *args)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        ms = cuda_ms(lambda: conditional_decoder(est, ecfg, *args), 5)
+        y_cpu = conditional_decoder(est_cpu, ecfg, *(a.cpu() for a in args))
+    err = (y.cpu() - y_cpu).abs().max().item()
+    scale = y_cpu.abs().max().item()
+    gap = (y - y_tanh).abs().max().item()
+    log(f"  card {ms:.3f} ms/call; max_abs_err {err:.3e} vs max|y| {scale:.3e} (tol 1e-4 * "
+        f"max(1, max|y|)); max |y_erf - y_tanh| {gap:.3e}; launches {counts}")
+    if not (torch.isfinite(y).all() and err <= 1e-4 * max(1.0, scale)):
+        raise SystemExit("chip_smoke: the erf estimator disagrees with the CPU plain path")
+    if counts["fused_transformer_block"] != 64 or counts["block_tail"] != 64 \
+            or counts["ln_gemm"] != 64 or gap == 0.0:
+        raise SystemExit(f"chip_smoke: the erf estimator did not run 64 erf blocks: {counts}")
+    return counts
+
+
+def refuse_tiny_widths():
+    """The early width refusal: TTSPipeline with a tiny estimator on the
+    card, and the CLI's --tiny --device cuda, both before any kernel runs."""
+    from cosy_tpu_torch.config import tiny_model_config
+    from cosy_tpu_torch.infer.__main__ import main as infer_main
+    from cosy_tpu_torch.ops.fused_block import KERNEL_WIDTHS
+
+    tiny = tiny_model_config()
+    mods = (init_llm_params(tiny.llm, DEV, seed=1), init_flow_params(tiny.flow, DEV, seed=2),
+            init_hift_params(tiny.hift, DEV, seed=3))
+    ops.reset_launch_counts()
+    try:
+        TTSPipeline(tiny, *mods)
+    except ValueError as e:
+        msg = str(e)
+    else:
+        raise SystemExit("chip_smoke: TTSPipeline took a tiny estimator on the card")
+    try:
+        infer_main(["--text", "ab", "--tiny", "--device", "cuda", "--output",
+                    os.path.join(tempfile.gettempdir(), "refused.wav")])
+    except SystemExit as e:
+        cli_msg = str(e.code)
+    else:
+        raise SystemExit("chip_smoke: the CLI ran --tiny on the card")
+    log(f"  refused a tiny estimator on the card: TTSPipeline: {msg}; CLI: {cli_msg}")
+    if KERNEL_WIDTHS not in msg or KERNEL_WIDTHS not in cli_msg \
+            or any(ops.launch_counts().values()):
+        raise SystemExit("chip_smoke: the width refusal lacks the widths or launched a kernel")
+
+
+def _records(n, seed, vocab):
+    """``n`` seeded training records at the full configuration's vocabularies:
+    100-250 mel frames, ~1/1.72 as many speech tokens, text ids, a 192-dim
+    embedding."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        T = int(rng.integers(100, 251))
+        out.append({"utt": f"u{seed}_{i}",
+                    "speech_feat": (rng.standard_normal((T, 80)) * 2 - 6).astype(np.float32)
+                    .reshape(-1).tolist(), "speech_feat_shape": [T, 80],
+                    "speech_token": rng.integers(0, vocab, int(T / 1.72)).tolist(),
+                    "text_token": rng.integers(0, 256, int(rng.integers(8, 40))).tolist(),
+                    "utt_embedding": rng.standard_normal(192).astype(np.float32).tolist()})
+    return out
+
+
+def training_cli(cfg):
+    """Phase 11: python -m cosy_tpu_torch.train at full width on seeded
+    records: 32 records (batch 8 x accum 2: 2 steps), a checkpoint, a
+    --resume over 16 more (1 step), the merged export, and a short
+    synthesis from the merged weights."""
+    try:
+        import pandas  # noqa: F401
+        import pyarrow  # noqa: F401
+        parquet = True
+    except ImportError:
+        parquet = False
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as root:
+        _training_cli(cfg, parquet, root)
+
+
+def _training_cli(cfg, parquet, root):
+    from cosy_tpu_torch.data.dataset import AugmentConfig, FlowFinetuneDataset
+    from cosy_tpu_torch.train import __main__ as train_cli
+
+    out = os.path.join(root, "out")
+    vocab = cfg.llm.speech_token_size
+    sets = {"train": _records(32, 40, vocab), "resume": _records(16, 41, vocab)}
+    how = ("import: parquet records through main()" if parquet
+           else "do not import: records handed to run()")
+    log(f"[11] the training CLI at full width: pandas and pyarrow {how}")
+    torch.cuda.reset_peak_memory_stats()
+    results = []
+    for name, recs in sets.items():
+        argv = ["--data-dir", os.path.join(root, name), "--output", out, "--batch-size", "8",
+                "--accum", "2", "--epochs", "1", "--pretrained", os.path.join(root, "none"),
+                "--device", DEV.type]
+        if name == "resume":
+            argv += ["--resume", os.path.join(out, "joint_joint_last.ckpt")]
+        if cfg != ModelConfig():
+            argv.append("--tiny")  # a rehearsal at the tiny widths
+        if parquet:
+            import pandas as pd
+
+            os.makedirs(os.path.join(root, name))
+            pd.DataFrame(recs).to_parquet(os.path.join(root, name, "part0.parquet"))
+            res = train_cli.main(argv)
+        else:
+            # the dataset main() builds, its parquet read left out
+            args = train_cli.parse_args(argv)
+            tcfg = train_cli.train_config(args)
+            ds = FlowFinetuneDataset.__new__(FlowFinetuneDataset)
+            ds.data_dir, ds.samples, ds.aug_cfg = args.data_dir, recs, AugmentConfig()
+            ds.leak, ds.rng = tcfg.anti_leakage, np.random.default_rng(tcfg.seed)
+            res = train_cli.run(ds, cfg, tcfg, args.pretrained, out, DEV.type, args.resume)
+        results.append(res)
+        log(f"  {name}: {res.steps} steps to step {res.state.step}; "
+            f"{res.seconds / res.steps:.3f} s/step, loader wait {res.loader_wait / res.steps:.4f} "
+            f"s/step")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"  peak device memory {peak:.2f} GiB")
+    if [r.steps for r in results] != [2, 1] or results[1].state.step != 3:
+        raise SystemExit(f"chip_smoke: the CLI took {[r.steps for r in results]} steps")
+    names = set(os.listdir(out))
+    if not {"llm_merged_joint.pt", "flow_merged_joint.pt", "adapters_joint.pt"} <= names:
+        raise SystemExit(f"chip_smoke: the CLI's exports are missing from {sorted(names)}")
+    with open(os.path.join(out, "flow_merged_joint.pt.meta.json")) as f:
+        if json.load(f)["mel_space"] != "normalized":
+            raise SystemExit("chip_smoke: merged flow weights lack their mel-space note")
+    llm, flow = TransformerLM(cfg.llm, DEV), Flow(cfg.flow, DEV)
+    llm.load_state_dict(load_torch_checkpoint(os.path.join(out, "llm_merged_joint.pt")), strict=True)
+    flow.load_state_dict(load_torch_checkpoint(os.path.join(out, "flow_merged_joint.pt")),
+                         strict=True)
+    base = results[-1].trainer.flow_master
+    moved = sum(int(not torch.equal(v, base[k])) for k, v in flow.state_dict().items())
+    pipe = TTSPipeline(cfg, llm, flow, init_hift_params(cfg.hift, DEV, seed=4))
+    ops.reset_launch_counts()
+    wav = next(pipe.synthesize(np.arange(1, 9)[None], max_len_cap=60, seed=3))["tts_speech"]
+    counts = ops.launch_counts()
+    log(f"  synthesis from the merged weights ({moved} flow tensors changed by the merge): "
+        f"{wav.shape}, finite {bool(np.isfinite(wav).all())}; launches {counts}")
+    if not np.isfinite(wav).all() or wav.shape[1] == 0 or counts["block_tail"] == 0 \
+            or moved == 0:
+        raise SystemExit("chip_smoke: synthesis from the CLI's merged weights failed")
+
+
+def check_same_tokens_cv2(pipe, what, got, want, rows):
+    """check_same_tokens for CosyVoice2: ``rows`` are the batch's prefixes
+    (built by _build_prefix), this row first."""
+    got, want = list(got), list(want)
+    if got == want:
+        return
+    j = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), min(len(got), len(want)))
+    prefix, valid, _, _ = _batch_prefixes(rows)
+    n = min(len(want), j)
+    with torch.inference_mode():
+        batched = qwen2lm_teacher_forced_logits(
+            pipe.llm_p, pipe.lcfg, prefix, valid, [want[:n]] + [[0] * n] * (len(rows) - 1))[0, n]
+        solo = qwen2lm_teacher_forced_logits(pipe.llm_p, pipe.lcfg, rows[0][0],
+                                             [rows[0][0].shape[1]], [want[:n]])[0, n]
+    gap = (batched.float() - solo.float()).abs().max().item()
+    tol = 1e-4 * max(1.0, solo.float().abs().max().item())
+    log(f"  {what}: tokens diverge from the solo decode at step {j} of {len(want)}; "
+        f"teacher-forced logit gap there {gap:.3e} (tol {tol:.3e})")
+    if not gap <= tol:
+        raise SystemExit(f"chip_smoke: {what} diverges from its solo decode beyond rounding")
+
+
+def cv2_synthesis(seed=50):
+    """Phase 12: CosyVoice2 at full width on seeded weights.  Returns the
+    launch counts of its three runs together."""
+    lcfg, fcfg, hcfg = Qwen2LMConfig(), Flow2Config(), hift24k_config()
+    t = time.time()
+    llm = init_qwen2lm_params(lcfg, DEV, seed=seed)
+    flow = init_flow2_params(fcfg, DEV, seed=seed + 1)
+    hift = init_hift_params(hcfg, DEV, seed=seed + 2)
+    torch.cuda.synchronize()
+    log(f"[12] CosyVoice2 at full width: weights on the card in {time.time() - t:.1f} s: qwen2lm "
+        f"{sum(p.numel() for p in llm.parameters()) / 1e6:.1f} M, flow2 "
+        f"{sum(p.numel() for p in flow.parameters()) / 1e6:.1f} M, hift 24 kHz "
+        f"{sum(p.numel() for p in hift.parameters()) / 1e6:.1f} M params")
+    cap = 150
+    hop = int(np.prod(hcfg.upsample_rates)) * hcfg.istft_hop_len  # 480 samples a frame
+    per_tok = fcfg.token_mel_ratio * hop
+    # 10 text ids at min ratio 15: EOS held off for all 150 attempts
+    pipe = TTS2Pipeline(lcfg, fcfg, hcfg, llm, flow, hift,
+                        InferenceConfig(min_token_text_ratio=15.0), hop_samples=hop)
+    rng = np.random.default_rng(seed)
+    n_text, n_speech = lcfg.qwen.vocab_size, lcfg.speech_token_size
+    text = rng.integers(0, n_text, (1, 10))
+    prompt = dict(prompt_text=rng.integers(0, n_text, (1, 5)),
+                  llm_prompt_speech_token=rng.integers(0, n_speech, (1, 50)),
+                  flow_prompt_speech_token=rng.integers(0, n_speech, (1, 50)),
+                  prompt_feat=(rng.standard_normal((1, 100, 80)) * 2 - 6).astype(np.float32),
+                  flow_embedding=rng.standard_normal((1, fcfg.spk_embed_dim)).astype(np.float32))
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    wav = next(pipe.synthesize(text, max_len_cap=cap, seed=seed, **prompt))["tts_speech"]
+    t_a = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    add(counts)
+    n_a = wav.shape[1] // per_tok
+    dec = pipe.stage_seconds["decode"]
+    log(f"  (a) synthesize(stream=False), 50-token flow prompt (100 frames): {n_a} tokens, T = "
+        f"{100 + 2 * n_a} mel frames; {t_a:.3f} s; stages (s) "
+        + ", ".join(f"{k} {v:.3f}" for k, v in pipe.stage_seconds.items())
+        + f"; decode {n_a / dec:.1f} tokens/s; launches {counts}")
+    if wav.shape[1] % per_tok or n_a < 0.9 * cap or not np.isfinite(wav).all():
+        raise SystemExit(f"chip_smoke: CosyVoice2 whole-utterance output {wav.shape} is off")
+    expect_blocks(counts, 10, "CosyVoice2 whole utterance")
+
+    spk = prompt["flow_embedding"]
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    chunks, at = [], []
+    for out in pipe.synthesize(text, flow_embedding=spk, max_len_cap=cap, seed=seed, stream=True):
+        chunks.append(out["tts_speech"])
+        at.append(time.perf_counter() - t0)
+    counts = ops.launch_counts()
+    add(counts)
+    n_b = sum(c.shape[1] for c in chunks) // per_tok
+    windows = (n_b - 3) // 25
+    log(f"  (b) synthesize(stream=True), prompt-free: {n_b} tokens in {windows} windows of 25 + 3 "
+        f"lookahead with the chunk bias, then the bucketed final; time to the first chunk "
+        f"{at[0]:.3f} s; chunks at {', '.join(f'{x:.3f}' for x in at)} s; stages (s) "
+        + ", ".join(f"{k} {v:.3f}" for k, v in pipe.stage_seconds.items())
+        + f"; launches {counts}")
+    if len(chunks) != windows + 1 or sum(c.shape[1] for c in chunks) % per_tok \
+            or not all(np.isfinite(c).all() for c in chunks):
+        raise SystemExit("chip_smoke: CosyVoice2 streamed chunks are off")
+    expect_blocks(counts, 10 * len(chunks), "CosyVoice2 streaming")
+
+    texts = [rng.integers(0, n_text, (1, n)) for n in (4, 6, 5, 3)]
+    with torch.inference_mode():
+        built = [pipe._build_prefix(x, None, None, cap) for x in texts]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solo = [pipe.generate_tokens(x, max_len_cap=cap, generator=pipe._decode_generator(
+            seed, b))[0].tolist() for b, x in enumerate(texts)]
+        t_solo = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rows = pipe.decode_batch(texts, cap, seed)
+        t_batch = time.perf_counter() - t0
+    n4 = sum(len(r) for r in solo)
+    log(f"  (c) decode tokens/s (host clock, prefills included): B=4 {n4 / t_batch:.1f} against "
+        f"B=1 {n4 / t_solo:.1f} ({t_solo / t_batch:.2f}x); tokens {[len(r) for r in solo]}")
+    for b in range(4):
+        check_same_tokens_cv2(pipe, f"CosyVoice2 batch row {b}", rows[b], solo[b],
+                              [built[b]] + [built[i] for i in range(4) if i != b])
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    wavs = pipe.synthesize_batch(texts, max_len_cap=cap, seed=seed)
+    counts = ops.launch_counts()
+    add(counts)
+    log(f"  synthesize_batch of 4: {time.perf_counter() - t0:.3f} s, "
+        f"{sum(w.shape[1] for w in wavs) / hcfg.sampling_rate:.2f} s of audio; launches {counts}")
+    if [w.shape[1] for w in wavs] != [per_tok * len(r) for r in rows] \
+            or not all(np.isfinite(w).all() for w in wavs):
+        raise SystemExit("chip_smoke: CosyVoice2 synthesize_batch output is off")
+    expect_blocks(counts, 40, "CosyVoice2 synthesize_batch")
+
+    # one streaming estimator call (a 100-frame window, the chunk bias at both
+    # levels) on the card against the CPU plain path
+    est = pipe.flow_p.sub("decoder.estimator")
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    x, mu, cond = (torch.randn(2, 80, 100, device=DEV, generator=gen) for _ in range(3))
+    args = (x, None, mu, torch.rand(2, device=DEV, generator=gen),
+            torch.randn(2, 80, device=DEV, generator=gen), cond)
+    kw = dict(causal=True, streaming=True, static_chunk_size=fcfg.decoder_static_chunk_size)
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        y = conditional_decoder(est, fcfg.estimator, *args, **kw)
+        counts = ops.launch_counts()
+        est_cpu = P({k: v.cpu() for k, v in est.d.items()}).sub("decoder.estimator")
+        y_cpu = conditional_decoder(est_cpu, fcfg.estimator, x.cpu(), None,
+                                    *(a.cpu() for a in args[2:]), **kw)
+    err, scale = (y.cpu() - y_cpu).abs().max().item(), y_cpu.abs().max().item()
+    log(f"  streaming estimator call (2, 80, 100) with the chunk bias: max_abs_err {err:.3e} vs "
+        f"max|y| {scale:.3e} (tol 1e-4 * max(1, max|y|)); launches {counts}")
+    if not (torch.isfinite(y).all() and err <= 1e-4 * max(1.0, scale)) \
+            or counts["fused_transformer_block"] != 64:
+        raise SystemExit("chip_smoke: the streaming causal estimator disagrees with the CPU")
+    return total
 
 
 def report(name, r):
@@ -1127,6 +1494,39 @@ def main():
             r1, r2 = ln_gemm_case(g, rows, dtype), tail_case(g, rows, dtype)
             report(f"B1 stream M={rows} {dn} plan {r1['plan']} same bits twice {r1['same']}", r1)
             report(f"B2 stream M={rows} {dn} plan {r2['plan']} same bits twice {r2['same']}", r2)
+    # exact (erf) GELU: the variant of B2 and of the GEMM epilogue behind
+    # EstimatorConfig(gelu_approximate=False); the kernels line reports B2-erf
+    # at 312 rows in f32, beside B2's tanh row
+    log("  exact (erf) GELU beside tanh at 312 rows: B2, the GEMM epilogue (FF1), the block")
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype)[6:]
+        for gelu in ("tanh", "erf"):
+            r2 = tail_case(g, 2 * 156, dtype, gelu=gelu)
+            report(f"B2 block_tail M=312 {dn} gelu {gelu} plan {r2['plan']}", r2)
+            if dtype == torch.float32 and gelu == "erf":
+                main_b2_erf = r2
+        r = gemm_case(g, 2 * 156, 256, 1024, bias=True, gelu="erf", dtype=dtype)
+        report(f"GEMM FF1 gelu erf M=312 {dn} plan {r['plan']}", r)
+        report(f"B (2,156,256) {dn} bias gelu erf",
+               block_case(g, 2, 156, dtype, True, gelu_approximate=False))
+    refuse_missing_gelu()
+    # CosyVoice2's streaming shapes (phase 12's): a window of 75 tokens is 150
+    # mel frames, 75 at the T/2 level; every level carries the static-chunk
+    # bias of 50 frames as a contiguous (2, T, T)
+    log("  CosyVoice2 streaming shapes: A, the block, B1 and B2 with the 50-frame chunk bias")
+    for dtype, T in ((torch.float32, 150), (torch.float32, 75), (torch.bfloat16, 75)):
+        dn = str(dtype)[6:]
+        cb = _stream_bias(None, 2, T, 50, dtype, DEV)
+        ra = attention_case(g, 2, 8, T, T, dtype, masked=False, bias_t=cb)
+        report(f"A cv2 stream (2,8,{T},64) {dn} chunk bias", ra)
+        rb = block_case(g, 2, T, dtype, True, bias_t=cb)
+        report(f"B cv2 stream (2,{T},256) {dn} chunk bias", rb)
+        r1, r2 = ln_gemm_case(g, 2 * T, dtype), tail_case(g, 2 * T, dtype)
+        report(f"B1 cv2 stream M={2 * T} {dn} plan {r1['plan']}", r1)
+        report(f"B2 cv2 stream M={2 * T} {dn} plan {r2['plan']}", r2)
+        if T == 75 and dtype == torch.float32:
+            cv2_kernels = {"flash_attention": ra, "fused_transformer_block": rb,
+                           "ln_gemm": r1, "block_tail": r2}
     same_twice(g)
 
     cfg = ModelConfig()
@@ -1153,6 +1553,8 @@ def main():
         f"{err:.3e} vs max|y| {scale:.3e} (tol 1e-4 * max(1, max|y|))")
     if not (torch.isfinite(y).all() and err <= 1e-4 * max(1.0, scale)):
         raise SystemExit("chip_smoke: full-width estimator disagrees with the CPU plain path")
+    counts_erf = erf_estimator(est, cfg.flow.estimator, args, est_cpu, y)
+    refuse_tiny_widths()
 
     log("[5] full-width prompt-free synthesis (random seeded weights)")
     t = time.time()
@@ -1197,6 +1599,10 @@ def main():
     training_steps(cfg, llm, flow, hift)
     streaming_synthesis(cfg, llm, flow, hift)
     batched_serving(cfg, llm, flow, hift)
+    del llm, flow, hift, pipe, est, est_cpu
+    torch.cuda.empty_cache()
+    training_cli(cfg)
+    counts_cv2 = cv2_synthesis()
 
     def entry(name, source, replaces, r, launches=None):
         # times on the card (torch.profiler) where the profiler gave them,
@@ -1230,6 +1636,21 @@ def main():
         entry("banded_attention", "cosy_tpu_torch/csrc/flash_attention.cu",
               "cosy_tpu/ops/flash_attention.py:275", main_c,
               launches=counts_w["banded_attention"]),
+        # exact-GELU B2: launches of phase 4's gelu_approximate=False call
+        entry("block_tail_erf", "cosy_tpu_torch/csrc/block_tail.cu",
+              "cosy_tpu/ops/fused_block.py:83", main_b2_erf,
+              launches=counts_erf["block_tail"]),
+    ] + [
+        # CosyVoice2 (phase 12): launches of its synthesis, times at the
+        # streaming window's T/2 level with the chunk bias
+        entry(f"{name}_cv2_stream", src, rep, cv2_kernels[name], launches=counts_cv2[name])
+        for name, src, rep in (
+            ("flash_attention", "cosy_tpu_torch/csrc/flash_attention.cu",
+             "cosy_tpu/ops/flash_attention.py:76"),
+            ("fused_transformer_block", "cosy_tpu_torch/csrc/fused_block.cu",
+             "cosy_tpu/ops/fused_block.py:34"),
+            ("ln_gemm", "cosy_tpu_torch/csrc/fused_block.cu", "cosy_tpu/ops/fused_block.py:49"),
+            ("block_tail", "cosy_tpu_torch/csrc/block_tail.cu", "cosy_tpu/ops/fused_block.py:74"))
     ]
     log(f"  run took {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

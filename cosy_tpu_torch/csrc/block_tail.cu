@@ -2,7 +2,8 @@
 // after attention, in one launch,
 //   x1 = x + a Wo^T + bo                 (f32, never leaves the chip)
 //   h2 = LN3(x1)                         (f32 statistics, rounded to T)
-//   f  = gelu_tanh(h2 W1^T + b1)         (rounded to T, never leaves the chip)
+//   f  = gelu(h2 W1^T + b1)              (tanh or erf GELU, rounded to T, never
+//                                        leaves the chip)
 //   y  = x1 + (f W2^T + b2)              (rounded to x's type T)
 // with a (M, I) the attention output of kernel A and x (M, C) the block's
 // input, both of type T.  Replaces lines :74-87 of the JAX package's Pallas
@@ -65,6 +66,7 @@ struct TailArgs {
   void* y;
   int M, I, F;
   float eps;
+  int act;  // kGeluTanh or kGeluErf
 };
 
 constexpr int cmax(int a, int b) { return a > b ? a : b; }
@@ -288,8 +290,8 @@ __global__ void __launch_bounds__(kThreads, 1) block_tail_kernel(const TailArgs 
             const int r = wm0 + i * 16 + g + h * 8, c = wn0 + j * 8 + 2 * t;
             const float2 bb = load_pair(b1 + j0 + c);
             store_pair(Fs + r * LDF + c,
-                       make_float2(activate(acc[i][j][2 * h] + bb.x, kGeluTanh),
-                                   activate(acc[i][j][2 * h + 1] + bb.y, kGeluTanh)));
+                       make_float2(activate(acc[i][j][2 * h] + bb.x, p.act),
+                                   activate(acc[i][j][2 * h + 1] + bb.y, p.act)));
           }
     }
     stream_slices<kStages>(first + n1, n2, total, issue, [&](int stage, int it) {
@@ -365,7 +367,8 @@ cudaError_t dispatch_tail(const TailArgs& a, int block_m, int cluster, int sub, 
 // bo (256), n3w / n3b (256), w1 (F, 256), b1 (F), w2 (256, F), b2 (256).
 // I a multiple of 8 * cluster (a rank's K range of the out-projection is
 // whole 16-byte chunks); F a multiple of cluster * sub.  (block_m, cluster,
-// sub) is the plan.
+// sub) is the plan; act is the GELU, 1 tanh or 2 erf, a runtime argument
+// every plan takes.
 #ifdef COSY_TRACE
 // the phase times of the last COSY_TRACE launch (ops/phase_trace.py)
 extern "C" int cosy_trace(long long* out) {
@@ -377,12 +380,14 @@ extern "C" int cosy_block_tail(int dtype, const void* a, const void* x, const vo
                                const void* bo, const void* n3w, const void* n3b,
                                const void* w1, const void* b1, const void* w2,
                                const void* b2, void* y, int M, int C, int I, int F,
-                               float eps, int block_m, int cluster, int sub, void* stream) {
+                               float eps, int act, int block_m, int cluster, int sub,
+                               void* stream) {
   using namespace cosy;
-  if ((dtype != kF32 && dtype != kBF16) || M <= 0 || C != kC || I <= 0 || cluster <= 0 ||
+  if ((dtype != kF32 && dtype != kBF16) || (act != kGeluTanh && act != kGeluErf) || M <= 0 ||
+      C != kC || I <= 0 || cluster <= 0 ||
       I % (8 * cluster) != 0 || sub <= 0 || F <= 0 || F % (cluster * sub) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const TailArgs args{a, x, wo, bo, n3w, n3b, w1, b1, w2, b2, y, M, I, F, eps};
+  const TailArgs args{a, x, wo, bo, n3w, n3b, w1, b1, w2, b2, y, M, I, F, eps, act};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       dtype == kF32 ? dispatch_tail<float>(args, block_m, cluster, sub, s)

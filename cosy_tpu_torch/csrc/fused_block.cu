@@ -11,7 +11,7 @@
 //   q,k,v = h Wq^T, h Wk^T, h Wv^T       (f32 accumulation, cast)       -> B1
 //   a  = per-head softmax(scale q k^T + bias) v     -> kernel A
 //   x1 = x + a Wo^T + bo                 (kept in f32)                   -> B2
-//   f  = gelu_tanh(LN3(x1) W1^T + b1)    (cast)                          -> B2
+//   f  = gelu(LN3(x1) W1^T + b1)         (cast)                          -> B2
 //   y  = x1 + f W2^T + b2                (cast to x's type)              -> B2
 // A Hopper SM has 227 KB of shared memory, not the 16 MB of VMEM a (T, 256)
 // block row and its (T, 1024) intermediates need, so the block is cut where
@@ -454,7 +454,7 @@ extern "C" int cosy_layer_norm(int w_dtype, int in_dtype, int out_dtype,
 
 // y (M, N) = act(a (M, K) . W^T + bias) + residual, W given as up to three
 // row segments of `seg` rows (w1/w2 null when N == seg).  res_dtype < 0
-// means no residual.  act: 0 none, 1 tanh GELU.  (block_m, block_n) is the
+// means no residual.  act: 0 none, 1 tanh GELU, 2 erf GELU.  (block_m, block_n) is the
 // output tile, 64x64 or 128x128 (bf16) / 128x64 (f32);
 // split_k in {1, 2, 4, 8} blocks
 // share a tile's K range in slices of k_per_split = a multiple of 64.  All
@@ -467,7 +467,7 @@ extern "C" int cosy_gemm(int dtype, int res_dtype, int out_dtype, const void* a,
   using namespace cosy;
   if (!valid_dtype(dtype) || !valid_dtype(out_dtype) ||
       (res != nullptr && !valid_dtype(res_dtype)) || M <= 0 || N <= 0 || K <= 0 ||
-      seg <= 0 || N > 3 * seg || act < kNone || act > kGeluTanh || K % 8 != 0 ||
+      seg <= 0 || N > 3 * seg || act < kNone || act > kGeluErf || K % 8 != 0 ||
       seg % 4 != 0 || !valid_split(split_k))
     return static_cast<int>(cudaErrorInvalidValue);
   const int slices = (K + 63) / 64;

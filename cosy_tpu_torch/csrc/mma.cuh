@@ -308,13 +308,16 @@ __device__ __forceinline__ void slice_product(
   }
 }
 
-enum Act : int { kNone = 0, kGeluTanh = 1 };
+// the epilogue's activation: none, GELU by the tanh approximation, or exact
+// (erf) GELU, the estimator's gelu_approximate=False
+enum Act : int { kNone = 0, kGeluTanh = 1, kGeluErf = 2 };
 
 __device__ __forceinline__ float activate(float v, int act) {
   if (act == kGeluTanh) {
     const float c = 0.7978845608028654f;  // sqrt(2 / pi)
     return 0.5f * v * (1.f + tanhf(c * (v + 0.044715f * v * v * v)));
   }
+  if (act == kGeluErf) return 0.5f * v * (1.f + erff(v * 0.70710678f));
   return v;
 }
 

@@ -15,22 +15,25 @@ on the GPU): a speed/quality trade for long utterances, off by default.  An
 utterance whose mel length is odd is padded and masked, and a level with a
 mask keeps full attention.  ``--stream`` synthesizes window by window as
 the decode goes (the first chunk after 120 tokens), writes the chunks
-concatenated and prints the time to the first chunk.
+concatenated and prints the time to the first chunk.  On CUDA the
+estimator must have the widths the kernels are built for (the full
+configuration's); ``--tiny`` runs with ``--device cpu``, and with CUDA exits
+with one message naming those widths before any weight is built.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import sys
 import time
 
 import numpy as np
 
+from ..compat.loader import load_or_init
 from ..config import ModelConfig, replace, tiny_model_config
-from ..models.flow import Flow, init_flow_params
-from ..models.hift import HiFT, init_hift_params
-from ..models.llm import TransformerLM, init_llm_params
-from ..params import fold_weight_norm, load_torch_checkpoint, resolve_device
+from ..ops.fused_block import require_kernel_widths
+from ..params import load_torch_checkpoint
 from .pipeline import TTSPipeline
 
 
@@ -47,20 +50,10 @@ def save_wav(path: str, wav: np.ndarray, sr: int = 22050):
 
 def load_models(cfg: ModelConfig, pretrained: str, llm_path, flow_path, device, seed: int):
     """(llm, flow, hift) modules on ``device``: checkpoints where present,
-    random init (with a warning) otherwise."""
-    dev = resolve_device(device)
-    if pretrained and os.path.exists(os.path.join(pretrained, "flow.pt")):
-        mods = (TransformerLM(cfg.llm, dev), Flow(cfg.flow, dev), HiFT(cfg.hift, dev))
-        for name, mod in zip(("llm", "flow", "hift"), mods):
-            state = load_torch_checkpoint(os.path.join(pretrained, f"{name}.pt"))
-            mod.load_state_dict(fold_weight_norm(state) if name == "hift" else state,
-                                strict=True)
-    else:
-        print("WARNING: pretrained model dir not found - random initialization "
-              "(smoke mode)")
-        mods = (init_llm_params(cfg.llm, dev, seed=seed),
-                init_flow_params(cfg.flow, dev, seed=seed + 1),
-                init_hift_params(cfg.hift, dev, seed=seed + 2))
+    random init (with a warning) otherwise (``compat.loader.load_or_init``),
+    then the merged weights of ``llm_path`` / ``flow_path``."""
+    loaded = load_or_init(pretrained, cfg, device, seed)
+    mods = (loaded["llm"], loaded["flow"], loaded["hift"])
     for path, mod in ((llm_path, mods[0]), (flow_path, mods[1])):
         if path and os.path.exists(path):
             print(f"loading merged weights: {path}")
@@ -93,6 +86,10 @@ def main(argv=None):
     if args.attn_window:
         est = replace(cfg.flow.estimator, attn_window=args.attn_window)
         cfg = replace(cfg, flow=replace(cfg.flow, estimator=est))
+    try:
+        require_kernel_widths(cfg.flow.estimator, args.device)
+    except ValueError as e:
+        sys.exit(f"error: {e}")
     llm, flow, hift = load_models(cfg, args.pretrained, args.llm, args.flow,
                                   args.device, args.seed)
     pipe = TTSPipeline(cfg, llm, flow, hift, finetuned_norm=True)

@@ -35,6 +35,7 @@ from ..layers.basic import dense
 from ..models import flow as F
 from ..models import hift as H
 from ..models import llm as L
+from ..ops.fused_block import require_kernel_widths
 
 
 def stream_seed(seed: int, row: int, stage: int) -> int:
@@ -105,11 +106,12 @@ class TTSPipeline:
                  finetuned_norm: bool = True):
         if infer_cfg.sampler != "euler":
             raise NotImplementedError("only the Euler CFM sampler is ported")
+        self.device = next(flow.parameters()).device
+        require_kernel_widths(model_cfg.flow.estimator, self.device)
         self.cfg = model_cfg
         self.icfg = infer_cfg
         self.finetuned_norm = finetuned_norm
         self.llm_p, self.flow_p, self.hift_p = llm.p, flow.p, hift.p
-        self.device = next(flow.parameters()).device
         # wall seconds of the last synthesize() / token2wav() per stage
         # (decode, flow, hift), each ending in a device synchronize
         self.stage_seconds: Dict[str, float] = {}

@@ -59,7 +59,7 @@ SIGNATURES = {
         _i, _i, _i, _vp]),
     "cosy_block_tail": ("block_tail.cu", [
         _i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i,
-        _f, _i, _i, _i, _vp]),
+        _f, _i, _i, _i, _i, _vp]),
 }
 
 _lock = threading.Lock()

@@ -30,9 +30,11 @@ import torch.nn.functional as F
 
 from ..ctx import EVAL, Ctx
 from . import _cuda
-from .flash_attention import flash_attention, flash_attention_ref
+from .flash_attention import HEAD_DIM, flash_attention, flash_attention_ref
 
-_GELU_CODE = {None: 0, "tanh": 1}
+# csrc/mma.cuh ``enum Act``: the GEMM epilogue takes every code, the block
+# tail B2 the two GELUs
+_GELU_CODE = {None: 0, "tanh": 1, "erf": 2}
 
 
 # ---------------------------------------------------------------------------
@@ -146,8 +148,7 @@ def gemm(a, weights, bias=None, residual=None, out_dtype=None,
     """``Y (M, N) = act(a (M, K) . W^T + bias) + residual``; W is one to
     three equal row segments (``weights``), read in place — Wq, Wk and Wv
     make one QKV product without a concat.  ``residual`` is f32 or a's
-    dtype; ``gelu`` is None or "tanh" (the kernel's only GELU; the plain
-    version also takes "erf").  The kernel copies 16 bytes at a time: K must
+    dtype; ``gelu`` is None, "tanh" or "erf" (exact GELU).  The kernel copies 16 bytes at a time: K must
     be a multiple of 8, a segment's rows a multiple of 4, and every tensor
     contiguous from a 16-byte-aligned start."""
     out_dtype = out_dtype or a.dtype
@@ -176,7 +177,7 @@ def check_gemm_args(a, weights, bias, residual, out_dtype, gelu):
     if a.dtype not in codes or out_dtype not in codes:
         raise TypeError("gemm takes f32 or bf16")
     if not 1 <= len(weights) <= 3 or gelu not in _GELU_CODE:
-        raise ValueError("gemm takes 1-3 weight segments and gelu None or 'tanh'")
+        raise ValueError("gemm takes 1-3 weight segments and gelu None, 'tanh' or 'erf'")
     if a.ndim != 2 or weights[0].ndim != 2:
         raise ValueError("gemm takes a (M, K) and weight segments (seg, K)")
     M, K = a.shape
@@ -388,14 +389,18 @@ def block_tail_ref(a, x, wo, bo, n3w, n3b, w1, b1, w2, b2, eps: float = 1e-5,
     return (x1 + (ff + b2.float())).to(cd)
 
 
-def block_tail(a, x, wo, bo, n3w, n3b, w1, b1, w2, b2, eps: float = 1e-5) -> torch.Tensor:
+def block_tail(a, x, wo, bo, n3w, n3b, w1, b1, w2, b2, eps: float = 1e-5,
+               gelu: str = "tanh") -> torch.Tensor:
     """``y (M, C)`` = the block after attention (out-projection with its
-    residual, LN3, FF1 with tanh GELU, FF2 with its residual) in one launch.
-    ``a`` (M, inner) and ``x`` (M, C) and every weight share one dtype, the
+    residual, LN3, FF1 with GELU, FF2 with its residual) in one launch.
+    ``gelu`` is "tanh" (the approximation) or "erf" (exact).  ``a``
+    (M, inner) and ``x`` (M, C) and every weight share one dtype, the
     compute dtype; C = 256.  CPU tensors run ``block_tail_ref``."""
     _cuda.refuse_grad("block_tail", a, x, wo, bo, n3w, n3b, w1, b1, w2, b2)
+    if gelu not in ("tanh", "erf"):
+        raise ValueError(f"block_tail computes gelu 'tanh' or 'erf', got {gelu!r}")
     if x.device.type == "cpu":
-        return block_tail_ref(a, x, wo, bo, n3w, n3b, w1, b1, w2, b2, eps)
+        return block_tail_ref(a, x, wo, bo, n3w, n3b, w1, b1, w2, b2, eps, gelu)
     if x.device.type != "cuda":
         raise ValueError(f"block_tail runs on cuda or cpu tensors, got {x.device}")
     plan = check_tail_args(a, x, wo, bo, n3w, n3b, w1, b1, w2, b2)
@@ -404,7 +409,8 @@ def block_tail(a, x, wo, bo, n3w, n3b, w1, b1, w2, b2, eps: float = 1e-5) -> tor
     fn = _cuda.function("cosy_block_tail")
     _cuda.check(fn(_cuda.DTYPE_CODE[x.dtype], *(t.data_ptr() for t in
                                                   (a, x, wo, bo, n3w, n3b, w1, b1, w2, b2, y)),
-                   M, C, a.shape[1], w1.shape[0], float(eps), *plan, _cuda.stream_ptr(x)),
+                   M, C, a.shape[1], w1.shape[0], float(eps), _GELU_CODE[gelu], *plan,
+                   _cuda.stream_ptr(x)),
                 "block_tail")
     block_tail.launches += 1
     return y
@@ -488,8 +494,8 @@ def fused_transformer_block(
     gelu_approximate: bool = True,
 ) -> torch.Tensor:
     """One inference diffusers block: three launches (B1, A, B2) on CUDA
-    tensors, the plain version on CPU tensors.  The kernels' GELU is the
-    tanh approximation (the estimator's); erf GELU raises on CUDA."""
+    tensors, the plain version on CPU tensors.  B2's GELU is the tanh
+    approximation, or exact erf GELU when ``gelu_approximate`` is False."""
     _cuda.refuse_grad("fused_transformer_block", x, bias, n1w, n1b, wq, wk, wv, wo, bo,
                       n3w, n3b, w1, b1, w2, b2)
     if x.device.type == "cpu":
@@ -500,9 +506,6 @@ def fused_transformer_block(
         raise ValueError(f"fused_transformer_block runs on cuda or cpu tensors, got {x.device}")
     if x.ndim != 3 or not x.is_contiguous():
         raise ValueError("x must be a contiguous (B, T, C) tensor")
-    if not gelu_approximate:
-        raise NotImplementedError("the block kernels compute tanh GELU only")
-
     def attend(q, k, v, bias, scale):
         B, H, T, d = q.shape
         out = torch.empty((B, T, H, d), dtype=q.dtype, device=q.device)
@@ -510,8 +513,11 @@ def fused_transformer_block(
         flash_attention(q, k, v, bias, scale, out=out.permute(0, 2, 1, 3))
         return out
 
+    def tail(*args):
+        return block_tail(*args, gelu="tanh" if gelu_approximate else "erf")
+
     y = _block(x, bias, n1w, n1b, wq, wk, wv, wo, bo, n3w, n3b, w1, b1, w2, b2,
-               heads, scale, ln_gemm, attend, block_tail)
+               heads, scale, ln_gemm, attend, tail)
     fused_transformer_block.launches += 1
     return y
 
@@ -528,3 +534,25 @@ def use_fused_block(x: torch.Tensor, act_fn: str, bias_ndim: Optional[int],
     return (x.device.type == "cuda" and not ctx.train and ctx.lora is None
             and act_fn in ("gelu", "gelu-approximate")
             and bias_ndim in (None, 3) and window is None)
+
+
+KERNEL_HEADS = 8  # the estimator's heads at HEAD_DIM: the inner width 512 B1 and B2 take
+KERNEL_WIDTHS = (f"channels {TAIL_C} at every level, {KERNEL_HEADS} heads x {HEAD_DIM}, "
+                 f"FF 4 x {TAIL_C}")
+
+
+def require_kernel_widths(est_cfg, device) -> None:
+    """Refuse, before any weight is built or kernel runs, an estimator whose
+    widths the CUDA kernels are not built for when ``device`` is CUDA: one
+    message that names the widths (``KERNEL_WIDTHS``).  Other devices run
+    the plain versions at any width.  ``device`` is only named, never
+    resolved, so the check needs no card."""
+    if torch.device(device).type != "cuda":
+        return
+    if (all(c == TAIL_C for c in est_cfg.channels) and est_cfg.num_heads == KERNEL_HEADS
+            and est_cfg.attention_head_dim == HEAD_DIM):
+        return
+    raise ValueError(
+        f"the CUDA kernels are built for the estimator widths {KERNEL_WIDTHS}; this "
+        f"estimator has channels {tuple(est_cfg.channels)}, {est_cfg.num_heads} heads x "
+        f"{est_cfg.attention_head_dim}: run it with device='cpu'")

@@ -96,7 +96,8 @@ def main():
             plan = _tail_plan(M, C, inner, F, dtype)
             print(f"B2 {str(dtype)[6:]} M={M} plan {plan} us: " + _phases(b2, lambda: _cuda.check(
                 b2.cosy_block_tail(codes[dtype], *(t.data_ptr() for t in ts), M, C, inner, F,
-                                   1e-5, *plan, _cuda.stream_ptr(x)), "block_tail"), B2_PHASES),
+                                   1e-5, 1, *plan, _cuda.stream_ptr(x)), "block_tail"),
+                                         B2_PHASES),
                   flush=True)
 
 

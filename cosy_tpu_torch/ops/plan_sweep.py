@@ -140,7 +140,8 @@ def sweep_tail(dev, gen):
             for bm, cluster, sub in _TAIL_PLANS:
                 def run():
                     _cuda.check(fn(codes[dtype], *(t.data_ptr() for t in ts), M, C, inner, F,
-                                   1e-5, bm, cluster, sub, _cuda.stream_ptr(x)), "block_tail")
+                                   1e-5, 1, bm, cluster, sub, _cuda.stream_ptr(x)),
+                                "block_tail")
 
                 results.append((device_ms(run), (bm, cluster, sub),
                                 _cuda.cdiv(M, bm) * cluster))

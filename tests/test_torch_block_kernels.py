@@ -440,3 +440,168 @@ def test_launch_counts_name_the_three_launches_of_a_block():
     tfb.ln_gemm.launches, tfb.block_tail.launches = 3, 4
     ops.reset_launch_counts()
     assert set(ops.launch_counts().values()) == {0}
+
+
+# ---------------------------------------------------------------------------
+# exact (erf) GELU: the estimator's gelu_approximate=False
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("with_bias", [False, True], ids=["no_bias", "bias"])
+def test_erf_chain_matches_pallas(with_bias):
+    """The chain of plain versions with B2's erf GELU against the Pallas
+    kernel's gelu_approximate=False in interpret mode: 2e-5."""
+    rng = np.random.default_rng(30 + with_bias)
+    B, T, C, heads, d, ff = 2, 16, 32, 2, 16, 64
+    x = rng.standard_normal((B, T, C)).astype(np.float32)
+    W = _weights(rng, C, heads * d, ff)
+    bias = None
+    if with_bias:
+        bias = np.zeros((B, T, T), np.float32)
+        bias[0, :, -4:] = -1e10
+    want = j_fused(jnp.asarray(x), None if bias is None else jnp.asarray(bias),
+                   *(jnp.asarray(w) for w in W), heads=heads, scale=d ** -0.5,
+                   gelu_approximate=False, interpret=True)
+    tb = None if bias is None else t(bias)
+    got = tfb.fused_transformer_block(t(x), tb, *(t(w) for w in W), heads=heads,
+                                      scale=d ** -0.5, gelu_approximate=False)
+    assert_close(got, want, **TOL)
+    tanh = tfb.fused_transformer_block_ref(t(x), tb, *(t(w) for w in W), heads=heads,
+                                           scale=d ** -0.5)
+    assert not torch.equal(got, tanh)  # the two GELUs differ
+
+
+@pytest.mark.parametrize("ranks", [1, 8])
+def test_block_tail_ref_erf_ranks_equal_the_unsplit_sum(ranks):
+    args = _tail_inputs(40 + ranks, 19, 256, 512, 1024)
+    a, x, wo, bo, n3w, n3b, w1, b1, w2, b2 = args
+    x1 = tfb.gemm_ref(a, (wo,), bo, x, out_dtype=F32)
+    f = tfb.gemm_ref(tfb.layer_norm_rows_ref(x1, n3w, n3b, F32), (w1,), b1, gelu="erf")
+    want = tfb.gemm_ref(f, (w2,), b2, x1, out_dtype=F32)
+    got = tfb.block_tail_ref(*args, gelu="erf", ranks=ranks)
+    assert_close(got, want, **TOL)
+    if ranks == 1:
+        assert torch.equal(got, tfb.block_tail(*args, gelu="erf"))  # the CPU wrapper
+
+
+def test_gelu_codes_are_the_kernels_act_codes():
+    """``_GELU_CODE`` against ``enum Act`` of csrc/mma.cuh, and the C
+    entries' checks of the codes they take."""
+    src = (CSRC / "mma.cuh").read_text()
+    enum = dict((name, int(v)) for name, v in
+                re.findall(r"(k\w+) = (\d+)", re.search(r"enum Act[^}]*}", src).group(0)))
+    assert enum == {"kNone": 0, "kGeluTanh": 1, "kGeluErf": 2}
+    assert tfb._GELU_CODE == {None: 0, "tanh": 1, "erf": 2}
+    assert "erff(v * 0.70710678f)" in src
+    tail = (CSRC / "block_tail.cu").read_text()
+    assert "(act != kGeluTanh && act != kGeluErf)" in tail
+    assert "kGeluTanh)" not in tail.split("block_tail_kernel(const TailArgs p)")[1]
+    assert "act > kGeluErf" in (CSRC / "fused_block.cu").read_text()
+
+
+@pytest.mark.parametrize("gelu", [None, "sigmoid", "none"])
+def test_block_tail_refuses_a_gelu_the_kernels_lack(gelu):
+    counts = ops.launch_counts()
+    with pytest.raises(ValueError, match="'tanh' or 'erf'"):
+        tfb.block_tail(*_tail_args(), gelu=gelu)
+    with pytest.raises(ValueError, match="gelu None, 'tanh' or 'erf'"):
+        tfb.check_gemm_args(torch.zeros(8, 64), [torch.zeros(8, 64)], None, None, F32, "none")
+    assert ops.launch_counts() == counts
+
+
+@pytest.fixture(scope="module")
+def erf_flow():
+    import dataclasses
+
+    from cosy_tpu.config import tiny_model_config as j_tiny
+    from cosy_tpu_torch.models import flow as TF
+    from test_torch_common import port_config, port_init, torch_params
+
+    jcfg = j_tiny().flow
+    est = dataclasses.replace(jcfg.estimator, gelu_approximate=False)
+    params = port_init(TF.init_flow_params, jcfg)
+    return est, {k: jnp.asarray(v) for k, v in params.items()}, torch_params(params), \
+        port_config(est)
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["dense", "masked"])
+def test_erf_estimator_matches_jax(erf_flow, masked):
+    """The estimator with ``gelu_approximate=False`` (exact GELU in every
+    transformer block) against JAX ``conditional_decoder``: 2e-4."""
+    from cosy_tpu.ctx import EVAL
+    from cosy_tpu.layers.unet import conditional_decoder as j_decoder
+    from cosy_tpu.params import P as JP
+    from cosy_tpu_torch.layers.unet import conditional_decoder as t_decoder
+
+    jest, jp, tp, test = erf_flow
+    assert not test.gelu_approximate
+    rng = np.random.default_rng(50 + masked)
+    B, T = 2, 24
+    x, mu, cond = (rng.standard_normal((B, 80, T)).astype(np.float32) for _ in range(3))
+    spks = rng.standard_normal((B, 80)).astype(np.float32)
+    tt = rng.uniform(size=(B,)).astype(np.float32)
+    mask = None
+    if masked:
+        mask = np.ones((B, 1, T), np.float32)
+        mask[1, :, 19:] = 0.0
+    want = jax.jit(lambda p, x, m, *a: j_decoder(JP(p).sub("decoder.estimator"), jest, x, m,
+                                                 *a, EVAL))(
+        jp, jnp.asarray(x), None if mask is None else jnp.asarray(mask), jnp.asarray(mu),
+        jnp.asarray(tt), jnp.asarray(spks), jnp.asarray(cond))
+    got = t_decoder(tp.sub("decoder.estimator"), test, t(x), None if mask is None else t(mask),
+                    t(mu), t(tt), t(spks), t(cond))
+    assert_close(got, np.asarray(want), atol=2e-4, rtol=2e-4)
+
+
+# ---------------------------------------------------------------------------
+# the early refusal of widths the kernels are not built for
+# ---------------------------------------------------------------------------
+
+
+def _widths_message():
+    return re.escape(tfb.KERNEL_WIDTHS)
+
+
+@pytest.mark.parametrize("device", ["cuda", "cuda:0", "cpu"])
+@pytest.mark.parametrize("tiny", [True, False], ids=["tiny", "full"])
+def test_kernel_widths_are_required_on_cuda_only(tiny, device):
+    from cosy_tpu_torch.config import ModelConfig, tiny_model_config
+
+    est = (tiny_model_config() if tiny else ModelConfig()).flow.estimator
+    if tiny and device != "cpu":
+        with pytest.raises(ValueError, match=_widths_message()):
+            tfb.require_kernel_widths(est, device)
+    else:
+        tfb.require_kernel_widths(est, device)
+    assert tfb.KERNEL_WIDTHS == "channels 256 at every level, 8 heads x 64, FF 4 x 256"
+
+
+def test_infer_cli_refuses_tiny_on_cuda_before_any_weight(monkeypatch, tmp_path):
+    """``--tiny --device cuda`` exits with the one message, before a weight
+    is built or the device resolved (so it shows without a card)."""
+    from cosy_tpu_torch.infer import __main__ as cli
+
+    def boom(*a, **kw):
+        raise AssertionError("weights were built")
+
+    monkeypatch.setattr(cli, "load_models", boom)
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["--text", "ab", "--tiny", "--device", "cuda", "--output",
+                  str(tmp_path / "x.wav")])
+    assert tfb.KERNEL_WIDTHS in str(exc.value.code)
+
+
+def test_pipeline_refuses_a_tiny_estimator_on_cuda():
+    """``TTSPipeline`` construction checks the widths on its modules' device
+    first (a stand-in module reports a CUDA device; no card is needed)."""
+    from types import SimpleNamespace
+
+    from cosy_tpu_torch.config import tiny_model_config
+    from cosy_tpu_torch.infer.pipeline import TTSPipeline
+
+    class OnCuda:
+        def parameters(self):
+            yield SimpleNamespace(device=torch.device("cuda"))
+
+    with pytest.raises(ValueError, match=_widths_message()):
+        TTSPipeline(tiny_model_config(), None, OnCuda(), None)

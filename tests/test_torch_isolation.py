@@ -41,3 +41,21 @@ def test_sources_import_no_jax():
     assert FORBIDDEN.search("from cosy_tpu.config import X")
     assert FORBIDDEN.search("import jax.numpy as jnp")
     assert not FORBIDDEN.search("from cosy_tpu_torch.config import X")
+
+
+def test_cv2_training_cli_and_data_modules_load_no_jax():
+    """The CosyVoice2 modules, the data reader, the loader and the training
+    CLI, imported in a fresh interpreter."""
+    code = ("import sys\nbefore = set(sys.modules)\n"
+            "import cosy_tpu_torch.data.dataset, cosy_tpu_torch.data.prefetch, "
+            "cosy_tpu_torch.compat.loader, cosy_tpu_torch.train.__main__, "
+            "cosy_tpu_torch.layers.qwen2, cosy_tpu_torch.layers.upsample_encoder, "
+            "cosy_tpu_torch.models.qwen2lm, cosy_tpu_torch.models.flow2, "
+            "cosy_tpu_torch.infer.pipeline2\n"
+            "bad = sorted(m for m in set(sys.modules) - before if m == 'jax' or "
+            "m.startswith('jax.') or m == 'cosy_tpu' or m.startswith('cosy_tpu.'))\n"
+            "print(bad)\nsys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
