@@ -69,7 +69,24 @@ Phases, each fatal on failure (nothing is caught and passed over):
      then the bucketed final, (c) 4 requests decoded as one batch against
      their solo decodes (the phase-10 rule) and synthesize_batch; counters
      reset before and read after each: 64 x NFE 10 x flow calls fused
-     blocks; one streaming estimator call against the CPU.
+     blocks; one streaming estimator call against the CPU;
+ 13. CosyVoice2 serving at full width on phase 12's weights, EOS held off to
+     min(15 n, 100) attempts for n text ids, 25-token hops: (a)
+     synthesize_stream_batch of 4 requests, (b) ContinuousBatchEngine over a
+     TTS2Pipeline, 4 slots and 6 requests (two admitted mid-flight), each
+     stream held to its solo streamed synthesis (tokens by the phase-10
+     rule, chunks within 1e-4 * max(1, max|wav|)), counters reset before
+     and read after each: 64 x NFE 10 x chunks fused blocks; (c) a bistream
+     decode over 4 text chunks with a speech prompt, each advance's logits
+     against qwen2lm_teacher_forced_logits over the same embeddings
+     (1e-4 * max(1, max|logit|)); first-chunk times and tokens/s;
+ 14. the frontend and data prep on the card: mel_spectrogram (22.05 and
+     24 kHz) and mel_spectrogram_prepadded against the CPU, the replica
+     campplus and S3 graphs through compat.onnx against the CPU run and the
+     replica torch module, Frontend(sample_rate=24000).frontend_zero_shot
+     of a seeded 16 kHz prompt and TTS2Pipeline.synthesize from its dict
+     (64 x NFE 10 fused blocks), and the preparer's CLI on 8 seeded clips
+     with the replica graphs, one batch of its shards read back.
 Phase 3 also holds B2 and the GEMM epilogue with exact (erf) GELU beside
 tanh, refuses a GELU code the kernels lack, and runs A, the block, B1 and
 B2 at CosyVoice2's streaming shapes with the chunk bias; phase 4 repeats
@@ -89,6 +106,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from importlib.util import find_spec
 
 import torch
 
@@ -100,6 +118,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import numpy as np  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
+from scipy.io import wavfile  # noqa: E402
 
 from cosy_tpu_torch import ops  # noqa: E402
 from cosy_tpu_torch.config import InferenceConfig, ModelConfig, TrainConfig  # noqa: E402
@@ -122,10 +141,18 @@ from cosy_tpu_torch.ops.fused_block import (_gemm_plan, _ln_gemm_plan,  # noqa: 
                                             layer_norm_rows, layer_norm_rows_ref, ln_gemm,
                                             ln_gemm_ref)
 from cosy_tpu_torch.ops.plan_sweep import device_ms  # noqa: E402
+from cosy_tpu_torch.ops import audio  # noqa: E402
+from cosy_tpu_torch.compat.onnx import OnnxModel  # noqa: E402
+from cosy_tpu_torch.compat.replicas import make_campplus_replica, make_s3_replica  # noqa: E402
+from cosy_tpu_torch.data.dataset import DataLoader, FlowFinetuneDataset  # noqa: E402
+from cosy_tpu_torch.data.frontend import Frontend  # noqa: E402
+from cosy_tpu_torch.data.prepare import main as prepare_main  # noqa: E402
 from cosy_tpu_torch.params import P, load_torch_checkpoint  # noqa: E402
 from cosy_tpu_torch.train.trainer import JointTrainer  # noqa: E402
-from cosy_tpu_torch.infer.pipeline2 import TTS2Pipeline, hift24k_config  # noqa: E402
+from cosy_tpu_torch.infer.pipeline2 import (Stream2Cursor, TTS2Pipeline,  # noqa: E402
+                                            hift24k_config)
 from cosy_tpu_torch.layers.unet import _stream_bias  # noqa: E402
+from cosy_tpu_torch.models import qwen2lm as Q  # noqa: E402
 from cosy_tpu_torch.models.flow2 import Flow2Config, init_flow2_params  # noqa: E402
 from cosy_tpu_torch.models.qwen2lm import (Qwen2LMConfig, init_qwen2lm_params,  # noqa: E402
                                            qwen2lm_teacher_forced_logits)
@@ -1282,7 +1309,316 @@ def cv2_synthesis(seed=50):
     if not (torch.isfinite(y).all() and err <= 1e-4 * max(1.0, scale)) \
             or counts["fused_transformer_block"] != 64:
         raise SystemExit("chip_smoke: the streaming causal estimator disagrees with the CPU")
+    return total, (llm, flow, hift)
+
+
+def solo_stream2(pipe, text, seed, row, cap):
+    """A solo streamed CosyVoice2 synthesis of ``text`` with row ``row``'s
+    draws (the reference each batched, engine or admitted stream is held
+    to): (tokens, chunks, seconds to the first chunk)."""
+    cur = Stream2Cursor(pipe._spk(None), seed, row, pipe.token_hop_len)
+    chunks, first = [], None
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for tokens, done in pipe.generate_tokens_stream(
+                text, max_len_cap=cap, generator=pipe._decode_generator(seed, row)):
+            for wav in pipe.stream_chunks(cur, tokens, done):
+                chunks.append(wav)
+                first = first or time.perf_counter() - t0
+    return tokens[0].tolist(), chunks, first
+
+
+def hold_stream2(pipe, what, tokens, chunks, ref, rows):
+    """A CosyVoice2 stream against its solo reference (tokens, chunks): the
+    tokens equal, or diverging within rounding (check_same_tokens_cv2, with
+    ``rows`` the batch's prefixes, this row first); every chunk whose
+    window lies before any divergence within 1e-4 * max(1, max|wav|) of the
+    solo chunk.  Returns the number of chunks compared."""
+    want_tokens, want_chunks = ref
+    check_same_tokens_cv2(pipe, what, tokens, want_tokens, rows)
+    j = None if list(tokens) == list(want_tokens) else next(
+        (i for i, (a, b) in enumerate(zip(tokens, want_tokens)) if a != b),
+        min(len(tokens), len(want_tokens)))
+    if j is None and len(chunks) != len(want_chunks):
+        raise SystemExit(f"chip_smoke: {what}: {len(chunks)} chunks, solo {len(want_chunks)}")
+    hop, la = pipe.token_hop_len, pipe.fcfg.pre_lookahead_len
+    n = 0
+    for k, (g, w) in enumerate(zip(chunks, want_chunks)):
+        if j is not None and (k == len(want_chunks) - 1 or k * hop + hop + la > j):
+            break
+        err, tol = np.abs(g - w).max(initial=0.0), 1e-4 * max(1.0, np.abs(w).max(initial=0.0))
+        if g.shape != w.shape or not np.isfinite(g).all() or not err <= tol:
+            raise SystemExit(f"chip_smoke: {what} chunk {k} {g.shape} off the solo stream's "
+                             f"{w.shape}: max_abs_err {err:.3e} (tol {tol:.3e})")
+        n += 1
+    return n
+
+
+def cv2_serving(lcfg, fcfg, hcfg, llm, flow, hift, cap=100, seed=60):
+    """Phase 13: CosyVoice2 serving at full width.  Returns the launch
+    counts of (a) and (b) together."""
+    hop = int(np.prod(hcfg.upsample_rates)) * hcfg.istft_hop_len
+    # EOS held off to ``cap`` attempts (15 per text id against a cap of 100):
+    # every stream runs its cap, less any fill tokens
+    pipe = TTS2Pipeline(lcfg, fcfg, hcfg, llm, flow, hift,
+                        InferenceConfig(min_token_text_ratio=15.0), hop_samples=hop)
+    lens = (8, 2, 9, 3, 3, 4)  # caps 100, 40, 100, 60, 60, 80 attempts
+    texts = [np.random.default_rng(seed + i).integers(0, lcfg.qwen.vocab_size, (1, n))
+             for i, n in enumerate(lens)]
+    log(f"[13] CosyVoice2 serving at full width: requests of {list(lens)} text ids, EOS held off "
+        f"to min(15 n, {cap}) attempts, 25-token hops + {fcfg.pre_lookahead_len} lookahead")
+    with torch.inference_mode():
+        built = [pipe._build_prefix(x, None, None, cap) for x in texts]
+    # solo streams: row b's draws are those of request b (stream_seed(seed, b, .))
+    refs, firsts = [], []
+    t0 = time.perf_counter()
+    for b, x in enumerate(texts):
+        tokens, chunks, first = solo_stream2(pipe, x, seed, b, cap)
+        refs.append((tokens, chunks))
+        firsts.append(first)
+    log(f"  solo streams: {[len(t) for t, _ in refs]} tokens, {[len(c) for _, c in refs]} chunks "
+        f"in {time.perf_counter() - t0:.3f} s; time to the first chunk "
+        f"{', '.join(f'{f:.3f}' for f in firsts)} s")
+
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    # (a) batched streaming of the first four
+    got = {b: [] for b in range(4)}
+    first = {}
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for b, wav, _ in pipe.synthesize_stream_batch(texts[:4], max_len_cap=cap, seed=seed):
+            got[b].append(wav)
+            first.setdefault(b, time.perf_counter() - t0)
+    t_a = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    add(counts)
+    rows = pipe.decode_batch(texts[:4], cap, seed)
+    n_tok, dec = sum(len(r) for r in rows), pipe.stage_seconds.get("decode", 0.0)
+    log(f"  (a) synthesize_stream_batch of 4: {t_a:.3f} s; time to the first chunk per row "
+        + ", ".join(f"{first[b]:.3f}" for b in range(4))
+        + f" s; stages (s) " + ", ".join(f"{k} {v:.3f}" for k, v in pipe.stage_seconds.items())
+        + f"; aggregate decode {n_tok / dec:.1f} tokens/s (B = 4, {n_tok} tokens); launches "
+        f"{counts}")
+    compared = [hold_stream2(pipe, f"stream batch row {b}", rows[b], got[b], refs[b],
+                             [built[b]] + [built[i] for i in range(4) if i != b])
+                for b in range(4)]
+    log(f"  rows equal their solo streams: tokens, and {compared} chunks within 1e-4 * "
+        f"max(1, max|wav|)")
+    expect_blocks(counts, 10 * sum(len(c) for c in got.values()), "CosyVoice2 stream batch")
+
+    # (b) the engine: 4 slots, 6 requests; rows 1 and 3 finish first, so
+    # requests 4 and 5 join mid-flight
+    eng = ContinuousBatchEngine(pipe, slots=4, prefix_len=32, max_len=cap)
+    ops.reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        reqs = [eng.submit(x, seed=stream_seed(seed, b, 0)) for b, x in enumerate(texts)]
+        outs = [list(r.chunks(timeout=600)) for r in reqs]
+        t_eng = time.perf_counter() - t0
+    finally:
+        eng.stop()
+    counts = ops.launch_counts()
+    add(counts)
+    log(f"  (b) engine, 4 slots: {len(reqs)} requests in {t_eng:.3f} s wall, {eng.segments_run} "
+        f"segments of {eng.seg} attempts; admitted at segments "
+        f"{[r.admitted_segment for r in reqs]}; chunks {[len(o) for o in outs]}; "
+        f"launches {counts}")
+    if sum(1 for r in reqs if r.admitted_segment) < 2:
+        raise SystemExit("chip_smoke: fewer than two CosyVoice2 requests joined mid-flight")
+    compared = [hold_stream2(pipe, f"engine request {b}", r.tokens.tolist(), o, refs[b],
+                             [built[b]])
+                for b, (r, o) in enumerate(zip(reqs, outs))]
+    log(f"  requests equal their solo streams: tokens, and {compared} chunks")
+    expect_blocks(counts, 10 * sum(len(o) for o in outs), "CosyVoice2 engine")
+
+    # (c) streaming text: 4 chunks of 8 text ids after a prompt of 4 text ids
+    # and 30 speech tokens.  Random weights never sample the fill token, so
+    # the 15th attempt is made one; after it the reference's own rule forces
+    # a fill every mix_ratio[1] + 1 tokens
+    rng = np.random.default_rng(seed + 10)
+    chunks = [rng.integers(0, lcfg.qwen.vocab_size, (1, 8)) for _ in range(4)]
+    prompt_text = rng.integers(0, lcfg.qwen.vocab_size, (1, 4))
+    prompt_speech = rng.integers(0, lcfg.speech_token_size, (1, 30))
+    fill = lcfg.speech_token_size + 2
+    advances = []
+
+    class Recording(Q.Qwen2StreamDecoder):
+        def advance(self, emb):
+            logits = super().advance(emb)
+            advances.append((emb, logits, self.L))
+            return logits
+
+    real_sample, calls = Q.ras_sample, []
+
+    def sample(logp, *a, **k):
+        calls.append(1)
+        return fill if len(calls) == 15 else real_sample(logp, *a, **k)
+
+    real_decoder = Q.Qwen2StreamDecoder
+    Q.Qwen2StreamDecoder, Q.ras_sample = Recording, sample
+    try:
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            toks = list(Q.qwen2lm_inference_bistream(
+                pipe.llm_p, lcfg, iter(chunks), prompt_text, prompt_speech, capacity=512,
+                max_tokens=100, generator=torch.Generator().manual_seed(seed)))
+        torch.cuda.synchronize()
+        t_c = time.perf_counter() - t0
+    finally:
+        Q.Qwen2StreamDecoder, Q.ras_sample = real_decoder, real_sample
+    emb = torch.cat([e for e, _, _ in advances], dim=1)
+    worst = 0.0
+    with torch.inference_mode():
+        for e, logits, L in advances:
+            want = qwen2lm_teacher_forced_logits(pipe.llm_p, lcfg, emb[:, :L], [L], [[]])[0, 0]
+            gap = (logits.float() - want.float()).abs().max().item()
+            worst = max(worst, gap / (1e-4 * max(1.0, want.float().abs().max().item())))
+    log(f"  (c) bistream, 4 text chunks of 8 after a 4-id / 30-token prompt: {len(toks)} speech "
+        f"tokens in {t_c:.3f} s ({len(toks) / t_c:.1f} tokens/s), {len(advances)} advances "
+        f"over {emb.shape[1]} positions; each advance's logits against "
+        f"qwen2lm_teacher_forced_logits: worst gap {worst:.3f} of 1e-4 * max(1, max|logit|)")
+    if not (worst <= 1.0 and len(toks) > 4 * 15 and all(0 <= t < fill - 2 for t in toks)):
+        raise SystemExit("chip_smoke: the bistream decode is off")
     return total
+
+
+def write_clips(d, n, seed):
+    """``n`` seeded int16 clips of 0.6-2.0 s at 16, 22.05 and 24 kHz with
+    their texts."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(d)
+    for i in range(n):
+        sr = (16000, 22050, 24000)[i % 3]
+        t = np.arange(int(sr * (0.6 + 0.2 * i))) / sr
+        wav = 0.3 * np.sin(2 * np.pi * (110 + 35 * i) * t) + 0.05 * rng.standard_normal(t.size)
+        wavfile.write(os.path.join(d, f"clip{i}.wav"), sr, (wav * 32767).astype(np.int16))
+        with open(os.path.join(d, f"clip{i}.txt"), "w", encoding="utf-8") as f:
+            f.write(f"Clip number {i} reads {3 * i + 1} words aloud.")
+
+
+def frontend_and_prep(lcfg, fcfg, hcfg, llm, flow, hift, seed=70):
+    """Phase 14: the mel frontend, the ONNX extractors, the inference
+    frontend and the data preparer on the card.  Returns the launch counts
+    of the synthesis from the frontend's dict."""
+    log("[14] frontend and data prep on the card")
+    rng = np.random.default_rng(seed)
+    for kw in ({}, dict(sr=24000, n_fft=1920, hop=480, win=1920)):
+        n_fft, hop = kw.get("n_fft", audio.N_FFT), kw.get("hop", audio.HOP_SIZE)
+        sr = kw.get("sr", audio.SAMPLE_RATE)
+        y = torch.from_numpy((0.3 * rng.standard_normal((4, 2 * sr + 123))).astype(np.float32))
+        pad = (n_fft - hop) // 2
+        yp = F.pad(F.pad(y[:, None], (pad, pad), mode="reflect")[:, 0], (0, 5 * hop))
+        yd, ypd = y.to(DEV), yp.to(DEV)
+        for what, fn, x, xd in (("mel_spectrogram", audio.mel_spectrogram, y, yd),
+                                ("mel_spectrogram_prepadded", audio.mel_spectrogram_prepadded,
+                                 yp, ypd)):
+            got, want = fn(xd, **kw).cpu(), fn(x, **kw)
+            err, tol = (got - want).abs().max().item(), 1e-4 * max(1.0, want.abs().max().item())
+            ms = cuda_ms(lambda: fn(xd, **kw), 10)
+            log(f"  {what} {sr} Hz (n_fft {n_fft}, hop {hop}) of (4, {x.shape[1]}) -> "
+                f"{tuple(got.shape)} on the card: {ms:.3f} ms (CUDA events); max_abs_err "
+                f"against the CPU {err:.3e} (tol {tol:.3e})")
+            if got.shape != want.shape or not err <= tol:
+                raise SystemExit(f"chip_smoke: {what} on the card disagrees with the CPU")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_frontend_") as tmp:
+        cp_mod, cp_data = make_campplus_replica(seed=seed)
+        s3_mod, s3_data = make_s3_replica(seed=seed + 1)
+        cp_path, s3_path = (os.path.join(tmp, n) for n in ("campplus.onnx",
+                                                           "speech_tokenizer_v1.onnx"))
+        for path, data in ((cp_path, cp_data), (s3_path, s3_data)):
+            with open(path, "wb") as f:
+                f.write(data)
+        x = torch.from_numpy(rng.standard_normal((1, 300, 80)).astype(np.float32))
+        feats = torch.from_numpy(rng.standard_normal((1, 128, 600)).astype(np.float32))
+        lens = torch.tensor([530], dtype=torch.int32)
+        with torch.no_grad():
+            want_cp, want_s3 = cp_mod(x), s3_mod(feats, lens)
+        for name, data, feed, want in (("campplus", cp_data, {"x": x}, want_cp),
+                                       ("S3", s3_data, {"feats": feats, "feats_length": lens},
+                                        want_s3)):
+            m, m_cpu = OnnxModel(data, DEV), OnnxModel(data, "cpu")
+            got, cpu = m.run(feed)[0], m_cpu.run(feed)[0]
+            ms = cuda_ms(lambda: m.run(feed), 5)
+            if name == "S3":
+                same = [int((got.cpu() == ref).sum()) for ref in (cpu, want)]
+                log(f"  {name} replica ({len(data) / 1e6:.2f} MB, {len(m.graph.nodes)} nodes) "
+                    f"through compat.onnx on the card: {ms:.3f} ms a run; token ids equal to "
+                    f"the CPU run {same[0]}/{want.numel()}, to the torch module {same[1]}/"
+                    f"{want.numel()}")
+                ok = got.device.type == DEV.type and same == [want.numel()] * 2
+            else:
+                errs = [(got.cpu() - ref).abs().max().item() for ref in (cpu, want)]
+                tol = 1e-4 * max(1.0, want.abs().max().item())
+                log(f"  {name} replica ({len(data) / 1e6:.2f} MB, {len(m.graph.nodes)} nodes) "
+                    f"through compat.onnx on the card: {ms:.3f} ms a run; max_abs_err against "
+                    f"the CPU run {errs[0]:.3e}, the torch module {errs[1]:.3e} (tol {tol:.3e})")
+                ok = got.device.type == DEV.type and max(errs) <= tol
+            if not ok:
+                raise SystemExit(f"chip_smoke: the {name} replica on the card disagrees")
+
+        hop = int(np.prod(hcfg.upsample_rates)) * hcfg.istft_hop_len
+        fe = Frontend(tmp, sample_rate=hcfg.sampling_rate, device=DEV)
+        how = "the tiktoken vocabulary" if fe.tokenizer is not None else (
+            "the byte fallback (no tiktoken vocabulary in the model dir, the reference's own "
+            f"rule; tiktoken {'importable' if find_spec('tiktoken') else 'absent'} here)")
+        t = np.arange(24000) / 16000
+        prompt16 = (0.3 * np.sin(2 * np.pi * 140 * t) + 0.03 * rng.standard_normal(t.size)) \
+            .astype(np.float32)
+        t0 = time.perf_counter()
+        d = fe.frontend_zero_shot("Hello from the card.", "A prompt voice.", prompt16)
+        t_fe = time.perf_counter() - t0
+        log(f"  Frontend(sample_rate={hcfg.sampling_rate}, device=cuda).frontend_zero_shot of a "
+            f"1.5 s 16 kHz prompt in {t_fe:.3f} s: text tokenizer {how}; "
+            + ", ".join(f"{k} {tuple(v.shape)}" for k, v in d.items()))
+        pipe = TTS2Pipeline(lcfg, fcfg, hcfg, llm, flow, hift, hop_samples=hop)
+        P_tok, T_feat = d["flow_prompt_speech_token"].shape[1], d["prompt_speech_feat"].shape[1]
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        wav = next(pipe.synthesize(
+            d["text"], prompt_text=d["prompt_text"],
+            llm_prompt_speech_token=d["llm_prompt_speech_token"],
+            flow_prompt_speech_token=d["flow_prompt_speech_token"],
+            prompt_feat=d["prompt_speech_feat"], flow_embedding=d["flow_embedding"],
+            max_len_cap=50, seed=seed))["tts_speech"]
+        t_syn = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        frames = wav.shape[1] / hop
+        n = (frames + T_feat) / 2 - P_tok  # the flow emits 2 (P + n) - T_feat frames
+        log(f"  TTS2Pipeline.synthesize from that dict: {t_syn:.3f} s, {int(n)} tokens, "
+            f"{wav.shape[1] / hcfg.sampling_rate:.2f} s of audio, stages (s) "
+            + ", ".join(f"{k} {v:.3f}" for k, v in pipe.stage_seconds.items())
+            + f"; launches {counts}")
+        if not (np.isfinite(wav).all() and n == int(n) and 1 <= n <= 50):
+            raise SystemExit("chip_smoke: synthesis from the frontend's dict is off")
+        expect_blocks(counts, 10, "synthesis from the frontend")
+
+        raw, out = os.path.join(tmp, "raw"), os.path.join(tmp, "data")
+        write_clips(raw, 8, seed)
+        t0 = time.perf_counter()
+        n_rows = prepare_main(["--input", raw, "--output", out, "--speech-tokenizer-onnx",
+                               s3_path, "--campplus-onnx", cp_path, "--samples-per-shard", "3",
+                               "--device", DEV.type])
+        t_prep = time.perf_counter() - t0
+        ds = FlowFinetuneDataset(out, augmentation=False)
+        batch = next(iter(DataLoader(ds, TrainConfig(batch_size=4, accumulate_grad_batches=1,
+                                                     max_feat_len=256), prefetch_depth=0)))
+        toks = [t for r in ds.samples for t in r["speech_token"]]
+        log(f"  python -m cosy_tpu_torch.data.prepare (its main()) --device cuda on 8 clips with "
+            f"the replica graphs: {n_rows} rows in {t_prep:.3f} s, shards "
+            f"{sorted(f for f in os.listdir(out) if f.endswith('.parquet'))}; read back: "
+            f"{len(ds)} records, one batch "
+            + ", ".join(f"{k} {tuple(v.shape)}" for k, v in batch.items() if hasattr(v, "shape")))
+        if n_rows != 8 or len(ds) != 8 or not np.isfinite(batch["speech_feat"]).all() \
+                or not 0 <= min(toks) <= max(toks) < 256:
+            raise SystemExit("chip_smoke: the data preparer's shards are off")
+    return counts
 
 
 def report(name, r):
@@ -1602,7 +1938,11 @@ def main():
     del llm, flow, hift, pipe, est, est_cpu
     torch.cuda.empty_cache()
     training_cli(cfg)
-    counts_cv2 = cv2_synthesis()
+    counts_cv2, cv2_models = cv2_synthesis()
+    cv2_cfgs = (Qwen2LMConfig(), Flow2Config(), hift24k_config())
+    for phase in (cv2_serving, frontend_and_prep):
+        for k, v in phase(*cv2_cfgs, *cv2_models).items():
+            counts_cv2[k] += v
 
     def entry(name, source, replaces, r, launches=None):
         # times on the card (torch.profiler) where the profiler gave them,

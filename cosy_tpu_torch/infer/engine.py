@@ -2,19 +2,24 @@
 ``infer/engine.py``): requests join and leave a running batched decode at
 segment boundaries instead of waiting for a whole cohort to drain.
 
-- One :class:`~cosy_tpu_torch.models.llm.DecodeState` of ``slots`` rows
-  runs in segments of ``seg_tokens`` loop steps.
+- One decode state of ``slots`` rows runs in segments of ``seg_tokens``
+  loop steps: :class:`~cosy_tpu_torch.models.llm.DecodeState` behind a
+  CosyVoice-300M ``TTSPipeline``, or
+  :class:`~cosy_tpu_torch.models.qwen2lm.Qwen2DecodeState` behind a
+  CosyVoice2 ``TTS2Pipeline`` (one engine, the family read from the
+  pipeline).
 - At each segment boundary a pending request is prefilled and spliced into
-  a free row (``llm_admit_slot``); its first audio waits one segment, not
-  the running rows' longest utterance.
+  a free row (``llm_admit_slot`` / ``qwen2lm_admit_slot``); its first audio
+  waits one segment, not the running rows' longest utterance.
 - Cache columns are slot-local, so a free row admits any request that fits
   the engine's prefix width and cap, whatever the other rows have decoded.
 - A row's tokens are those of a solo decode with the request's seed: the
   admission brings the request's own generator.
-- After each segment every row's ready windows are synthesized
-  (``TTSPipeline.stream_chunks``, the streaming geometry with the hop from
-  the first window on) and put on the request's queue; a finished row
-  frees at once.
+- After each segment every row's ready windows are synthesized (the
+  pipeline's ``stream_chunks``: CosyVoice-300M's hop + overlap windows with
+  the hop from the first window on, or CosyVoice2's cumulative windows with
+  the pre-lookahead and the token offset, then its final window) and put on
+  the request's queue; a finished row frees at once.
 
 One daemon thread runs the loop and owns every slot and the decode state;
 ``submit`` and ``cancel`` only touch the pending list under a condition
@@ -35,13 +40,15 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import List, Optional
+from typing import List, Optional, Union
 
 import numpy as np
 import torch
 
 from ..models import llm as L
+from ..models import qwen2lm as Q
 from .pipeline import StreamCursor, TTSPipeline
+from .pipeline2 import Stream2Cursor, TTS2Pipeline
 
 
 class EngineRequest:
@@ -61,7 +68,7 @@ class EngineRequest:
         self.valid = 0
         self.min_len = 0
         self.cap = 0
-        self.cursor: Optional[StreamCursor] = None  # its windows and carries
+        self.cursor = None  # its StreamCursor / Stream2Cursor: windows and carries
         self.admitted_segment: Optional[int] = None  # segments run before admission
         self.tokens: Optional[np.ndarray] = None  # the final token stream
 
@@ -79,18 +86,24 @@ class ContinuousBatchEngine:
     ``slots`` rows, prefixes left-padded to ``prefix_len`` and at most
     ``max_len`` tokens a request."""
 
-    def __init__(self, pipeline: TTSPipeline, slots: int = 4, prefix_len: int = 128,
-                 max_len: int = 512, seg_tokens: Optional[int] = None):
+    def __init__(self, pipeline: Union[TTSPipeline, TTS2Pipeline], slots: int = 4,
+                 prefix_len: int = 128, max_len: int = 512, seg_tokens: Optional[int] = None):
         self.pl = pipeline
+        self.is_cv2 = isinstance(pipeline, TTS2Pipeline)
         self.B = slots
         self.L0 = prefix_len
         self.max_len = max_len
-        self.hop = pipeline.token_min_hop_len
-        # admission granularity: one audio hop by default, so the emission
-        # and admission cadences coincide
-        self.seg = seg_tokens or self.hop
+        # admission granularity: one audio hop (CosyVoice2: two, its streaming
+        # decode segment) by default, so the emission and admission cadences
+        # coincide
+        if self.is_cv2:
+            self.hop = pipeline.token_hop_len
+            self.seg = seg_tokens or 2 * self.hop
+        else:
+            self.hop = pipeline.token_min_hop_len
+            self.seg = seg_tokens or self.hop
         self._slots: List[Optional[EngineRequest]] = [None] * slots
-        self._state: Optional[L.DecodeState] = None
+        self._state: Optional[Union[L.DecodeState, Q.Qwen2DecodeState]] = None
         self._pending: List[EngineRequest] = []
         self._cv = threading.Condition()
         self._thread: Optional[threading.Thread] = None
@@ -141,8 +154,12 @@ class ContinuousBatchEngine:
     def _build(self, req: EngineRequest) -> bool:
         """Build and left-pad the request's prefix to the engine's width;
         fails the request (only it) and returns False when it cannot fit."""
-        prefix, min_len, max_len = self.pl._build_prefix(
-            req.text_tokens, self.pl._spk(req.spk_embedding), self.max_len)
+        spk = self.pl._spk(req.spk_embedding)
+        if self.is_cv2:  # no speaker row on CosyVoice2's LLM side
+            prefix, min_len, max_len = self.pl._build_prefix(req.text_tokens, None, None,
+                                                             self.max_len)
+        else:
+            prefix, min_len, max_len = self.pl._build_prefix(req.text_tokens, spk, self.max_len)
         if prefix.shape[1] > self.L0:
             req.err = ValueError(f"prefix length {prefix.shape[1]} exceeds the engine's "
                                  f"prefix width {self.L0}")
@@ -151,7 +168,7 @@ class ContinuousBatchEngine:
         req.valid = prefix.shape[1]
         req.prefix = torch.nn.functional.pad(prefix, (0, 0, self.L0 - req.valid, 0))
         req.min_len, req.cap = min_len, max_len
-        req.cursor = StreamCursor(self.pl._spk(req.spk_embedding), req.seed, 0, self.hop)
+        req.cursor = (Stream2Cursor if self.is_cv2 else StreamCursor)(spk, req.seed, 0, self.hop)
         return True
 
     def _try_admit(self):
@@ -166,14 +183,16 @@ class ContinuousBatchEngine:
                 continue
             if not self._build(req):
                 continue
+            pl = self.pl
             if self._state is None:
-                pl = self.pl
-                self._state = L.llm_decode_idle(pl.llm_p, pl.cfg.llm, self.B, self.L0,
-                                                self.max_len, req.prefix.dtype, pl.device,
-                                                **pl._sampling())
+                idle, cfg = ((Q.qwen2lm_decode_idle, pl.lcfg) if self.is_cv2
+                             else (L.llm_decode_idle, pl.cfg.llm))
+                self._state = idle(pl.llm_p, cfg, self.B, self.L0, self.max_len,
+                                   req.prefix.dtype, pl.device, **pl._sampling())
             b = self._slots.index(None)
-            L.llm_admit_slot(self._state, req.prefix, req.valid, req.min_len, req.cap,
-                             self.pl._decode_generator(req.seed, 0), b)
+            admit = Q.qwen2lm_admit_slot if self.is_cv2 else L.llm_admit_slot
+            admit(self._state, req.prefix, req.valid, req.min_len, req.cap,
+                  pl._decode_generator(req.seed, 0), b)
             req.admitted_segment = self.segments_run
             self._slots[b] = req
 

@@ -14,8 +14,13 @@ chunk's HiFT phases and noise from a generator on the pipeline's device
 seeded ``stream_seed(seed, row, 1 + k)``; tests inject the draws instead
 (``hift_phase`` / ``hift_noise``).
 
-Left out here: ``synthesize_stream_batch``, engine admission, the bistream
-decoder, and int8 decode.
+Streaming has one window planner, :meth:`TTS2Pipeline.stream_chunks` over a
+:class:`Stream2Cursor`: solo streaming (``synthesize(stream=True)``),
+batched streaming (``synthesize_stream_batch``) and the serving engine
+(``infer/engine.py``) all cut their token streams with it.
+
+Left out here: int8 decode (the bistream decoder has no pipeline entry
+point, as in the JAX package: ``models.qwen2lm.qwen2lm_inference_bistream``).
 """
 
 from __future__ import annotations
@@ -53,6 +58,24 @@ class Stream2State:
     hift_mel: Optional[torch.Tensor] = None  # (1, 80, 8)
     hift_source: Optional[torch.Tensor] = None  # (1, 1, 8 * hop)
     hift_speech: Optional[torch.Tensor] = None  # (1, 8 * hop)
+
+
+@dataclasses.dataclass
+class Stream2Cursor:
+    """One CosyVoice2 stream's place in its token stream: the tokens already
+    emitted (``offset``), the next window's hop (the first one padded so a
+    flow prompt ends on a hop boundary), the chunks emitted so far (chunk k
+    draws from ``stream_seed(seed, row, 1 + k)``), its flow prompt and its
+    HiFT carries."""
+    spk: np.ndarray
+    seed: int
+    row: int
+    hop: int
+    prompt_token: Optional[np.ndarray] = None
+    prompt_feat: Optional[np.ndarray] = None
+    offset: int = 0
+    chunk: int = 0
+    state: Stream2State = dataclasses.field(default_factory=Stream2State)
 
 
 class TTS2Pipeline:
@@ -101,6 +124,11 @@ class TTS2Pipeline:
     def _sampling(self) -> dict:
         return dict(top_p=self.icfg.sampling_top_p, top_k=self.icfg.sampling_top_k,
                     win_size=self.icfg.ras_win_size, tau_r=self.icfg.ras_tau_r)
+
+    def _spk(self, spk_embedding: Optional[np.ndarray]) -> np.ndarray:
+        """The flow's speaker embedding: zeros when none is given."""
+        return np.zeros((1, self.fcfg.spk_embed_dim), np.float32) if spk_embedding is None \
+            else spk_embedding
 
     def _long(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=torch.long, device=self.device)
@@ -270,8 +298,7 @@ class TTS2Pipeline:
         from the LLM, or are ``source_speech_token`` (voice conversion)."""
         if stream and speed != 1.0:
             raise ValueError("speed != 1.0 is only supported with stream=False")
-        if flow_embedding is None:
-            flow_embedding = np.zeros((1, self.fcfg.spk_embed_dim), np.float32)
+        flow_embedding = self._spk(flow_embedding)
         self.stage_seconds = {}
         vc_tokens = None
         if source_speech_token is not None and np.asarray(source_speech_token).size:
@@ -293,37 +320,51 @@ class TTS2Pipeline:
                                         max_len_cap, generator=dec_gen)
         n_prompt = 0 if fp is None else np.asarray(fp).shape[1]
         pad0 = -(-n_prompt // self.token_hop_len) * self.token_hop_len - n_prompt
-        state = Stream2State()
-        offset, k = 0, 0
-        tokens, llm_done = np.zeros((1, 0), np.int64), False
-        while True:
-            hop = self.token_hop_len + (pad0 if offset == 0 else 0)
-            need = offset + hop + self.fcfg.pre_lookahead_len
-            while not llm_done and tokens.shape[1] < need:
-                self._mark(None)
-                tokens, llm_done = next(producer)
-                self._mark("decode")
-            if tokens.shape[1] < need:
-                break
-            wav, state = self.token2wav(tokens[:, :need], fp, prompt_feat, flow_embedding,
-                                        offset, state, stream=True, finalize=False,
-                                        generator=self._wav_generator(seed, 0, k))
-            offset, k = offset + hop, k + 1
-            yield {"tts_speech": wav}
-        wav, _ = self.token2wav(tokens, fp, prompt_feat, flow_embedding, offset, state,
-                                finalize=True, generator=self._wav_generator(seed, 0, k))
-        yield {"tts_speech": wav}
+        cur = Stream2Cursor(flow_embedding, seed, 0, self.token_hop_len + pad0, fp, prompt_feat)
+        done = False
+        while not done:
+            self._mark(None)
+            tokens, done = next(producer)
+            self._mark("decode")
+            for wav in self.stream_chunks(cur, tokens, done):
+                yield {"tts_speech": wav}
 
-    def decode_batch(self, text_tokens_list: Sequence[np.ndarray], max_len_cap: int = 2048,
-                     seed: int = 0) -> List[List[int]]:
-        """One lock-step decode of the requests' LEFT-padded prefixes; row b
+    def stream_chunks(self, cur: Stream2Cursor, tokens: np.ndarray,
+                      done: bool) -> Iterator[np.ndarray]:
+        """The (1, n) wavs of the windows that ``tokens`` (the stream's
+        tokens so far) already fill, advancing ``cur``: cumulative windows of
+        offset + hop + pre_lookahead tokens, the lookahead as context, the
+        emitted tokens trimmed; then, once ``done``, the rest as the final
+        window (model.py:388-430)."""
+        la = self.fcfg.pre_lookahead_len
+        while tokens.shape[1] >= cur.offset + cur.hop + la:
+            wav, cur.state = self.token2wav(
+                tokens[:, :cur.offset + cur.hop + la], cur.prompt_token, cur.prompt_feat,
+                cur.spk, cur.offset, cur.state, stream=True, finalize=False,
+                generator=self._wav_generator(cur.seed, cur.row, cur.chunk))
+            cur.offset, cur.hop, cur.chunk = cur.offset + cur.hop, self.token_hop_len, cur.chunk + 1
+            yield wav
+        if done:
+            wav, _ = self.token2wav(tokens, cur.prompt_token, cur.prompt_feat, cur.spk, cur.offset,
+                                    cur.state, finalize=True,
+                                    generator=self._wav_generator(cur.seed, cur.row, cur.chunk))
+            yield wav
+
+    def _decode_start(self, text_tokens_list: Sequence[np.ndarray], max_len_cap: int,
+                      seed: int) -> Q.Qwen2DecodeState:
+        """Prefill the requests' LEFT-padded prefixes as one batch; row b
         draws from ``stream_seed(seed, b, 0)``, as a solo request with that
         seed does, so its tokens are the solo decode's."""
         built = [self._build_prefix(t, None, None, max_len_cap) for t in text_tokens_list]
         prefix, valid, min_lens, max_lens = _batch_prefixes(built)
-        return Q.qwen2lm_decode_batch(self.llm_p, self.lcfg, prefix, valid, min_lens, max_lens,
+        return Q.qwen2lm_decode_start(self.llm_p, self.lcfg, prefix, valid, min_lens, max_lens,
                                       [self._decode_generator(seed, b) for b in range(len(built))],
                                       **self._sampling())
+
+    def decode_batch(self, text_tokens_list: Sequence[np.ndarray], max_len_cap: int = 2048,
+                     seed: int = 0) -> List[List[int]]:
+        """One lock-step decode of the requests (rows as :meth:`_decode_start`)."""
+        return self._decode_start(text_tokens_list, max_len_cap, seed).run().tokens
 
     @torch.inference_mode()
     def synthesize_batch(self, text_tokens_list: Sequence[np.ndarray], spk_embeddings=None,
@@ -331,8 +372,7 @@ class TTS2Pipeline:
         """Micro-batched whole-utterance synthesis: one batched decode, then
         flow and HiFT per request.  Returns a (1, n) wav per request."""
         B = len(text_tokens_list)
-        spks = [np.zeros((1, self.fcfg.spk_embed_dim), np.float32) if s is None else s
-                for s in (spk_embeddings or [None] * B)]
+        spks = [self._spk(s) for s in (spk_embeddings or [None] * B)]
         speeds = list(speed) if isinstance(speed, (list, tuple)) else [speed] * B
         self.stage_seconds = {}
         self._mark(None)
@@ -341,3 +381,36 @@ class TTS2Pipeline:
         return [self.token2wav(np.asarray(rows[b], np.int64)[None], None, None, spks[b], 0,
                                speed=speeds[b], generator=self._wav_generator(seed, b, 0))[0]
                 for b in range(B)]
+
+    @torch.inference_mode()
+    def synthesize_stream_batch(self, text_tokens_list: Sequence[np.ndarray],
+                                spk_embeddings=None, max_len_cap: int = 2048, seed: int = 0
+                                ) -> Iterator[Tuple[int, np.ndarray, bool]]:
+        """Batched streaming: one lock-step segmented decode (segments of two
+        hops of attempts) shares each step's weight reads across the
+        streams, and each stream emits its windows (:meth:`stream_chunks`)
+        as its tokens fill them, then its final window.  Row b's tokens and
+        chunks are those of a solo streamed synthesis with row b's draws.
+        Yields (request index, wav (1, n), last)."""
+        B = len(text_tokens_list)
+        spks = [self._spk(s) for s in (spk_embeddings or [None] * B)]
+        self.stage_seconds = {}
+        self._mark(None)
+        state = self._decode_start(text_tokens_list, max_len_cap, seed)
+        curs = [Stream2Cursor(spks[b], seed, b, self.token_hop_len) for b in range(B)]
+        seg = 2 * self.token_hop_len
+        finished = [False] * B
+        target = seg
+        while not all(finished):
+            state.run(target)
+            self._mark("decode")
+            for b in range(B):
+                if finished[b]:
+                    continue
+                finished[b] = state.done[b]
+                wavs = list(self.stream_chunks(
+                    curs[b], np.asarray(state.tokens[b], np.int64)[None], finished[b]))
+                for i, wav in enumerate(wavs):
+                    yield b, wav, finished[b] and i == len(wavs) - 1
+            self._mark(None)
+            target += seg

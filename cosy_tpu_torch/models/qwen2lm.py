@@ -21,16 +21,25 @@ after ``cap`` attempts, which is the JAX solo decode's bound (its batched
 decode bounds attempts by the bucketed capacity instead, which differs only
 for a row that skips fill tokens and reaches its cap).
 
+Continuous batching: :func:`qwen2lm_decode_idle` makes a state of free rows
+and :func:`qwen2lm_admit_slot` prefills a request into one of them at its
+own positions ``arange(L0)``, so the admitted row decodes as its solo run
+whatever the other rows have done.  Streaming text (bistream):
+:class:`Qwen2StreamDecoder` feeds segments of embeddings into one
+fixed-capacity cache and :func:`qwen2lm_inference_bistream` interleaves text
+and speech on the host (llm.py:513-611).
+
 Left out here: the training forwards (``qwen2lm_forward_train`` /
-``_dpo``), the bistream decoder and slot admission.
+``_dpo``).
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import List, Optional, Sequence, Tuple
+from typing import Iterable, Iterator, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..layers.basic import dense, embedding
@@ -77,6 +86,14 @@ class Qwen2Cache:
     start: torch.Tensor  # (B,) long
 
 
+def _empty_cache(cfg: Qwen2LMConfig, B: int, capacity: int, dtype, device) -> Qwen2Cache:
+    q = cfg.qwen
+    shape = (q.num_hidden_layers, B, q.num_key_value_heads, capacity, q.head_dim)
+    return Qwen2Cache(torch.zeros(shape, dtype=dtype, device=device),
+                      torch.zeros(shape, dtype=dtype, device=device),
+                      torch.zeros((B,), dtype=torch.long, device=device))
+
+
 def _prefilled_cache(p: P, cfg: Qwen2LMConfig, prefix_emb: torch.Tensor,
                      valid: Sequence[int], capacity: int):
     """Prefill B LEFT-padded prefixes (``valid[b]`` real rows each) into a
@@ -85,10 +102,8 @@ def _prefilled_cache(p: P, cfg: Qwen2LMConfig, prefix_emb: torch.Tensor,
     q = cfg.qwen
     B, L0 = prefix_emb.shape[:2]
     dt, dev = prefix_emb.dtype, prefix_emb.device
-    shape = (q.num_hidden_layers, B, q.num_key_value_heads, capacity, q.head_dim)
-    cache = Qwen2Cache(torch.zeros(shape, dtype=dt, device=dev),
-                       torch.zeros(shape, dtype=dt, device=dev),
-                       torch.tensor([L0 - v for v in valid], device=dev))
+    cache = _empty_cache(cfg, B, capacity, dt, dev)
+    cache.start = torch.tensor([L0 - v for v in valid], device=dev)
     kq = torch.arange(L0, device=dev)
     vis = (kq[None, None, :] <= kq[None, :, None]) & (kq[None, None, :] >= cache.start[:, None, None])
     bias = torch.where(vis, 0.0, M.NEG_BIAS).to(dt)
@@ -165,6 +180,11 @@ class Qwen2DecodeState:
     sampling: Tuple[float, int, int, float]  # top_p, top_k, win_size, tau_r
     i: int = 1  # loop steps so far (the prefill's sample is step 0)
 
+    @property
+    def max_len(self) -> int:
+        """The most attempts a row can make (the cache's columns past L0)."""
+        return self.cache.k.shape[3] - self.L0
+
     def _sample(self, b: int, logits: torch.Tensor):
         eos = self.cfg.speech_token_size
         a = self.attempts[b]
@@ -220,6 +240,43 @@ def qwen2lm_decode_start(p: P, cfg: Qwen2LMConfig, prefix_emb: torch.Tensor,
     return state
 
 
+def qwen2lm_decode_idle(p: P, cfg: Qwen2LMConfig, slots: int, L0: int, max_len: int, dtype,
+                       device, top_p: float = 0.8, top_k: int = 25, win_size: int = 10,
+                       tau_r: float = 0.1) -> Qwen2DecodeState:
+    """A :class:`Qwen2DecodeState` of ``slots`` free rows (all done), prefix
+    width L0 and ``max_len`` attempt columns in EVERY row, for
+    :func:`qwen2lm_admit_slot` to fill: a row admitted later may carry any
+    cap up to ``max_len``, whatever the rows before it asked for."""
+    return Qwen2DecodeState(p, cfg, _empty_cache(cfg, slots, L0 + max_len, dtype, device), L0,
+                            [[] for _ in range(slots)], [0] * slots, [0] * slots,
+                            [True] * slots, [0] * slots, [0] * slots, [None] * slots,
+                            (top_p, top_k, win_size, tau_r))
+
+
+def qwen2lm_admit_slot(state: Qwen2DecodeState, prefix_emb: torch.Tensor, valid: int,
+                       min_len: int, cap: int, generator: Optional[torch.Generator],
+                       slot: int) -> None:
+    """Admit one request into row ``slot`` of a paused state (the
+    continuous-batching join, the JAX package's ``qwen2lm_admit_slot``):
+    prefill its (1, L0, D) LEFT-padded prefix (``valid`` real rows) at
+    positions ``arange(L0)`` into the row's own columns, exactly as its solo
+    prefill, and sample its first attempt from ITS OWN generator (ids above
+    EOS masked; EOS masked while ``min_len`` > 0).  ``state.i`` is
+    untouched."""
+    if prefix_emb.shape[1] != state.L0 or not 1 <= cap <= state.max_len:
+        raise ValueError(f"prefix width {prefix_emb.shape[1]} (state {state.L0}) or cap "
+                         f"{cap} (state {state.max_len}) does not fit")
+    L0 = state.L0
+    logits, cache = _prefilled_cache(state.p, state.cfg, prefix_emb, [valid], L0)
+    state.cache.k[:, slot, :, :L0] = cache.k[:, 0]
+    state.cache.v[:, slot, :, :L0] = cache.v[:, 0]
+    state.cache.start[slot] = L0 - valid
+    state.tokens[slot], state.attempts[slot], state.last[slot] = [], 0, 0
+    state.done[slot] = False
+    state.min_lens[slot], state.caps[slot], state.generators[slot] = min_len, cap, generator
+    state._sample(slot, logits[0].float().cpu())
+
+
 def qwen2lm_decode(p: P, cfg: Qwen2LMConfig, prefix_emb: torch.Tensor, min_len: int,
                    max_len: int, top_p: float = 0.8, top_k: int = 25, win_size: int = 10,
                    tau_r: float = 0.1, generator: Optional[torch.Generator] = None) -> List[int]:
@@ -237,6 +294,173 @@ def qwen2lm_decode_batch(p: P, cfg: Qwen2LMConfig, prefix_emb: torch.Tensor,
     of a solo decode with ``generators[b]``."""
     return qwen2lm_decode_start(p, cfg, prefix_emb, valid, min_lens, caps, generators,
                                 **sampling).run().tokens
+
+
+class Qwen2StreamDecoder:
+    """Incremental decoder for streaming-text (bistream) inference: one
+    fixed-capacity GQA cache; :meth:`advance` feeds a segment of input
+    embeddings at the next positions and returns the last one's logits.
+    The bistream control flow (llm.py:513-611) runs on the host in
+    :func:`qwen2lm_inference_bistream`."""
+
+    def __init__(self, p: P, cfg: Qwen2LMConfig, capacity: int = 2048,
+                 dtype=torch.float32, device=None):
+        self.p, self.cfg, self.capacity = p, cfg, capacity
+        dev = p["llm_embedding.weight"].device if device is None else torch.device(device)
+        self.cache = _empty_cache(cfg, 1, capacity, dtype, dev)
+        self.L = 0
+
+    def advance(self, emb: torch.Tensor) -> torch.Tensor:
+        """Feed (1, n, D) embeddings at positions ``[L, L + n)``; returns the
+        logits (V,) after the last of them.  Only the live columns
+        ``[0, L + n)`` are read: the keys past them add exact zeros."""
+        n = emb.shape[1]
+        if self.L + n > self.capacity:
+            # a write past the cache would corrupt it while the positions
+            # keep advancing: fail loudly instead
+            raise ValueError(f"bistream sequence overflows the decoder capacity: "
+                             f"{self.L} + {n} > {self.capacity}")
+        q = self.cfg.qwen
+        k_buf, v_buf = self.cache.k, self.cache.v
+        dev, dt = k_buf.device, k_buf.dtype
+        W = self.L + n
+        positions = torch.arange(self.L, W, device=dev)
+        kpos = torch.arange(W, device=dev)
+        bias = torch.where(kpos[None, :] <= positions[:, None], 0.0, M.NEG_BIAS).to(dt)[None]
+        rope = rope_cos_sin(positions, q.head_dim, q.rope_theta)
+        qp = self.p.sub("llm.model.model")
+        h = emb.to(dt)
+        for i in range(q.num_hidden_layers):
+            h = qwen2_layer(qp.sub(f"layers.{i}"), q, h, positions, bias,
+                            kv_cache=(k_buf[i, :, :, :W], v_buf[i, :, :, :W]),
+                            cache_index=self.L, rope=rope)
+        h = rms_norm(qp, "norm", h, q.rms_norm_eps)
+        self.L = W
+        return dense(self.p, "llm_decoder", h[0, -1])
+
+
+def qwen2lm_inference_bistream(
+    p: P,
+    cfg: Qwen2LMConfig,
+    text_chunks: Iterable,  # (1, n) int arrays: the text tokens as they arrive
+    prompt_text=None,  # (1, Tp)
+    prompt_speech_token=None,  # (1, Ts)
+    top_p: float = 0.8,
+    top_k: int = 25,
+    win_size: int = 10,
+    tau_r: float = 0.1,
+    capacity: int = 2048,
+    max_tokens: int = 100000,
+    generator: Optional[torch.Generator] = None,
+) -> Iterator[int]:
+    """Streaming-text generator yielding speech tokens as text arrives
+    (llm.py:513-611 inference_bistream): while prompt speech remains, text
+    and prompt speech are fed in blocks of ``mix_ratio`` = (text, speech);
+    then every ``mix_ratio[0]`` text tokens the model speaks until it emits
+    the fill token, after which the reference forces a fill every
+    ``mix_ratio[1] + 1`` tokens (``next_fill_index``); once the text ends,
+    the rest of it and the task token are fed and the decode runs to EOS.
+    Sampling runs on the host from ``generator`` (a CPU generator), one RAS
+    draw an attempt over the tokens so far (fill tokens included)."""
+    m0, m1 = cfg.mix_ratio
+    eos = cfg.speech_token_size
+    fill = cfg.speech_token_size + 2
+    dev = p["llm_embedding.weight"].device
+    qp = p.sub("llm.model.model")
+
+    def ids(x):
+        return torch.as_tensor(np.asarray(x), dtype=torch.long, device=dev).reshape(1, -1)
+
+    def embed_text(x):
+        return embedding(qp, "embed_tokens", ids(x))
+
+    def embed_speech(x):
+        return embedding(p, "speech_embedding", ids(x))
+
+    dec = Qwen2StreamDecoder(p, cfg, capacity, p["llm_embedding.weight"].dtype, dev)
+    sos = p["llm_embedding.weight"][cfg.sos_eos][None, None]
+    task = p["llm_embedding.weight"][cfg.task_id][None, None]
+    empty = torch.zeros((1, 0, cfg.llm_input_size), dtype=sos.dtype, device=dev)
+
+    pending = [sos]  # embeddings not yet fed
+    text_cache = embed_text(prompt_text) if prompt_text is not None and np.size(prompt_text) \
+        else empty
+    speech_cache = embed_speech(prompt_speech_token) \
+        if prompt_speech_token is not None and np.size(prompt_speech_token) else empty
+    out_tokens: List[int] = []
+    next_fill_index = -1
+
+    def sample(logits, ignore_eos):
+        # the reference raises on sampling eos + 1 (llm.py:585-589) and on
+        # fill in the final loop; masking those ids at the sampler is the
+        # same for a trained model, which never emits them there
+        logp = torch.log_softmax(logits.float(), dim=-1).cpu()
+        logp[eos + 1] = -math.inf
+        logp[eos if ignore_eos else fill] = -math.inf
+        return int(ras_sample(logp, out_tokens, top_p, top_k, win_size, tau_r,
+                              generator=generator))
+
+    def flush_pending():
+        nonlocal pending
+        if not pending:
+            return None
+        seg, pending = torch.cat(pending, dim=1), []
+        return dec.advance(seg)
+
+    for chunk in text_chunks:
+        text_cache = torch.cat([text_cache, embed_text(chunk)], dim=1)
+        # interleave [m0 text | m1 speech] while prompt speech remains
+        while speech_cache.shape[1] != 0 and text_cache.shape[1] >= m0:
+            pending += [text_cache[:, :m0], speech_cache[:, :m1]]
+            text_cache, speech_cache = text_cache[:, m0:], speech_cache[:, m1:]
+        if speech_cache.shape[1] != 0:
+            continue  # more text is needed to pair with the prompt speech left
+        # a text block comes before decoding after a fill (or at the start)
+        need_text = (out_tokens and out_tokens[-1] == fill) or \
+                    (not out_tokens and len(pending) == 1 and dec.L == 0)
+        if need_text:
+            if text_cache.shape[1] < m0:
+                continue
+            if out_tokens and out_tokens[-1] == fill:
+                pending = [text_cache[:, :m0]]
+            else:
+                pending.append(text_cache[:, :m0])
+            text_cache = text_cache[:, m0:]
+        while True:
+            logits = flush_pending()
+            if logits is None:
+                logits = dec.advance(embed_speech([out_tokens[-1]]))
+            if next_fill_index != -1 and len(out_tokens) == next_fill_index:
+                tok = fill
+                next_fill_index += m1 + 1
+            else:
+                tok = sample(logits, ignore_eos=True)
+            if tok == fill:
+                next_fill_index = len(out_tokens) + m1 + 1
+            out_tokens.append(tok)
+            if tok >= eos:
+                if tok == fill:
+                    break
+                raise ValueError(f"should not get token {tok}")
+            yield tok
+            pending = [embed_speech([tok])]
+
+    # the final decode: the rest of the text and the task token, until EOS
+    if text_cache.shape[1]:
+        pending.append(text_cache)
+    pending.append(task)
+    while len(out_tokens) < max_tokens and dec.L < capacity - 2:
+        logits = flush_pending()
+        if logits is None:
+            logits = dec.advance(embed_speech([out_tokens[-1]]))
+        tok = sample(logits, ignore_eos=False)
+        out_tokens.append(tok)
+        if tok >= eos:
+            if tok == eos:
+                break
+            raise ValueError(f"should not get token {tok}")
+        yield tok
+        pending = [embed_speech([tok])]
 
 
 class Qwen2LM(ParamTree):

@@ -59,3 +59,28 @@ def test_cv2_training_cli_and_data_modules_load_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_frontend_extractor_and_prepare_modules_load_no_jax():
+    """The text frontend, tokenizers, ONNX executor and replicas, the
+    preparer, the processor stages and the inference frontend, and the
+    preparer's ``__main__`` (run to its --help) in a fresh interpreter."""
+    code = ("import sys, runpy\nbefore = set(sys.modules)\n"
+            "import cosy_tpu_torch.data.text, cosy_tpu_torch.data.textnorm, "
+            "cosy_tpu_torch.data.tokenizer, cosy_tpu_torch.data.prepare, "
+            "cosy_tpu_torch.data.processor, cosy_tpu_torch.data.frontend, "
+            "cosy_tpu_torch.compat.onnx, cosy_tpu_torch.compat.onnx_export, "
+            "cosy_tpu_torch.compat.replicas, cosy_tpu_torch.ops.audio\n"
+            "sys.argv = ['prepare', '--help']\n"
+            "try:\n"
+            "    runpy.run_module('cosy_tpu_torch.data.prepare', run_name='__main__')\n"
+            "except SystemExit:\n"
+            "    pass\n"
+            "bad = sorted(m for m in set(sys.modules) - before if m == 'jax' or "
+            "m.startswith('jax.') or m == 'cosy_tpu' or m.startswith('cosy_tpu.'))\n"
+            "print(bad)\nsys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "--speech-tokenizer-onnx" in res.stdout
