@@ -86,7 +86,24 @@ Phases, each fatal on failure (nothing is caught and passed over):
      replica torch module, Frontend(sample_rate=24000).frontend_zero_shot
      of a seeded 16 kHz prompt and TTS2Pipeline.synthesize from its dict
      (64 x NFE 10 fused blocks), and the preparer's CLI on 8 seeded clips
-     with the replica graphs, one batch of its shards read back.
+     with the replica graphs, one batch of its shards read back;
+ 15. the user API, multi-voice LoRA serving and the HTTP server at full
+     width (CosyVoice-300M ModelConfig(), seeded weights written as
+     llm/flow/hift.pt beside the replica ONNX graphs): (a) CosyVoice(dir)
+     on the card, zero-shot (whole and streamed), cross-lingual, instruct
+     with an add_zero_shot_spk speaker and vc, every chunk finite and 64 x
+     NFE fused blocks a flow call; one prompted flow call against the CPU;
+     (b) two voices of seeded adapters (LLM_LORA_DEFAULT /
+     FLOW_LORA_DEFAULT, B x 8) through load_voice_adapters and set_voices:
+     each voiced request against a pipeline on that voice's merged weights
+     (tokens by the phase-10 rule, the wav within 1e-4 * max(1, max|wav|)),
+     its flow in unfused blocks (kernel A alone 64 x NFE times, no fused
+     block); a mixed batch of 4 whose base rows' tokens equal the unvoiced
+     batch's; an unknown voice raises; (c) TTSServer (engine_slots=4,
+     voices registered) after warmup() on 127.0.0.1: a whole request, a
+     streamed one (the engine), 4 concurrent whole requests (fewer than 4
+     batches), a voiced one, the client's tts and tts_stream, /stats and
+     /metrics; time to the first chunk, RTF, the wall of the four.
 Phase 3 also holds B2 and the GEMM epilogue with exact (erf) GELU beside
 tanh, refuses a GELU code the kernels lack, and runs A, the block, B1 and
 B2 at CosyVoice2's streaming shapes with the chunk bias; phase 4 repeats
@@ -105,8 +122,12 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
+from http.server import ThreadingHTTPServer
 from importlib.util import find_spec
+from types import SimpleNamespace
 
 import torch
 
@@ -121,7 +142,12 @@ import torch.nn.functional as F  # noqa: E402
 from scipy.io import wavfile  # noqa: E402
 
 from cosy_tpu_torch import ops  # noqa: E402
-from cosy_tpu_torch.config import InferenceConfig, ModelConfig, TrainConfig  # noqa: E402
+from cosy_tpu_torch.api import CosyVoice  # noqa: E402
+from cosy_tpu_torch.client import TTSClient  # noqa: E402
+from cosy_tpu_torch.config import (FLOW_LORA_DEFAULT, LLM_LORA_DEFAULT,  # noqa: E402
+                                   InferenceConfig, ModelConfig, TrainConfig)
+from cosy_tpu_torch.lora import init_lora, merge_lora  # noqa: E402
+from cosy_tpu_torch.serve import TTSServer, make_handler, parse_voices, warmup  # noqa: E402
 from cosy_tpu_torch.infer.engine import ContinuousBatchEngine  # noqa: E402
 from cosy_tpu_torch.infer.pipeline import (StreamState, TTSPipeline,  # noqa: E402
                                            _batch_prefixes, stream_seed)
@@ -147,7 +173,7 @@ from cosy_tpu_torch.compat.replicas import make_campplus_replica, make_s3_replic
 from cosy_tpu_torch.data.dataset import DataLoader, FlowFinetuneDataset  # noqa: E402
 from cosy_tpu_torch.data.frontend import Frontend  # noqa: E402
 from cosy_tpu_torch.data.prepare import main as prepare_main  # noqa: E402
-from cosy_tpu_torch.params import P, load_torch_checkpoint  # noqa: E402
+from cosy_tpu_torch.params import P, load_torch_checkpoint, save_torch_checkpoint  # noqa: E402
 from cosy_tpu_torch.train.trainer import JointTrainer  # noqa: E402
 from cosy_tpu_torch.infer.pipeline2 import (Stream2Cursor, TTS2Pipeline,  # noqa: E402
                                             hift24k_config)
@@ -860,7 +886,7 @@ def streaming_synthesis(cfg, llm, flow, hift, n_ids=20, cap=400, seed=18):
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     chunks, at = [], []
-    for out in pipe.synthesize(ids, max_len_cap=cap, seed=seed, stream=True):
+    for out in pipe.synthesize(ids, spk_embedding=spk, max_len_cap=cap, seed=seed, stream=True):
         chunks.append(out["tts_speech"])
         at.append(time.perf_counter() - t0)
     counts = ops.launch_counts()
@@ -909,7 +935,7 @@ def batched_serving(cfg, llm, flow, hift, seed=21):
     log(f"[10] batched decode and the continuous-batching engine, full width: requests of "
         f"{list(lens)} text ids, EOS held off to 20 tokens an id")
     with torch.inference_mode():
-        built = [pipe._build_prefix(x, spk, 2048) for x in texts]
+        built = [pipe._build_prefix(x, None, None, spk, 2048) for x in texts]
         solo = []
         for n_req in (4, 6):  # the first four, one by one, are the B = 1 yardstick
             torch.cuda.synchronize()
@@ -1158,7 +1184,8 @@ def _training_cli(cfg, parquet, root):
     moved = sum(int(not torch.equal(v, base[k])) for k, v in flow.state_dict().items())
     pipe = TTSPipeline(cfg, llm, flow, init_hift_params(cfg.hift, DEV, seed=4))
     ops.reset_launch_counts()
-    wav = next(pipe.synthesize(np.arange(1, 9)[None], max_len_cap=60, seed=3))["tts_speech"]
+    wav = next(pipe.synthesize(np.arange(1, 9)[None], spk_embedding=np.zeros((1, 192), np.float32),
+                               max_len_cap=60, seed=3))["tts_speech"]
     counts = ops.launch_counts()
     log(f"  synthesis from the merged weights ({moved} flow tensors changed by the merge): "
         f"{wav.shape}, finite {bool(np.isfinite(wav).all())}; launches {counts}")
@@ -1621,6 +1648,390 @@ def frontend_and_prep(lcfg, fcfg, hcfg, llm, flow, hift, seed=70):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the user API, multi-voice LoRA serving and the HTTP server
+# ---------------------------------------------------------------------------
+
+
+def expect_voiced(counts, nfe, what):
+    """Fail unless ``counts`` show the unfused blocks of a voiced flow: no
+    fused block, kernel A alone 64 x ``nfe`` times."""
+    if counts["flash_attention"] != 64 * nfe or counts["fused_transformer_block"] != 0 \
+            or counts["ln_gemm"] != 0 or counts["block_tail"] != 0 or counts["gemm"] != 0 \
+            or counts["layer_norm_rows"] != 0 or counts["banded_attention"] != 0:
+        raise SystemExit(f"chip_smoke: {what} launch counts {counts} are not 64 x NFE {nfe} "
+                         "standalone kernel A launches with no fused block")
+
+
+def expect_mixed(counts, base_nfe, voiced_nfe):
+    """A batch's flows: fused blocks for its base rows, kernel A alone for
+    its voiced rows (A counts inside B as well)."""
+    if counts["fused_transformer_block"] != 64 * base_nfe \
+            or counts["flash_attention"] != 64 * (base_nfe + voiced_nfe):
+        raise SystemExit(f"chip_smoke: the mixed batch's launch counts {counts} are off 64 x "
+                         f"NFE {base_nfe} fused blocks and 64 x NFE {voiced_nfe} lone A")
+
+
+def record_nfe(pipe):
+    """Record every NFE ``pipe`` selects (one a flow solve) in the returned list."""
+    nfes, select = [], pipe._select_nfe
+
+    def recorded(mel_len):
+        nfes.append(select(mel_len))
+        return nfes[-1]
+
+    pipe._select_nfe = recorded
+    return nfes
+
+
+def record_tokens(pipe):
+    """Record the tokens of every ``pipe.generate_tokens`` call (a
+    synthesize's decode) in the returned list."""
+    seen, generate = [], pipe.generate_tokens
+
+    def recorded(*a, **kw):
+        seen.append(generate(*a, **kw))
+        return seen[-1]
+
+    pipe.generate_tokens = recorded
+    return seen
+
+
+def check_finite_wavs(pipe):
+    """Wrap ``pipe.token2wav`` so every wav it makes is checked finite (all
+    serving routes end there); returns the list of failures."""
+    bad, t2w = [], pipe.token2wav
+
+    def checked(*a, **kw):
+        wav = t2w(*a, **kw)
+        if not np.isfinite(wav).all():
+            bad.append(wav.shape)
+        return wav
+
+    pipe.token2wav = checked
+    return bad
+
+
+def write_voice(path, llm_p, flow_p, seed):
+    """A voice of seeded adapters at LLM_LORA_DEFAULT / FLOW_LORA_DEFAULT,
+    B amplified 8x (so voices differ well above rounding), in the
+    trainer's adapter-export format."""
+    out = {}
+    for name, params, cfg, s in (("llm", llm_p, LLM_LORA_DEFAULT, seed),
+                                 ("flow", flow_p, FLOW_LORA_DEFAULT, seed + 100)):
+        lo = init_lora(torch.Generator(device=DEV).manual_seed(s), params, cfg)
+        out.update({f"{name}.{k}": (v * 8.0 if ".lora_B" in k else v).detach().cpu()
+                    for k, v in lo.items()})
+        out[f"{name}._scaling"] = torch.tensor(cfg.scaling)
+    torch.save(out, path)
+
+
+def voiced_against_merged(vpipe, mpipe, ids, spk, voice, cap, seed):
+    """A voiced request against the merged-weights pipeline, same seed:
+    tokens by the phase-10 rule (the voiced teacher-forced logits against
+    the merged ones at the first diverging step), and the wav within
+    1e-4 * max(1, max|wav|) where the tokens are equal.  Returns the voiced
+    call's launch counts and NFE."""
+    nfes, m_nfes = record_nfe(vpipe), record_nfe(mpipe)
+    v_toks, m_toks = record_tokens(vpipe), record_tokens(mpipe)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = next(vpipe.synthesize(ids, spk_embedding=spk, voice=voice, max_len_cap=cap,
+                                seed=seed))["tts_speech"]
+    t_v = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    want = next(mpipe.synthesize(ids, spk_embedding=spk, max_len_cap=cap,
+                                 seed=seed))["tts_speech"]
+    t_m = time.perf_counter() - t0
+    m_counts = ops.launch_counts()
+    del vpipe._select_nfe, mpipe._select_nfe, vpipe.generate_tokens, mpipe.generate_tokens
+    tok_v, tok_m = v_toks[0][0].tolist(), m_toks[0][0].tolist()
+    log(f"  voice {voice!r}: {len(tok_v)} tokens in {t_v:.3f} s (unfused blocks, stages "
+        + ", ".join(f"{k} {v:.3f}" for k, v in vpipe.stage_seconds.items())
+        + f"); merged weights {len(tok_m)} tokens in {t_m:.3f} s (stages "
+        + ", ".join(f"{k} {v:.3f}" for k, v in mpipe.stage_seconds.items())
+        + f"); voiced launches {counts}; merged launches {m_counts}")
+    if not np.isfinite(got).all():
+        raise SystemExit(f"chip_smoke: the voiced wav of {voice!r} is not finite")
+    expect_voiced(counts, nfes[0], f"voiced call {voice!r}")
+    expect_blocks(m_counts, m_nfes[0], f"merged call {voice!r}")
+    if tok_v == tok_m:
+        err = float(np.abs(got - want).max()) if got.shape == want.shape else float("inf")
+        tol = 1e-4 * max(1.0, float(np.abs(want).max()))
+        log(f"  tokens equal; wav max_abs_err against the merged weights {err:.3e} "
+            f"(tol {tol:.3e})")
+        if not err <= tol:
+            raise SystemExit(f"chip_smoke: voice {voice!r} disagrees with its merged weights")
+        return counts, nfes[0]
+    j = next((i for i, (a, b) in enumerate(zip(tok_v, tok_m)) if a != b),
+             min(len(tok_v), len(tok_m)))
+    n = min(len(tok_m), j)
+    bank, vid, _ = vpipe._voice(voice)
+    with torch.inference_mode():
+        pv, _, _ = vpipe._build_prefix(ids, None, None, spk, cap, voice)
+        pm, _, _ = mpipe._build_prefix(ids, None, None, spk, cap)
+        lv = llm_teacher_forced_logits(vpipe.llm_p, vpipe.cfg.llm, pv, [pv.shape[1]],
+                                       [tok_m[:n]], lora=bank, vids=[vid],
+                                       lora_scale=vpipe._llm_lora_scale)[0, n].float()
+        lm = llm_teacher_forced_logits(mpipe.llm_p, mpipe.cfg.llm, pm, [pm.shape[1]],
+                                       [tok_m[:n]])[0, n].float()
+    gap, tol = (lv - lm).abs().max().item(), 1e-4 * max(1.0, lm.abs().max().item())
+    log(f"  tokens diverge from the merged weights' at step {j} of {len(tok_m)}; "
+        f"teacher-forced logit gap there {gap:.3e} (tol {tol:.3e})")
+    if not gap <= tol:
+        raise SystemExit(f"chip_smoke: voice {voice!r} diverges from its merged weights "
+                         "beyond rounding")
+    return counts, nfes[0]
+
+
+def api_and_serving(cfg, seed=80):
+    """Phase 15.  Returns the launch counts of (a)'s API calls and of (b)'s
+    voiced calls."""
+    log("[15] the user API, multi-voice LoRA serving and the HTTP server, full width")
+    counts_api = {k: 0 for k in ops.launch_counts()}
+    counts_voiced = dict(counts_api)
+    rng = np.random.default_rng(seed)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_api_") as tmp:
+        t0 = time.perf_counter()
+        for name, init, s in (("llm", init_llm_params, seed), ("flow", init_flow_params, seed + 1),
+                              ("hift", init_hift_params, seed + 2)):
+            m = init(getattr(cfg, name), DEV, seed=s)
+            save_torch_checkpoint(m.state_dict(), os.path.join(tmp, f"{name}.pt"))
+            del m
+        for fname, (_, data) in (("campplus.onnx", make_campplus_replica(seed=seed)),
+                                 ("speech_tokenizer_v1.onnx", make_s3_replica(seed=seed + 1))):
+            with open(os.path.join(tmp, fname), "wb") as f:
+                f.write(data)
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        # the decode cap at 5 tokens a text id keeps the phase short
+        api = CosyVoice(tmp, model_cfg=cfg, infer_cfg=InferenceConfig(max_token_text_ratio=5.0),
+                        device=DEV)
+        log(f"  seeded llm/flow/hift.pt and the replica ONNX graphs written in {t_write:.1f} s; "
+            f"CosyVoice(model_dir) on {api.device} in {time.perf_counter() - t0:.1f} s")
+        pipe = api.model
+        bad = check_finite_wavs(pipe)
+        nfes = record_nfe(pipe)
+        t = np.arange(24000) / 16000
+        prompt16 = (0.3 * np.sin(2 * np.pi * 150 * t) + 0.03 * rng.standard_normal(t.size)) \
+            .astype(np.float32)
+        src16 = (0.3 * np.sin(2 * np.pi * 220 * t[:20000])
+                 + 0.03 * rng.standard_normal(20000)).astype(np.float32)
+        api.add_zero_shot_spk("A prompt voice speaking.", prompt16, "prompt_spk")
+        text = "Hello from the card."
+        calls = (
+            ("zero-shot", lambda: api.inference_zero_shot(text, "A prompt voice speaking.",
+                                                          prompt16)),
+            ("zero-shot streamed", lambda: api.inference_zero_shot(
+                "Hello from the card, streamed in windows while the decode goes on.",
+                "A prompt voice speaking.", prompt16, stream=True)),
+            ("cross-lingual", lambda: api.inference_cross_lingual(text, prompt16)),
+            ("instruct", lambda: api.inference_instruct(text, "prompt_spk",
+                                                        "Speak slowly and calmly.")),
+            ("vc", lambda: api.inference_vc(src16, prompt16)))
+        for what, call in calls:
+            nfes.clear()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            chunks = [c["tts_speech"] for c in call()]
+            wall = time.perf_counter() - t0
+            counts = ops.launch_counts()
+            audio_s = sum(c.shape[1] for c in chunks) / api.sample_rate
+            log(f"  {what}: {len(chunks)} chunk(s), {audio_s:.2f} s of audio in {wall:.3f} s "
+                f"(RTF {wall / max(audio_s, 1e-9):.3f}), flow NFE {nfes}; launches {counts}")
+            if not chunks or not all(c.ndim == 2 and c.shape[1] > 0 and np.isfinite(c).all()
+                                     for c in chunks):
+                raise SystemExit(f"chip_smoke: the API's {what} chunks are empty or not finite")
+            expect_blocks(counts, sum(nfes), f"API {what}")
+            for k, v in counts.items():
+                counts_api[k] += v
+        del pipe._select_nfe
+
+        # one prompted flow call on the card against the CPU, the same z
+        d = api.frontend.frontend_zero_shot("Hi.", "A prompt voice speaking.", prompt16)
+        tok = torch.from_numpy(rng.integers(0, cfg.flow.vocab_size, (1, 40)))
+        ptok = torch.as_tensor(d["flow_prompt_speech_token"], dtype=torch.long)
+        pfeat = torch.as_tensor(d["prompt_speech_feat"], dtype=torch.float32)
+        spk = torch.as_tensor(d["flow_embedding"], dtype=torch.float32)
+        T = pfeat.shape[1] + pipe._mel_len(40)
+        z = torch.randn((1, 80, T + T % 2), generator=torch.Generator().manual_seed(seed))
+        kw = dict(n_timesteps=5, mel_norm=(cfg.mel_mean, cfg.mel_std))
+        with torch.inference_mode():
+            mel = flow_inference(pipe.flow_p, cfg.flow, tok.to(DEV), ptok.to(DEV),
+                                 pfeat.to(DEV), spk.to(DEV), z=z.to(DEV), **kw).cpu()
+            p_cpu = P({k: v.cpu() for k, v in pipe.flow_p.d.items()})
+            t0 = time.perf_counter()
+            mel_cpu = flow_inference(p_cpu, cfg.flow, tok, ptok, pfeat, spk, z=z, **kw)
+            cpu_s = time.perf_counter() - t0
+        err, tol = (mel - mel_cpu).abs().max().item(), 1e-4 * max(1.0, mel_cpu.abs().max().item())
+        log(f"  prompted flow call ({ptok.shape[1]} prompt tokens, {pfeat.shape[1]} prompt "
+            f"frames, 40 tokens, NFE 5) on the card against the CPU ({cpu_s:.1f} s): "
+            f"max_abs_err {err:.3e} (tol {tol:.3e})")
+        if mel.shape != mel_cpu.shape or not err <= tol:
+            raise SystemExit("chip_smoke: the prompted flow call disagrees with the CPU")
+
+        # (b) multi-voice: two voices of seeded adapters, loaded as a server does
+        paths = []
+        for v, s in (("alice", seed + 10), ("bob", seed + 11)):
+            paths.append(f"{v}={os.path.join(tmp, f'adapters_{v}.pt')}")
+            write_voice(paths[-1].split("=", 1)[1], pipe.llm_p.d, pipe.flow_p.d, s)
+        voices, llm_s, flow_s = parse_voices(",".join(paths))
+        t0 = time.perf_counter()
+        pipe.set_voices(voices, llm_scale=llm_s, flow_scale=flow_s)
+        torch.cuda.synchronize()
+        n_ad = sum(v.numel() for v in voices["alice"]["llm"].values()) + \
+            sum(v.numel() for v in voices["alice"]["flow"].values())
+        log(f"  voices {pipe.voice_names} through load_voice_adapters and set_voices in "
+            f"{time.perf_counter() - t0:.3f} s: {n_ad / 1e6:.2f} M adapter parameters a voice, "
+            f"scales {llm_s} / {flow_s}")
+        zero = np.zeros((1, cfg.llm.spk_embed_dim), np.float32)
+        ids = api.frontend.extract_text_token("A voiced request.")
+        for voice in ("alice", "bob"):
+            mods = {}
+            for name, cls, mcfg, scale in (("llm", TransformerLM, cfg.llm, llm_s),
+                                           ("flow", Flow, cfg.flow, flow_s)):
+                params = getattr(pipe, f"{name}_p").d
+                mods[name] = cls(mcfg, DEV)
+                mods[name].load_state_dict(merge_lora(params, voices[voice][name], scale))
+            # the voice's merged weights beside the API's own HiFT
+            mpipe = TTSPipeline(cfg, mods["llm"], mods["flow"], SimpleNamespace(p=pipe.hift_p),
+                                pipe.icfg, finetuned_norm=True)
+            counts, _ = voiced_against_merged(pipe, mpipe, ids, zero, voice, 100, seed + 20)
+            for k, v in counts.items():
+                counts_voiced[k] += v
+            del mods, mpipe
+        # where a voiced flow call's time goes: unfused blocks (kernel A
+        # alone) against the base weights' fused chain, one call each
+        tok = torch.from_numpy(rng.integers(0, cfg.flow.vocab_size, (1, 85))).to(DEV)
+        empty_tok, empty_feat = torch.zeros((1, 0), dtype=torch.long, device=DEV), \
+            torch.zeros((1, 0, 80), device=DEV)
+        spk0 = torch.zeros((1, cfg.flow.spk_embed_dim), device=DEV)
+        for what, lora in (("voiced", pipe._voice("alice")[2]), ("base", None)):
+            def flow_call():
+                flow_inference(pipe.flow_p, cfg.flow, tok, empty_tok, empty_feat, spk0,
+                               n_timesteps=10, finetuned_norm=True,
+                               mel_norm=(cfg.mel_mean, cfg.mel_std),
+                               generator=torch.Generator(device=DEV).manual_seed(seed),
+                               lora=lora, lora_scale=flow_s)
+            log(f"  where a {what} flow call's time goes (85 tokens, 146 frames, NFE 10), "
+                "torch.profiler")
+            with torch.inference_mode():
+                flow_call()
+                wall_ms, busy, by_name = profile_device(flow_call)
+                plain_wall = cuda_ms(flow_call, 3)
+            log_profile(wall_ms, plain_wall, busy, by_name, top=5)
+        texts = [api.frontend.extract_text_token(s) for s in
+                 ("First row speaks.", "Second row here.", "A third one.", "Fourth and last.")]
+        mixed = ["alice", None, "bob", None]
+        nfes, states, decode_batch = record_nfe(pipe), [], pipe._decode_batch
+        pipe._decode_batch = lambda *a, **kw: states.append(decode_batch(*a, **kw)) or states[-1]
+        ops.reset_launch_counts()
+        wavs = pipe.synthesize_batch(texts, [zero] * 4, max_len_cap=100, seed=seed,
+                                     voices=mixed)
+        counts = ops.launch_counts()
+        del pipe._select_nfe, pipe._decode_batch
+        with torch.inference_mode():
+            tb = pipe._decode_batch(texts, [zero] * 4, 100, seed).run().tokens
+        tv = states[0].tokens
+        log(f"  synthesize_batch of 4 (voices {mixed}): tokens {[len(x) for x in tv]}, base rows "
+            f"equal to the unvoiced batch's: {[tv[b] == tb[b] for b in (1, 3)]}; NFE {nfes}; "
+            f"launches {counts}")
+        if tv[1] != tb[1] or tv[3] != tb[3] or tv[0] == tb[0]:
+            raise SystemExit("chip_smoke: the mixed batch's base rows differ from the unvoiced "
+                             "batch, or its voiced row does not")
+        if not all(np.isfinite(w).all() and w.shape[1] > 0 for w in wavs):
+            raise SystemExit("chip_smoke: the mixed synthesize_batch's wavs are off")
+        expect_mixed(counts, nfes[1] + nfes[3], nfes[0] + nfes[2])
+        for k, v in counts.items():
+            counts_voiced[k] += v
+        try:
+            next(pipe.synthesize(ids, spk_embedding=zero, voice="nobody"))
+        except KeyError as e:
+            log(f"  an unknown voice raises: {e}")
+        else:
+            raise SystemExit("chip_smoke: an unknown voice did not raise")
+
+        # (c) the server over (a)'s API, voices registered, after the warmup
+        server = TTSServer(api, batch_window_ms=100.0, engine_slots=4)
+        log(f"  warmup (one request of each route) in {warmup(server):.1f} s")
+        httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(server, api.sample_rate))
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+
+        def post(body, stream=False):
+            req = urllib.request.Request(f"{url}/tts", data=json.dumps(body).encode(),
+                                         headers={"Content-Type": "application/json"})
+            t0, first = time.perf_counter(), None
+            with urllib.request.urlopen(req, timeout=300) as r:
+                if r.status != 200:
+                    raise SystemExit(f"chip_smoke: /tts answered {r.status}")
+                if stream:  # the header, then the first PCM piece
+                    data = r.read(44)
+                    data += r.read1(8192)
+                    first = time.perf_counter() - t0
+                data = (data if stream else b"") + r.read()
+            n = (len(data) - 44) // 2
+            if data[:4] != b"RIFF" or n <= 0:
+                raise SystemExit(f"chip_smoke: /tts returned no audio for {body}")
+            return n / api.sample_rate, time.perf_counter() - t0, first
+
+        try:
+            audio_s, wall, _ = post({"text": "A whole request to the server."})
+            log(f"  whole request: {audio_s:.2f} s of audio in {wall:.3f} s (RTF "
+                f"{wall / audio_s:.3f})")
+            audio_s, wall, first = post({"text": "A streamed request to the server.",
+                                         "stream": True}, stream=True)
+            log(f"  streamed request (engine route): first audio after {first:.3f} s, "
+                f"{audio_s:.2f} s of audio in {wall:.3f} s")
+            b0 = server.batches_run
+            res, t0 = [None] * 4, time.perf_counter()
+
+            def one(i):
+                res[i] = post({"text": f"Concurrent request number {i}."})
+
+            threads = [threading.Thread(target=one, args=(i,)) for i in range(4)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=300)
+            wall4 = time.perf_counter() - t0
+            log(f"  4 concurrent whole requests in {wall4:.3f} s wall, "
+                f"{server.batches_run - b0} batch(es); audio {[round(r[0], 2) for r in res if r]}")
+            if any(r is None for r in res) or not server.batches_run - b0 < 4:
+                raise SystemExit("chip_smoke: the concurrent requests did not share a batch")
+            audio_s, wall, _ = post({"text": "A voiced request.", "voice": "alice"})
+            log(f"  voiced request: {audio_s:.2f} s of audio in {wall:.3f} s")
+            c = TTSClient(url, timeout=300)
+            wav, sr = c.tts("The client speaks.")
+            chunks = list(c.tts_stream("The client streams."))
+            log(f"  TTSClient.tts {wav.size / sr:.2f} s at {sr} Hz, tts_stream "
+                f"{len(chunks)} pieces, {sum(x.size for x in chunks) / sr:.2f} s; healthz "
+                f"{c.healthz()}")
+            if sr != api.sample_rate or wav.size == 0 or not chunks or not c.healthz():
+                raise SystemExit("chip_smoke: the client round trips failed")
+            with urllib.request.urlopen(f"{url}/stats", timeout=60) as r:
+                stats = json.loads(r.read())
+            with urllib.request.urlopen(f"{url}/metrics", timeout=60) as r:
+                metrics = r.read().decode()
+            log(f"  /stats requests {stats['requests']} errors {stats['errors']} rtf "
+                f"{stats['rtf']} ttfa_s {stats['ttfa_s']} engine {stats.get('engine')}")
+            want = {"batched": 7, "stream_engine": 2}
+            if stats["requests"] != want or stats["errors"] or \
+                    'cosy_tpu_requests_total{route="batched"} 7' not in metrics:
+                raise SystemExit(f"chip_smoke: /stats or /metrics off: {stats['requests']}")
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            server.engine.stop(timeout=60)
+        if bad:
+            raise SystemExit(f"chip_smoke: the server synthesized non-finite audio {bad}")
+        del api, pipe
+        torch.cuda.empty_cache()
+    return counts_api, counts_voiced
+
+
 def report(name, r):
     def dev(key):
         return "" if r.get(key) is None else f" ({r[key]:.4f} on the card)"
@@ -1909,7 +2320,8 @@ def main():
     ids = np.random.default_rng(5).integers(0, 256, (1, 16)).astype(np.int64)
     ops.reset_launch_counts()
     t = time.time()
-    wav = next(pipe.synthesize(ids, max_len_cap=181, seed=6))["tts_speech"]
+    wav = next(pipe.synthesize(ids, spk_embedding=np.zeros((1, 192), np.float32),
+                               max_len_cap=181, seed=6))["tts_speech"]
     total_s = time.time() - t
     counts = ops.launch_counts()
     T_mel, nfe = 311, 15
@@ -1943,6 +2355,9 @@ def main():
     for phase in (cv2_serving, frontend_and_prep):
         for k, v in phase(*cv2_cfgs, *cv2_models).items():
             counts_cv2[k] += v
+    del cv2_models
+    torch.cuda.empty_cache()
+    counts_api, counts_voiced = api_and_serving(cfg)
 
     def entry(name, source, replaces, r, launches=None):
         # times on the card (torch.profiler) where the profiler gave them,
@@ -1980,6 +2395,16 @@ def main():
         entry("block_tail_erf", "cosy_tpu_torch/csrc/block_tail.cu",
               "cosy_tpu/ops/fused_block.py:83", main_b2_erf,
               launches=counts_erf["block_tail"]),
+        # phase 15: the fused blocks of the API's calls (a), and kernel A
+        # launched alone in the unfused blocks of the voiced calls (b);
+        # times at the main path's T/2 level
+        entry("fused_transformer_block_api", "cosy_tpu_torch/csrc/fused_block.cu",
+              "cosy_tpu/ops/fused_block.py:34", main_b,
+              launches=counts_api["fused_transformer_block"]),
+        entry("flash_attention_voiced", "cosy_tpu_torch/csrc/flash_attention.cu",
+              "cosy_tpu/ops/flash_attention.py:76", main_a,
+              launches=counts_voiced["flash_attention"]
+              - counts_voiced["fused_transformer_block"]),
     ] + [
         # CosyVoice2 (phase 12): launches of its synthesis, times at the
         # streaming window's T/2 level with the chunk bias

@@ -37,6 +37,21 @@ def load_pretrained(model_dir: str) -> Dict[str, Params]:
     return out
 
 
+def load_modules(model_dir: str, classes: Dict[str, tuple], device=None
+                 ) -> Dict[str, torch.nn.Module]:
+    """{'llm', 'flow', 'hift'} modules on ``device`` (CUDA unless asked) with
+    the model dir's checkpoints loaded strictly; ``classes`` maps each name
+    to its (module class, config): ``TransformerLM`` / ``Flow`` / ``HiFT``
+    for CosyVoice-300M, ``Qwen2LM`` / ``Flow2`` / ``HiFT`` for CosyVoice2."""
+    dev = resolve_device(device)
+    mods = {}
+    for name, params in load_pretrained(model_dir).items():
+        cls, cfg = classes[name]
+        mods[name] = cls(cfg, dev)
+        mods[name].load_state_dict(params, strict=True)
+    return mods
+
+
 def load_or_init(model_dir: Optional[str], cfg: ModelConfig, device=None,
                  seed: int = 0) -> Dict[str, torch.nn.Module]:
     """{'llm', 'flow', 'hift'} modules on ``device`` (CUDA unless asked):
@@ -46,11 +61,8 @@ def load_or_init(model_dir: Optional[str], cfg: ModelConfig, device=None,
     from random weights is only useful as a smoke test."""
     dev = resolve_device(device)
     if model_dir and os.path.exists(os.path.join(model_dir, "flow.pt")):
-        mods = {}
-        for name, params in load_pretrained(model_dir).items():
-            mods[name] = _MODULES[name](getattr(cfg, name), dev)
-            mods[name].load_state_dict(params, strict=True)
-        return mods
+        return load_modules(model_dir, {n: (_MODULES[n], getattr(cfg, n)) for n in _MODULES},
+                            dev)
     print("WARNING: pretrained model dir not found - random initialization "
           "(smoke-test mode; real fine-tuning needs CosyVoice-300M weights)")
     return {"llm": init_llm_params(cfg.llm, dev, seed=seed),

@@ -4,7 +4,9 @@ JAX package's ``ctx.py``).
 Carries train/eval mode, the active LoRA adapter dict with its scale and
 dropout rate, and an explicit ``torch.Generator`` (on the tensors' device)
 that every dropout mask is drawn from, in place of the JAX PRNG key.
-Voice-stacked adapters (``lora_vids``) arrive with multi-voice serving.
+Voice-stacked adapters (a leading voice axis, ``lora.stack_voice_loras``)
+route each batch row through its own voice's delta: ``lora_vids`` holds the
+(B,) long voice index of every row.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import torch
 
 
 class Ctx:
-    __slots__ = ("generator", "train", "lora", "lora_scale", "lora_dropout")
+    __slots__ = ("generator", "train", "lora", "lora_scale", "lora_dropout", "lora_vids")
 
     def __init__(
         self,
@@ -24,12 +26,14 @@ class Ctx:
         lora: Optional[Dict[str, torch.Tensor]] = None,
         lora_scale: float = 1.0,
         lora_dropout: float = 0.0,
+        lora_vids: Optional[torch.Tensor] = None,
     ):
         self.generator = generator
         self.train = bool(train)
         self.lora = lora
         self.lora_scale = lora_scale
         self.lora_dropout = lora_dropout
+        self.lora_vids = lora_vids
 
     def dropout(self, x: torch.Tensor, rate: float) -> torch.Tensor:
         """Inverted dropout; identity in eval mode or when rate == 0."""

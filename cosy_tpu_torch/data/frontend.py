@@ -143,7 +143,12 @@ class Frontend:
     # -- model-input builders (frontend.py:190-254) --------------------
 
     def frontend_sft(self, tts_text: str, spk_id: str) -> dict:
-        emb = np.asarray(self.spk2info[spk_id]["embedding"], np.float32).reshape(1, -1)
+        """A registered speaker's embedding: ``embedding`` of a stock
+        ``spk2info.pt`` entry, or the ``flow_embedding`` of a speaker that
+        ``add_zero_shot_spk`` registered (it carries no ``embedding``)."""
+        info = self.spk2info[spk_id]
+        emb = info["embedding"] if "embedding" in info else info["flow_embedding"]
+        emb = np.asarray(emb, np.float32).reshape(1, -1)
         return {"text": self.extract_text_token(tts_text),
                 "llm_embedding": emb, "flow_embedding": emb}
 

@@ -97,7 +97,9 @@ def main(argv=None):
     print(f"text: {args.text!r} -> {ids.shape[1]} byte ids")
     t0 = time.perf_counter()
     chunks = []
-    for out in pipe.synthesize(ids, speed=args.speed, seed=args.seed, stream=args.stream):
+    spk = np.zeros((1, cfg.llm.spk_embed_dim), np.float32)  # prompt-free
+    for out in pipe.synthesize(ids, spk_embedding=spk, speed=args.speed, seed=args.seed,
+                               stream=args.stream):
         chunks.append(out["tts_speech"][0])
         if len(chunks) == 1 and args.stream:
             print(f"first chunk after {time.perf_counter() - t0:.3f} s "

@@ -23,7 +23,9 @@ segment boundaries instead of waiting for a whole cohort to drain.
 
 One daemon thread runs the loop and owns every slot and the decode state;
 ``submit`` and ``cancel`` only touch the pending list under a condition
-variable.  A failure inside one request's synthesis fails that request; a
+variable.  The loop holds ``device_lock`` for each admission, each decode
+segment and each window's synthesis, never across a queue put, so a
+server that shares the device with direct calls interleaves them there.  A failure inside one request's synthesis fails that request; a
 failure of the loop itself fails every request and the engine starts
 afresh on the next submission.
 
@@ -38,6 +40,7 @@ Usage::
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
 from typing import List, Optional, Union
@@ -87,8 +90,10 @@ class ContinuousBatchEngine:
     ``max_len`` tokens a request."""
 
     def __init__(self, pipeline: Union[TTSPipeline, TTS2Pipeline], slots: int = 4,
-                 prefix_len: int = 128, max_len: int = 512, seg_tokens: Optional[int] = None):
+                 prefix_len: int = 128, max_len: int = 512, seg_tokens: Optional[int] = None,
+                 device_lock: Optional[threading.Lock] = None):
         self.pl = pipeline
+        self.lock = device_lock if device_lock is not None else contextlib.nullcontext()
         self.is_cv2 = isinstance(pipeline, TTS2Pipeline)
         self.B = slots
         self.L0 = prefix_len
@@ -159,7 +164,8 @@ class ContinuousBatchEngine:
             prefix, min_len, max_len = self.pl._build_prefix(req.text_tokens, None, None,
                                                              self.max_len)
         else:
-            prefix, min_len, max_len = self.pl._build_prefix(req.text_tokens, spk, self.max_len)
+            prefix, min_len, max_len = self.pl._build_prefix(req.text_tokens, None, None, spk,
+                                                             self.max_len)
         if prefix.shape[1] > self.L0:
             req.err = ValueError(f"prefix length {prefix.shape[1]} exceeds the engine's "
                                  f"prefix width {self.L0}")
@@ -181,18 +187,21 @@ class ContinuousBatchEngine:
             if req.cancelled:  # cancelled after leaving the pending list
                 req.q.put(None)
                 continue
-            if not self._build(req):
+            with self.lock:  # the prefix runs the text encoder on the device
+                built = self._build(req)
+            if not built:
                 continue
             pl = self.pl
-            if self._state is None:
-                idle, cfg = ((Q.qwen2lm_decode_idle, pl.lcfg) if self.is_cv2
-                             else (L.llm_decode_idle, pl.cfg.llm))
-                self._state = idle(pl.llm_p, cfg, self.B, self.L0, self.max_len,
-                                   req.prefix.dtype, pl.device, **pl._sampling())
-            b = self._slots.index(None)
-            admit = Q.qwen2lm_admit_slot if self.is_cv2 else L.llm_admit_slot
-            admit(self._state, req.prefix, req.valid, req.min_len, req.cap,
-                  pl._decode_generator(req.seed, 0), b)
+            with self.lock:
+                if self._state is None:
+                    idle, cfg = ((Q.qwen2lm_decode_idle, pl.lcfg) if self.is_cv2
+                                 else (L.llm_decode_idle, pl.cfg.llm))
+                    self._state = idle(pl.llm_p, cfg, self.B, self.L0, self.max_len,
+                                       req.prefix.dtype, pl.device, **pl._sampling())
+                b = self._slots.index(None)
+                admit = Q.qwen2lm_admit_slot if self.is_cv2 else L.llm_admit_slot
+                admit(self._state, req.prefix, req.valid, req.min_len, req.cap,
+                      pl._decode_generator(req.seed, 0), b)
             req.admitted_segment = self.segments_run
             self._slots[b] = req
 
@@ -202,7 +211,8 @@ class ContinuousBatchEngine:
         for b, r in enumerate(self._slots):
             if r is not None and r.cancelled:
                 st.done[b] = True  # stops at this boundary
-        st.run(st.i + self.seg)
+        with self.lock:
+            st.run(st.i + self.seg)
         self.segments_run += 1
         for b, req in enumerate(self._slots):
             if req is None:
@@ -210,8 +220,13 @@ class ContinuousBatchEngine:
             done = st.done[b]
             if not req.cancelled:
                 try:
-                    for wav in self.pl.stream_chunks(
-                            req.cursor, np.asarray(st.tokens[b], np.int64)[None], done):
+                    windows = self.pl.stream_chunks(
+                        req.cursor, np.asarray(st.tokens[b], np.int64)[None], done)
+                    while True:
+                        with self.lock:  # one window at a time
+                            wav = next(windows, None)
+                        if wav is None:
+                            break
                         req.q.put(wav)
                 except Exception as e:  # noqa: BLE001 - fail only this request
                     req.err, done = e, True

@@ -1,8 +1,11 @@
 """TTS pipeline: text ids -> speech tokens -> mel -> waveform (the port of
 the JAX package's ``infer/pipeline.py``): whole-utterance and streamed
-synthesis of one request, and micro-batched synthesis of several.
+synthesis of one request (prompt-free, zero-shot, cross-lingual, instruct
+and voice conversion), micro-batched synthesis of several, and un-merged
+multi-voice LoRA serving (``set_voices``).
 
-Stages: ``_build_prefix`` packs [sos, spk, text_enc, task] for the LLM,
+Stages: ``_build_prefix`` packs [sos, spk?, text_enc, task, prompt speech?]
+for the LLM (the prompt text encoded before the text),
 ``generate_tokens`` runs the AR decode (``generate_tokens_stream`` in
 segments), ``token2wav`` runs the flow solve (NFE by mel length), the
 boundary trim and HiFT, and in streaming mode the overlap fades and the
@@ -31,6 +34,7 @@ import numpy as np
 import torch
 
 from ..config import InferenceConfig, ModelConfig
+from ..ctx import EVAL, Ctx
 from ..layers.basic import dense
 from ..models import flow as F
 from ..models import hift as H
@@ -95,6 +99,9 @@ class StreamCursor:
     pos: int = 0
     chunk: int = 0
     state: StreamState = dataclasses.field(default_factory=StreamState)
+    prompt_token: Optional[np.ndarray] = None  # the flow prompt every window takes
+    prompt_feat: Optional[np.ndarray] = None  # its raw mel (1, T, 80)
+    voice: Optional[str] = None  # a registered voice's adapters (set_voices)
 
 
 class TTSPipeline:
@@ -136,6 +143,13 @@ class TTSPipeline:
                           if infer_cfg.first_chunk_tokens else self.token_min_hop_len)
         # the final window is shorter than hop + overlap tokens: one bucket
         self._final_tok_bucket = -(-(self.token_min_hop_len + self.token_overlap_len) // 32) * 32
+        # multi-voice serving (set_voices): the voice-stacked llm bank with
+        # its trailing zero row, each voice's flow adapters, the scales
+        self._voice_names: List[str] = []
+        self._voice_llm_bank: Optional[Dict[str, torch.Tensor]] = None
+        self._voice_flow: List[Optional[Dict[str, torch.Tensor]]] = []
+        self._llm_lora_scale = 1.0
+        self._flow_lora_scale = 1.0
 
     def _hamming(self, n: int) -> torch.Tensor:
         return torch.as_tensor(np.hamming(n), dtype=torch.float32, device=self.device)
@@ -157,66 +171,184 @@ class TTSPipeline:
         return torch.Generator().manual_seed(stream_seed(seed, row, 0))
 
     def _spk(self, spk_embedding: Optional[np.ndarray]) -> np.ndarray:
-        """The prompt-free zero embedding (speaker row present) for None."""
+        """The prompt-free zero embedding for None (the batched paths, the
+        engine and the flow: a speaker row of zeros)."""
         if spk_embedding is None:
             return np.zeros((1, self.cfg.llm.spk_embed_dim), np.float32)
         return np.asarray(spk_embedding, np.float32)
 
     # ------------------------------------------------------------------
+    # multi-voice LoRA serving
+    # ------------------------------------------------------------------
+
+    def set_voices(self, voices, llm_scale: float = 2.0, flow_scale: float = 2.0) -> None:
+        """Register named LoRA voices served UN-merged: one base model, about
+        2 M adapter parameters a voice, routed per request (the reference
+        can only merge each voice into a full model copy).
+
+        ``voices``: ordered ``{name: {"llm": adapter dict | None, "flow":
+        adapter dict | None}}``, flat ``<param path>.lora_A/B`` dicts as the
+        trainer makes them or ``serve.load_voice_adapters`` reads them
+        (tensors or arrays).  Every voice must cover the same llm adapter
+        keys and shapes; flow adapters may be left out per voice.
+        ``llm_scale`` / ``flow_scale`` are the adapters' alpha / r (2.0 at
+        the reference's defaults).  Everything is built once, here, on the
+        pipeline's device, detached (the kernels refuse a tensor that needs
+        a gradient)."""
+        from ..lora import _frozen_tensor, stack_voice_loras
+
+        names = list(voices)
+        llm_dicts = [voices[n].get("llm") for n in names]
+        if any(d is not None for d in llm_dicts):
+            if any(d is None for d in llm_dicts):
+                missing = [n for n, d in zip(names, llm_dicts) if d is None]
+                raise ValueError(
+                    f"voices {missing} lack llm adapters; the voice-stacked "
+                    "decode bank needs every voice to cover the same keys")
+            bank = stack_voice_loras(llm_dicts, self.device)
+            L._stack_decode_loras(bank, self.cfg.llm.llm.num_blocks)  # refuse early
+            # one extra ALL-ZERO row (vid == len(names)): the base voice of
+            # mixed batches, an exactly zero delta, so unvoiced rows decode
+            # bit-identically to the adapter-free decode
+            self._voice_llm_bank = {k: torch.cat([v, torch.zeros_like(v[:1])])
+                                    for k, v in bank.items()}
+        else:
+            self._voice_llm_bank = None
+        self._voice_flow = [
+            None if voices[n].get("flow") is None
+            else {k: _frozen_tensor(v, self.device) for k, v in voices[n]["flow"].items()}
+            for n in names]
+        self._voice_names = names
+        self._llm_lora_scale = float(llm_scale)
+        self._flow_lora_scale = float(flow_scale)
+
+    @property
+    def voice_names(self) -> List[str]:
+        """Registered voice names (``set_voices``); [] when unset.  A copy."""
+        return list(self._voice_names)
+
+    def _voice_index(self, voice: str) -> int:
+        try:
+            return self._voice_names.index(voice)
+        except ValueError:
+            raise KeyError(f"unknown voice {voice!r}; registered: {self._voice_names} "
+                           "(set_voices)") from None
+
+    def _voice(self, voice: Optional[str]):
+        """(llm bank, vid, flow adapters) of a request's voice; (None, None,
+        None) for the base model.  A lookup: set_voices staged everything."""
+        if voice is None:
+            return None, None, None
+        i = self._voice_index(voice)
+        return self._voice_llm_bank, (None if self._voice_llm_bank is None else i), \
+            self._voice_flow[i]
+
+    def _voice_batch(self, voices: Optional[Sequence[Optional[str]]]):
+        """(llm bank, vids) for per-row routing in a shared decode, or (None,
+        None) when no row needs LLM adapters.  Unvoiced rows ("" / None)
+        take the bank's trailing all-zero row.  Names are always checked,
+        so a flow-only registry still refuses an unknown voice."""
+        if voices is None or all(not v for v in voices):
+            return None, None
+        base = len(self._voice_names)
+        vids = [self._voice_index(v) if v else base for v in voices]
+        if self._voice_llm_bank is None:
+            return None, None
+        return self._voice_llm_bank, vids
+
+    # ------------------------------------------------------------------
     # stage 1: AR speech-token generation
     # ------------------------------------------------------------------
 
-    def _build_prefix(self, text_tokens: np.ndarray,
-                      spk_embedding: Optional[np.ndarray], max_len_cap: int):
-        """Pack [sos, spk?, text_enc, task]; returns (prefix (1, L0, D),
-        min_len, max_len).  ``spk_embedding=None`` omits the speaker row."""
+    def _build_prefix(self, text_tokens: np.ndarray, prompt_text: Optional[np.ndarray],
+                      prompt_speech_token: Optional[np.ndarray],
+                      spk_embedding: Optional[np.ndarray], max_len_cap: int,
+                      voice: Optional[str] = None):
+        """Pack [sos, spk?, text_enc, task, prompt_speech?]; returns (prefix
+        (1, L0, D), min_len, max_len).  The prompt text goes before the text
+        into the text encoder; ``spk_embedding=None`` omits the speaker row
+        (instruct).  min_len and max_len follow the target text's length
+        only.  ``voice`` runs the text encoder and the speaker affine
+        through that voice's adapters, as a merged-weights build would."""
         p, cfg = self.llm_p, self.cfg.llm
-        tt = torch.as_tensor(np.asarray(text_tokens), dtype=torch.long, device=self.device)
+        bank, vid, _ = self._voice(voice)
+        ctx = EVAL if bank is None else Ctx(
+            lora=bank, lora_scale=self._llm_lora_scale,
+            lora_vids=torch.tensor([vid], dtype=torch.long, device=self.device))
+        tt = np.asarray(text_tokens)
+        n_prompt = 0
+        if prompt_text is not None and np.asarray(prompt_text).size:
+            n_prompt = np.asarray(prompt_text).shape[1]
+            tt = np.concatenate([np.asarray(prompt_text), tt], axis=1)
+        tt = torch.as_tensor(tt, dtype=torch.long, device=self.device)
         text_len = tt.shape[1]
         text_enc = L.llm_encode_text(
-            p, cfg, tt, torch.full((1,), text_len, dtype=torch.int32, device=self.device))
+            p, cfg, tt, torch.full((1,), text_len, dtype=torch.int32, device=self.device), ctx)
         emb = p["llm_embedding.weight"]
         parts = [emb[cfg.sos_eos][None, None]]
         if spk_embedding is not None:
             spk = torch.as_tensor(np.asarray(spk_embedding, np.float32), device=self.device)
             parts.append(dense(p, "spk_embed_affine_layer",
-                               L._l2_normalize(spk.to(emb.dtype), dim=1))[:, None])
+                               L._l2_normalize(spk.to(emb.dtype), dim=1), ctx)[:, None])
         parts += [text_enc, emb[cfg.task_id][None, None]]
+        if prompt_speech_token is not None and np.asarray(prompt_speech_token).size:
+            pst = torch.as_tensor(np.asarray(prompt_speech_token), dtype=torch.long,
+                                  device=self.device).reshape(1, -1)
+            parts.append(p["speech_embedding.weight"][pst].to(emb.dtype))
         prefix = torch.cat(parts, dim=1)
-        min_len = int(text_len * self.icfg.min_token_text_ratio)
-        max_len = min(int(text_len * self.icfg.max_token_text_ratio), max_len_cap)
+        target = text_len - n_prompt
+        min_len = int(target * self.icfg.min_token_text_ratio)
+        max_len = min(int(target * self.icfg.max_token_text_ratio), max_len_cap)
         return prefix, min_len, max_len
 
     def _sampling(self) -> dict:
         return dict(top_p=self.icfg.sampling_top_p, top_k=self.icfg.sampling_top_k,
                     win_size=self.icfg.ras_win_size, tau_r=self.icfg.ras_tau_r)
 
+    def _decode_lora(self, voice: Optional[str]) -> dict:
+        """The decode's adapter arguments for one request's voice."""
+        bank, vid, _ = self._voice(voice)
+        if bank is None:
+            return {}
+        return dict(lora=bank, vids=[vid], lora_scale=self._llm_lora_scale)
+
     def generate_tokens(self, text_tokens: np.ndarray,
                         spk_embedding: Optional[np.ndarray] = None,
                         max_len_cap: int = 2048,
-                        generator: Optional[torch.Generator] = None) -> np.ndarray:
-        """(1, Tt) text ids -> (1, n) speech tokens.  ``generator`` is a CPU
-        generator (sampling runs on the host)."""
-        prefix, min_len, max_len = self._build_prefix(text_tokens, spk_embedding,
-                                                      max_len_cap)
-        toks = L.llm_decode(self.llm_p, self.cfg.llm, prefix, min_len, max_len,
-                            generator=generator, **self._sampling())
-        return np.asarray(toks, np.int64)[None, :]
+                        generator: Optional[torch.Generator] = None,
+                        prompt_text: Optional[np.ndarray] = None,
+                        prompt_speech_token: Optional[np.ndarray] = None,
+                        voice: Optional[str] = None) -> np.ndarray:
+        """(1, Tt) text ids -> (1, n) speech tokens (the prefix of
+        :meth:`_build_prefix`).  ``generator`` is a CPU generator (sampling
+        runs on the host)."""
+        return next(iter(self._token_segments(text_tokens, spk_embedding, max_len_cap,
+                                              generator, prompt_text, prompt_speech_token,
+                                              voice, stream=False)))[0]
 
     def generate_tokens_stream(self, text_tokens: np.ndarray,
                                spk_embedding: Optional[np.ndarray] = None,
                                max_len_cap: int = 2048,
-                               generator: Optional[torch.Generator] = None
+                               generator: Optional[torch.Generator] = None,
+                               prompt_text: Optional[np.ndarray] = None,
+                               prompt_speech_token: Optional[np.ndarray] = None,
+                               voice: Optional[str] = None
                                ) -> Iterator[Tuple[np.ndarray, bool]]:
         """Yields (tokens so far (1, n), done) after each decode segment:
         the first ends after first_hop + overlap tokens, each later one a hop
         further.  The tokens equal ``generate_tokens``'s with the same
         generator: the segments are one paused and resumed decode."""
-        prefix, min_len, max_len = self._build_prefix(text_tokens, spk_embedding,
-                                                      max_len_cap)
+        return self._token_segments(text_tokens, spk_embedding, max_len_cap, generator,
+                                    prompt_text, prompt_speech_token, voice, stream=True)
+
+    def _token_segments(self, text_tokens, spk_embedding, max_len_cap, generator,
+                        prompt_text, prompt_speech_token, voice, stream: bool):
+        prefix, min_len, max_len = self._build_prefix(
+            text_tokens, prompt_text, prompt_speech_token, spk_embedding, max_len_cap, voice)
         state = L.llm_decode_start(self.llm_p, self.cfg.llm, prefix, [prefix.shape[1]],
-                                   [min_len], [max_len], [generator], **self._sampling())
-        target = min(self.first_hop + self.token_overlap_len, max_len)
+                                   [min_len], [max_len], [generator], **self._sampling(),
+                                   **self._decode_lora(voice))
+        target = min(self.first_hop + self.token_overlap_len, max_len) if stream else None
         while True:
             toks = state.run(target).tokens[0]
             done = state.done[0]
@@ -240,6 +372,16 @@ class TTSPipeline:
     def _mel_len(self, n_tokens: int) -> int:
         return int(n_tokens / self.cfg.flow.input_frame_rate * 22050 / 256)
 
+    def _flow_kw(self, voice: Optional[str]) -> dict:
+        """flow_inference's adapter and mel-space arguments for a voice: a
+        voice's fine-tuned flow adapters work in normalized mel space, so
+        they take the denormalization whatever the base pipeline's
+        ``finetuned_norm``."""
+        _, _, flow_lora = self._voice(voice)
+        return dict(finetuned_norm=self.finetuned_norm or flow_lora is not None,
+                    mel_norm=(self.cfg.mel_mean, self.cfg.mel_std),
+                    lora=flow_lora, lora_scale=self._flow_lora_scale)
+
     def token2wav(self, token: np.ndarray, spk_embedding: np.ndarray,
                   prompt_token: Optional[np.ndarray] = None,
                   prompt_feat: Optional[np.ndarray] = None, speed: float = 1.0,
@@ -248,24 +390,29 @@ class TTSPipeline:
                   hift_phase: Optional[torch.Tensor] = None,
                   hift_noise: Optional[torch.Tensor] = None,
                   stream_state: Optional[StreamState] = None,
-                  finalize: bool = True) -> np.ndarray:
+                  finalize: bool = True, voice: Optional[str] = None) -> np.ndarray:
         """Flow solve, anti-leakage boundary trim, optional speed change and
         HiFT -> (1, n) float32 waveform.  ``z`` / ``hift_phase`` /
         ``hift_noise`` inject the random draws (tests); otherwise they come
-        from ``generator`` (a generator on the pipeline's device).
+        from ``generator`` (a generator on the pipeline's device).  A flow
+        prompt (``prompt_token`` and its raw mel ``prompt_feat``) conditions
+        the solve, and its region is dropped from the output.  ``voice``
+        applies that voice's flow adapters un-merged.
 
         Streaming: ``stream_state`` carries the flow cache, the mel overlap
         and HiFT's mel, source and wav tails from one window to the next and
-        is updated in place.  A window that is not the last (``finalize``
-        False) holds back its last mel_overlap frames for the next window's
-        fade and source_cache samples for the next wav's.  The last window,
-        when ``bucket_final`` holds and it is prompt-free at speed 1 with
-        0 < n <= the token bucket, is padded to the bucket with its true
-        length masked (:meth:`_token2wav_final_bucketed`)."""
+        is updated in place; a prompt goes into every window.  A window that
+        is not the last (``finalize`` False) holds back its last
+        mel_overlap frames for the next window's fade and source_cache
+        samples for the next wav's.  The last window, when ``bucket_final``
+        holds and it is prompt-free at speed 1 with 0 < n <= the token
+        bucket, is padded to the bucket with its true length masked
+        (:meth:`_token2wav_final_bucketed`)."""
         if speed != 1.0 and stream_state is not None and stream_state.hift_mel is not None:
             # the speed change would stretch the crossfade-cache region
             raise ValueError("speed change only supports non-stream inference mode")
         dev = self.device
+        flow_kw = self._flow_kw(voice)
         self._mark(None)
         prompt_token = np.zeros((1, 0), np.int64) if prompt_token is None else prompt_token
         prompt_feat = np.zeros((1, 0, 80), np.float32) if prompt_feat is None else prompt_feat
@@ -273,7 +420,8 @@ class TTSPipeline:
                 and speed == 1.0 and prompt_token.shape[1] == 0 and prompt_feat.shape[1] == 0
                 and 0 < token.shape[1] <= self._final_tok_bucket):
             return self._token2wav_final_bucketed(token, spk_embedding, stream_state,
-                                                  generator, z, hift_phase, hift_noise)
+                                                  generator, z, hift_phase, hift_noise,
+                                                  flow_kw)
         st = stream_state
         mel_len = prompt_feat.shape[1] + self._mel_len(token.shape[1])
         out = F.flow_inference(
@@ -282,10 +430,9 @@ class TTSPipeline:
             torch.as_tensor(prompt_token, dtype=torch.long, device=dev),
             torch.as_tensor(prompt_feat, dtype=torch.float32, device=dev),
             torch.as_tensor(spk_embedding, dtype=torch.float32, device=dev),
-            n_timesteps=self._select_nfe(mel_len), finetuned_norm=self.finetuned_norm,
-            mel_norm=(self.cfg.mel_mean, self.cfg.mel_std), generator=generator, z=z,
+            n_timesteps=self._select_nfe(mel_len), generator=generator, z=z,
             flow_cache=None if st is None else st.flow_cache,
-            return_cache=st is not None and not finalize)
+            return_cache=st is not None and not finalize, **flow_kw)
         mel = out[0] if st is not None and not finalize else out
         trim = int(prompt_feat.shape[1] * self.icfg.boundary_trim_ratio)
         if trim > 0 and mel.shape[2] > trim:
@@ -320,7 +467,7 @@ class TTSPipeline:
         return wav
 
     def _token2wav_final_bucketed(self, token, spk_embedding, st: StreamState, generator,
-                                  z, hift_phase, hift_noise) -> np.ndarray:
+                                  z, hift_phase, hift_noise, flow_kw) -> np.ndarray:
         """The last streaming window at the one token bucket: the flow
         solve, the fade and HiFT run at the bucket's length with the true
         length masked, and the wav is cut back to the true length.  NFE
@@ -334,9 +481,8 @@ class TTSPipeline:
             self.flow_p, self.cfg.flow, tok, torch.zeros((1, 0), dtype=torch.long, device=dev),
             torch.zeros((1, 0, 80), device=dev),
             torch.as_tensor(spk_embedding, dtype=torch.float32, device=dev),
-            n_timesteps=self._select_nfe(mel2), finetuned_norm=self.finetuned_norm,
-            mel_norm=(self.cfg.mel_mean, self.cfg.mel_std), generator=generator, z=z,
-            flow_cache=st.flow_cache, token_valid=n, mel_valid=mel2)
+            n_timesteps=self._select_nfe(mel2), generator=generator, z=z,
+            flow_cache=st.flow_cache, token_valid=n, mel_valid=mel2, **flow_kw)
         valid = mel2
         if st.mel_overlap is not None:
             mel = fade_in_out(mel, st.mel_overlap, self.mel_window, valid=mel2)
@@ -378,24 +524,31 @@ class TTSPipeline:
         """The (1, n) wavs of the windows that ``tokens`` (the stream's
         tokens so far) already fill, advancing ``cur``: hop + overlap
         tokens each, the cursor's hop first and the pipeline's after, then
-        the rest as the last window once ``done``."""
+        the rest as the last window once ``done``.  Every window takes the
+        cursor's flow prompt and voice."""
         ov = self.token_overlap_len
+        kw = dict(prompt_token=cur.prompt_token, prompt_feat=cur.prompt_feat,
+                  stream_state=cur.state, voice=cur.voice)
         while tokens.shape[1] - cur.pos >= cur.hop + ov:
             yield self.token2wav(tokens[:, cur.pos:cur.pos + cur.hop + ov], cur.spk,
                                  generator=self._wav_generator(cur.seed, cur.row, cur.chunk),
-                                 stream_state=cur.state, finalize=False)
+                                 finalize=False, **kw)
             cur.pos, cur.hop, cur.chunk = cur.pos + cur.hop, self.token_min_hop_len, cur.chunk + 1
         if done:
             yield self.token2wav(tokens[:, cur.pos:], cur.spk,
                                  generator=self._wav_generator(cur.seed, cur.row, cur.chunk),
-                                 stream_state=cur.state, finalize=True)
+                                 finalize=True, **kw)
 
     def stream_token2wav(self, producer: Iterable[Tuple[np.ndarray, bool]],
-                         spk_embedding: np.ndarray, seed: int = 0) -> Iterator[np.ndarray]:
+                         spk_embedding: np.ndarray, seed: int = 0,
+                         prompt_token: Optional[np.ndarray] = None,
+                         prompt_feat: Optional[np.ndarray] = None,
+                         voice: Optional[str] = None) -> Iterator[np.ndarray]:
         """Cut the (tokens so far, done) pairs of ``producer`` into windows
         (:meth:`stream_plan`'s geometry, the first advancing by first_hop)
         and yield each window's (1, n) wav as soon as its tokens exist."""
-        cur = StreamCursor(spk_embedding, seed, 0, self.first_hop)
+        cur = StreamCursor(spk_embedding, seed, 0, self.first_hop, prompt_token=prompt_token,
+                           prompt_feat=prompt_feat, voice=voice)
         for tokens, done in producer:
             yield from self.stream_chunks(cur, tokens, done)
             if done:
@@ -406,71 +559,117 @@ class TTSPipeline:
     # ------------------------------------------------------------------
 
     @torch.inference_mode()
-    def synthesize(self, text_tokens: np.ndarray,
-                   spk_embedding: Optional[np.ndarray] = None, speed: float = 1.0,
-                   max_len_cap: int = 2048, seed: int = 0,
-                   stream: bool = False) -> Iterator[Dict[str, np.ndarray]]:
+    def synthesize(self, text_tokens: Optional[np.ndarray] = None,
+                   prompt_text: Optional[np.ndarray] = None,
+                   prompt_speech_token: Optional[np.ndarray] = None,
+                   prompt_feat: Optional[np.ndarray] = None,
+                   spk_embedding: Optional[np.ndarray] = None,
+                   llm_prompt_speech_token: Optional[np.ndarray] = None,
+                   flow_prompt_speech_token: Optional[np.ndarray] = None,
+                   llm_embedding: Optional[np.ndarray] = None,
+                   flow_embedding: Optional[np.ndarray] = None,
+                   source_speech_token: Optional[np.ndarray] = None,
+                   stream: bool = False, speed: float = 1.0, voice: Optional[str] = None,
+                   max_len_cap: int = 2048, seed: int = 0) -> Iterator[Dict[str, np.ndarray]]:
         """Yields {'tts_speech': (1, n) float32} chunks: one, or with
         ``stream`` one a window, the first after first_hop + overlap tokens
-        are decoded instead of after the whole utterance.  ``spk_embedding``
-        None is the prompt-free zero embedding with the speaker row present.
-        Random draws are seeded by ``seed`` (module docstring)."""
+        are decoded instead of after the whole utterance (the reference's
+        ``CosyVoiceModel.tts``).
+
+        Conditioning is split as in the reference: the ``llm_`` arguments
+        go to the decode's prefix (with ``prompt_text``), the ``flow_``
+        ones to every flow solve (with ``prompt_feat``, the prompt's raw
+        mel); the unprefixed ``prompt_speech_token`` / ``spk_embedding``
+        stand for both.  No LLM embedding omits the speaker row
+        (instruct); no flow embedding is the zero embedding.
+        ``source_speech_token`` is voice conversion: those tokens bypass the
+        LLM.  ``voice`` routes the decode and the flow through a registered
+        voice's adapters (:meth:`set_voices`).  Random draws are seeded by
+        ``seed`` (module docstring)."""
         if stream and speed != 1.0:
             raise ValueError("speed != 1.0 is only supported with stream=False")
-        spk = self._spk(spk_embedding)
+        llm_prompt = prompt_speech_token if llm_prompt_speech_token is None \
+            else llm_prompt_speech_token
+        flow_prompt = prompt_speech_token if flow_prompt_speech_token is None \
+            else flow_prompt_speech_token
+        llm_emb = spk_embedding if llm_embedding is None else llm_embedding
+        flow_emb = self._spk(spk_embedding if flow_embedding is None else flow_embedding)
+        vc_tokens = None
+        if source_speech_token is not None and np.asarray(source_speech_token).size:
+            vc_tokens = np.asarray(source_speech_token, np.int64).reshape(1, -1)
         self.stage_seconds = {}
+        decode = dict(prompt_text=prompt_text, prompt_speech_token=llm_prompt, voice=voice)
         if stream:
-            producer = self.generate_tokens_stream(text_tokens, spk, max_len_cap,
-                                                   self._decode_generator(seed, 0))
-            for wav in self.stream_token2wav(producer, spk, seed):
+            producer = iter([(vc_tokens, True)]) if vc_tokens is not None else \
+                self.generate_tokens_stream(text_tokens, llm_emb, max_len_cap,
+                                            self._decode_generator(seed, 0), **decode)
+            for wav in self.stream_token2wav(producer, flow_emb, seed, flow_prompt,
+                                             prompt_feat, voice):
                 yield {"tts_speech": wav}
             return
         self._mark(None)
-        tokens = self.generate_tokens(text_tokens, spk, max_len_cap,
-                                      generator=self._decode_generator(seed, 0))
+        tokens = vc_tokens if vc_tokens is not None else self.generate_tokens(
+            text_tokens, llm_emb, max_len_cap, self._decode_generator(seed, 0), **decode)
         self._mark("decode")
-        wav = self.token2wav(tokens, spk, speed=speed, generator=self._wav_generator(seed, 0, 0))
+        wav = self.token2wav(tokens, flow_emb, flow_prompt, prompt_feat, speed=speed,
+                             generator=self._wav_generator(seed, 0, 0), voice=voice)
         yield {"tts_speech": wav}
 
     def _decode_batch(self, text_tokens_list: Sequence[np.ndarray], spks: List[np.ndarray],
-                      max_len_cap: int, seed: int) -> L.DecodeState:
+                      max_len_cap: int, seed: int,
+                      voices: Optional[Sequence[Optional[str]]] = None) -> L.DecodeState:
         """Prefill the requests as one left-padded batch; row b decodes from
-        ``stream_seed(seed, b, 0)``, as a solo request with that seed does."""
-        built = [self._build_prefix(t, s, max_len_cap) for t, s in zip(text_tokens_list, spks)]
+        ``stream_seed(seed, b, 0)``, as a solo request with that seed does,
+        through its voice's adapters (``voices``; the base model for "" or
+        None)."""
+        voices = list(voices) if voices is not None else [None] * len(text_tokens_list)
+        built = [self._build_prefix(t, None, None, s, max_len_cap, v or None)
+                 for t, s, v in zip(text_tokens_list, spks, voices)]
+        bank, vids = self._voice_batch(voices)
         prefix, valid, min_lens, max_lens = _batch_prefixes(built)
+        lora = {} if bank is None else dict(lora=bank, vids=vids,
+                                            lora_scale=self._llm_lora_scale)
         return L.llm_decode_start(self.llm_p, self.cfg.llm, prefix, valid, min_lens, max_lens,
                                   [self._decode_generator(seed, b) for b in range(len(built))],
-                                  **self._sampling())
+                                  **self._sampling(), **lora)
 
     @torch.inference_mode()
     def synthesize_batch(self, text_tokens_list: Sequence[np.ndarray], spk_embeddings=None,
-                         speed=1.0, max_len_cap: int = 2048, seed: int = 0
-                         ) -> List[np.ndarray]:
-        """Micro-batched whole-utterance synthesis: one batched decode shares
-        each step's weight reads across the requests, then flow and HiFT run
-        per request.  Returns a (1, n) wav per request; request b's draws
-        are row b's (module docstring)."""
+                         speed=1.0, max_len_cap: int = 2048, seed: int = 0,
+                         voices: Optional[Sequence[Optional[str]]] = None) -> List[np.ndarray]:
+        """Micro-batched whole-utterance synthesis (prompt-free: a None
+        embedding is the zero one): one batched decode shares each step's
+        weight reads across the requests, then flow and HiFT run per
+        request.  Returns a (1, n) wav per request; request b's draws are
+        row b's (module docstring).  ``voices`` routes each row through its
+        registered voice inside the shared decode; mixed voiced and base
+        rows are fine."""
         B = len(text_tokens_list)
         spks = [self._spk(s) for s in (spk_embeddings or [None] * B)]
         speeds = list(speed) if isinstance(speed, (list, tuple)) else [speed] * B
-        state = self._decode_batch(text_tokens_list, spks, max_len_cap, seed).run()
+        voices = list(voices) if voices is not None else [None] * B
+        state = self._decode_batch(text_tokens_list, spks, max_len_cap, seed, voices).run()
         return [self.token2wav(np.asarray(state.tokens[b], np.int64)[None], spks[b],
-                               speed=speeds[b], generator=self._wav_generator(seed, b, 0))
+                               speed=speeds[b], generator=self._wav_generator(seed, b, 0),
+                               voice=voices[b] or None)
                 for b in range(B)]
 
     @torch.inference_mode()
     def synthesize_stream_batch(self, text_tokens_list: Sequence[np.ndarray],
-                                spk_embeddings=None, max_len_cap: int = 2048, seed: int = 0
+                                spk_embeddings=None, max_len_cap: int = 2048, seed: int = 0,
+                                voices: Optional[Sequence[Optional[str]]] = None
                                 ) -> Iterator[Tuple[int, np.ndarray, bool]]:
-        """Batched streaming: one lock-step segmented decode shares each
-        step's weight reads across the streams, and each stream emits
-        hop-sized chunks with the overlap and fades of :meth:`synthesize`.
-        Yields (request index, wav (1, n), last)."""
+        """Batched streaming (prompt-free): one lock-step segmented decode
+        shares each step's weight reads across the streams, and each stream
+        emits hop-sized chunks with the overlap and fades of
+        :meth:`synthesize`.  Yields (request index, wav (1, n), last).
+        ``voices`` as in :meth:`synthesize_batch`."""
         B = len(text_tokens_list)
         spks = [self._spk(s) for s in (spk_embeddings or [None] * B)]
-        state = self._decode_batch(text_tokens_list, spks, max_len_cap, seed)
+        voices = list(voices) if voices is not None else [None] * B
+        state = self._decode_batch(text_tokens_list, spks, max_len_cap, seed, voices)
         hop = self.token_min_hop_len
-        curs = [StreamCursor(spks[b], seed, b, hop) for b in range(B)]
+        curs = [StreamCursor(spks[b], seed, b, hop, voice=voices[b] or None) for b in range(B)]
         finished = [False] * B
         target = hop + self.token_overlap_len
         while not all(finished):

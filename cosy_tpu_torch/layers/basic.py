@@ -5,7 +5,11 @@ The port of the JAX package's ``layers/basic.py``.  Each function reads
 with torch semantics.  LoRA adapters are consulted through the ``Ctx``: when
 ``ctx.lora`` holds ``<full name>.lora_A`` / ``.lora_B`` (Linear) or
 ``.lora_A.weight`` / ``.lora_B.weight`` (1x1 conv), the low-rank delta
-``(drop(x) @ A^T) @ B^T * scale`` is added.  The ``_nwc`` variants take
+``(drop(x) @ A^T) @ B^T * scale`` is added.  Voice-stacked adapters (a
+leading voice axis: (V, r, in) / (V, out, r), conv kernels (V, r, in, 1) /
+(V, out, r, 1)) route each batch row through its own voice's delta by
+``ctx.lora_vids``, the (B,) voice index of every row (multi-voice
+serving).  The ``_nwc`` variants take
 channels-last (B, T, C) activations, the layout the JAX package keeps at
 these functions' boundaries.
 """
@@ -24,13 +28,25 @@ from ..params import P
 def _lora_delta(ctx: Ctx, full_name: str, x: torch.Tensor, conv: bool):
     """The LoRA delta of a Linear, or of a 1x1 conv on a (B, C, T)
     activation (adapters stored as (r, in, 1) / (out, r, 1) conv kernels);
-    None when the module has no adapter."""
+    None when the module has no adapter.  Voice-stacked adapters take row
+    b's voice ``ctx.lora_vids[b]`` and raise without ``lora_vids``."""
     suffix = ".weight" if conv else ""
     a = ctx.lora.get(full_name + ".lora_A" + suffix)
     if a is None:
         return None
     b = ctx.lora[full_name + ".lora_B" + suffix]
     xd = ctx.dropout(x, ctx.lora_dropout)
+    if a.ndim == (4 if conv else 3):
+        if ctx.lora_vids is None:
+            raise ValueError(f"stacked LoRA adapters for {full_name} need Ctx.lora_vids")
+        vids = ctx.lora_vids.to(device=a.device, dtype=torch.long)
+        a_sel = a[vids].to(x.dtype)  # (B, r, in[, 1])
+        b_sel = b[vids].to(x.dtype)  # (B, out, r[, 1])
+        if conv:  # x (B, C, T)
+            h = torch.einsum("bct,brc->brt", xd, a_sel[..., 0])
+            return torch.einsum("brt,bor->bot", h, b_sel[..., 0]) * ctx.lora_scale
+        h = torch.einsum("b...i,bri->b...r", xd, a_sel)
+        return torch.einsum("b...r,bor->b...o", h, b_sel) * ctx.lora_scale
     if conv:
         return F.conv1d(F.conv1d(xd, a.to(x.dtype)), b.to(x.dtype)) * ctx.lora_scale
     return F.linear(F.linear(xd, a.to(x.dtype)), b.to(x.dtype)) * ctx.lora_scale

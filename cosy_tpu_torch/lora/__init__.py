@@ -69,7 +69,8 @@ def init_lora(generator: Optional[torch.Generator], params: Params, cfg: LoRACon
 
 def merge_lora(params: Params, lora: Params, scaling: float) -> Params:
     """W' = W + B @ A * scaling for Linears and 1x1 convs, as a new
-    original-format flat dict (detached; the inputs are not modified)."""
+    original-format flat dict on the weights' device (detached; the inputs
+    are not modified)."""
     out = {k: v.detach() for k, v in params.items()}
     with torch.no_grad():
         for k in lora:
@@ -84,7 +85,48 @@ def merge_lora(params: Params, lora: Params, scaling: float) -> Params:
             else:
                 continue
             w = out[path + ".weight"]
-            out[path + ".weight"] = w + delta.to(w.dtype)
+            out[path + ".weight"] = w + delta.to(device=w.device, dtype=w.dtype)
+    return out
+
+
+def _frozen_tensor(v, device=None) -> torch.Tensor:
+    """An f32 tensor that needs no gradient (the kernels refuse one that
+    does) from a tensor or an array."""
+    if isinstance(v, torch.Tensor):
+        return v.detach().to(device=device, dtype=torch.float32)
+    return torch.as_tensor(np.asarray(v, np.float32), device=device)
+
+
+def stack_voice_loras(loras: Sequence[Params], device=None) -> Params:
+    """Stack per-voice adapter dicts along a new leading VOICE axis (V, ...)
+    for multi-voice serving: every voice must cover the same adapter keys
+    with the same shapes (same base model and ``LoRAConfig``).  The result
+    feeds ``Ctx(lora=..., lora_vids=per_row_voice_ids)`` and the decode's
+    ``lora`` / ``vids``.  Detached: stacked adapters serve, never train.
+    ``device`` None keeps the first voice's device."""
+    if not loras:
+        raise ValueError("no adapter dicts to stack")
+    keys = set(loras[0])
+    for i, lo in enumerate(loras[1:], 1):
+        if set(lo) != keys:
+            missing = keys.symmetric_difference(lo)
+            raise ValueError(f"voice {i} adapter keys differ: {sorted(missing)[:4]}")
+    if device is None:
+        first = loras[0][next(iter(sorted(keys)))]
+        device = first.device if isinstance(first, torch.Tensor) else "cpu"
+    return {k: torch.stack([_frozen_tensor(lo[k], device) for lo in loras])
+            for k in sorted(keys)}
+
+
+def ensure_voice_stacked(lora: Params) -> Params:
+    """An adapter dict with a leading voice axis (one voice is wrapped as
+    V = 1): dense adapters (``.lora_A`` / ``.lora_B``) are 3-D stacked, 1x1
+    conv adapters (``.lora_A.weight`` / ``.lora_B.weight``) 4-D."""
+    out: Params = {}
+    for k, v in lora.items():
+        v = _frozen_tensor(v, v.device if isinstance(v, torch.Tensor) else None)
+        want = 4 if k.endswith(".weight") else 3
+        out[k] = v if v.ndim == want else v[None]
     return out
 
 

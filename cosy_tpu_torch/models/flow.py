@@ -140,12 +140,12 @@ def cfm_t_span(n_timesteps: int, scheduler: str = "cosine", device=None) -> torc
 
 def cfm_solve_euler(p: P, cfg: FlowConfig, z: torch.Tensor, mask, mu: torch.Tensor,
                     spks: torch.Tensor, cond: torch.Tensor, n_timesteps: int,
-                    frames_valid: Optional[int] = None) -> torch.Tensor:
+                    frames_valid: Optional[int] = None, ctx: Ctx = EVAL) -> torch.Tensor:
     """Fixed-step Euler ODE solve with the CFG pair batched: each step runs
     the estimator once on [x, x] with [mu, 0] / [spks, 0] / [cond, 0] and
     mixes (1 + r) * d_cond - r * d_uncond, r = inference_cfg_rate.
     ``frames_valid``: the estimator's GroupNorm statistics over the valid
-    frames of a bucket-padded solve."""
+    frames of a bucket-padded solve.  ``ctx`` carries un-merged adapters."""
     B = z.shape[0]
     r = cfg.cfm.inference_cfg_rate
     t_span = cfm_t_span(n_timesteps, cfg.cfm.t_scheduler, z.device)
@@ -158,7 +158,7 @@ def cfm_solve_euler(p: P, cfg: FlowConfig, z: torch.Tensor, mask, mu: torch.Tens
     for i in range(n_timesteps):
         t, dt = t_span[i], t_span[i + 1] - t_span[i]
         dphi = conditional_decoder(p, cfg.estimator, torch.cat([x, x]), mask2, mu2,
-                                   t.expand(2 * B).to(x.dtype), spks2, cond2,
+                                   t.expand(2 * B).to(x.dtype), spks2, cond2, ctx,
                                    frames_valid=fv2)
         dphi = (1.0 + r) * dphi[:B] - r * dphi[B:]
         x = (x + dt * dphi).to(x.dtype)
@@ -419,6 +419,8 @@ def flow_inference(
     return_cache: bool = False,
     token_valid: Optional[int] = None,  # true token count of a bucket-padded window
     mel_valid: Optional[int] = None,  # true mel frames of that window
+    lora: Optional[Dict[str, torch.Tensor]] = None,  # one voice's un-merged adapters
+    lora_scale: float = 1.0,
 ):
     """Inference -> mel (1, 80, T_mel) (prompt region dropped).
 
@@ -437,7 +439,13 @@ def flow_inference(
     chunk.  ``token`` is padded to a bucket; the first ``mel_valid`` output
     frames equal the unpadded solve's (masked regulator, estimator
     statistics and attention) and the rest are zero.  Pass ``n_timesteps``
-    chosen from the true length."""
+    chosen from the true length.
+
+    ``lora``: serve one voice's flow adapters (a flat ``*.lora_A/B`` dict)
+    un-merged for this call.  The estimator then runs its blocks unfused,
+    as ``use_fused_block`` decides: on CUDA each block's attention is one
+    kernel A launch (or C with a window)."""
+    ctx = EVAL if lora is None else Ctx(lora=lora, lora_scale=lora_scale)
     mean, std = mel_norm
     dev = token.device
     T_ptok = prompt_token.shape[1]
@@ -446,10 +454,11 @@ def flow_inference(
                                     or mel_valid is None or n_timesteps is None):
         raise ValueError("the bucketed window is prompt-free, returns no cache and needs "
                          "mel_valid and n_timesteps")
-    spk = dense(p, "spk_embed_affine_layer", _l2_normalize(spk_embedding, dim=1))
+    spk = dense(p, "spk_embed_affine_layer", _l2_normalize(spk_embedding, dim=1), ctx)
     full_token = torch.cat([prompt_token, token], dim=1)
     token_len = T_ptok + T_tok if token_valid is None else token_valid
-    h = flow_encode(p, cfg, full_token, torch.tensor([token_len], dtype=torch.int32, device=dev))
+    h = flow_encode(p, cfg, full_token, torch.tensor([token_len], dtype=torch.int32, device=dev),
+                    ctx)
 
     mel_len1 = prompt_feat.shape[1]
     mel_len2 = int(T_tok / cfg.input_frame_rate * 22050 / 256)
@@ -497,7 +506,7 @@ def flow_inference(
                                  for x in (z, mu)], dim=-1)
 
     feat = cfm_solve_euler(p.sub("decoder.estimator"), cfg, z, mask, mu, spk, conds,
-                           n_timesteps, frames_valid=mel_valid)
+                           n_timesteps, frames_valid=mel_valid, ctx=ctx)
     feat = feat[:, :, mel_len1:T]
     if finetuned_norm:
         feat = feat * std + mean

@@ -11,6 +11,13 @@ every layer's positional keys are projected once: the Transformer-XL
 relative-position keys of a query at column ``c`` are the window
 ``[S-1-c, S-1-c+W)`` of the (2S-1)-row table.  A step reads only the live
 columns, which equals the full-capacity attention with -1e10 on the others.
+
+Un-merged LoRA adapters serve several voices from one base model: a decode
+takes a voice-stacked adapter bank (``lora.stack_voice_loras``) and each
+row's voice index (``vids``).  Prefill routes them through the ``Ctx``; the
+per-token step adds each row's own deltas to ``linear_q/k/v/out`` and
+``w_1/w_2`` of every block (``_DECODE_LORA_MODS``), and an adapter on any
+other module of the backbone is refused rather than dropped.
 """
 
 from __future__ import annotations
@@ -210,10 +217,12 @@ def _empty_cache(p: P, cfg: LLMConfig, B: int, capacity: int, dtype, device) -> 
                    start=torch.zeros((B,), dtype=torch.long, device=device))
 
 
-def _prefill(p: P, cfg: LLMConfig, prefix_emb: torch.Tensor, start: torch.Tensor):
+def _prefill(p: P, cfg: LLMConfig, prefix_emb: torch.Tensor, start: torch.Tensor,
+             ctx: Ctx = EVAL):
     """The causal backbone over (B, L0, D) left-padded prefixes: key k is
-    visible to query q iff ``start[b] <= k <= q``.  Returns (the logits of
-    each row's next token (B, V+1), keys and values (nl, B, H, L0, dk))."""
+    visible to query q iff ``start[b] <= k <= q``; ``ctx`` carries the rows'
+    adapters.  Returns (the logits of each row's next token (B, V+1), keys
+    and values (nl, B, H, L0, dk))."""
     ecfg = cfg.llm
     p_llm = p.sub("llm")
     L0 = prefix_emb.shape[1]
@@ -225,7 +234,7 @@ def _prefill(p: P, cfg: LLMConfig, prefix_emb: torch.Tensor, start: torch.Tensor
     bias = torch.where(vis, 0.0, M.NEG_BIAS).to(dt)
     ks, vs = [], []
     for i in range(ecfg.num_blocks):
-        h, (ki, vi) = transformer_layer(p_llm, f"encoders.{i}", ecfg, h, bias, pe0,
+        h, (ki, vi) = transformer_layer(p_llm, f"encoders.{i}", ecfg, h, bias, pe0, ctx,
                                         return_kv=True)
         ks.append(ki)
         vs.append(vi)
@@ -234,13 +243,13 @@ def _prefill(p: P, cfg: LLMConfig, prefix_emb: torch.Tensor, start: torch.Tensor
 
 
 def _prefilled_cache(p: P, cfg: LLMConfig, prefix_emb: torch.Tensor, valid: Sequence[int],
-                     capacity: int):
+                     capacity: int, ctx: Ctx = EVAL):
     """Prefill B LEFT-padded prefixes (``valid[b]`` real rows each) into a
     cache of ``capacity`` columns: (next-token logits (B, V+1), cache)."""
     B, L0 = prefix_emb.shape[:2]
     cache = _empty_cache(p, cfg, B, capacity, prefix_emb.dtype, prefix_emb.device)
     cache.start = torch.tensor([L0 - v for v in valid], device=prefix_emb.device)
-    logits, k, v = _prefill(p, cfg, prefix_emb, cache.start)
+    logits, k, v = _prefill(p, cfg, prefix_emb, cache.start, ctx)
     cache.k[:, :, :, :L0] = k
     cache.v[:, :, :, :L0] = v
     return logits, cache
@@ -253,14 +262,65 @@ def llm_prefill(p: P, cfg: LLMConfig, prefix_emb: torch.Tensor, capacity: int):
     return logits[0], cache
 
 
+# the six backbone matmuls the reference's LLM LoRA config targets
+# (config.py LLM_LORA_DEFAULT; substring matching): the per-token step
+# applies each row's own deltas to these
+_DECODE_LORA_MODS = ("self_attn.linear_q", "self_attn.linear_k",
+                     "self_attn.linear_v", "self_attn.linear_out",
+                     "feed_forward.w_1", "feed_forward.w_2")
+
+
+def _stack_decode_loras(lora: Dict[str, torch.Tensor], nl: int,
+                        prefix: str = "llm.encoders") -> Dict[str, torch.Tensor]:
+    """The adapters the decode's prefill and step read, voice-stacked
+    ((V, r, in) / (V, out, r); one un-stacked voice is wrapped as V = 1):
+    the ``{prefix}.{i}.<module>.lora_A/B`` keys of ``_DECODE_LORA_MODS``
+    over all ``nl`` blocks.  Any other adapter key would be applied in
+    training but dropped by the decode, so the tokens would leave the
+    merged-weights build's: it raises.  ``text_encoder.*`` adapters are
+    prefill-only (the pipeline's prefix runs the text encoder) and pass."""
+    from ..lora import ensure_voice_stacked
+
+    unsupported = sorted(
+        k for k in lora
+        if ".lora_" in k and not k.startswith("text_encoder.")
+        and not any(f".{mod}.lora_" in k for mod in _DECODE_LORA_MODS))
+    if unsupported:
+        raise ValueError(
+            "decode-loop LoRA routing covers the llm-block modules "
+            f"{_DECODE_LORA_MODS} (plus text_encoder.* in prefill); these "
+            f"adapter keys would be silently ignored at decode: "
+            f"{unsupported[:6]}{'...' if len(unsupported) > 6 else ''} - "
+            "merge them into the weights or retrain with the default target list")
+    out: Dict[str, torch.Tensor] = {}
+    for mod in _DECODE_LORA_MODS:
+        if f"{prefix}.0.{mod}.lora_A" not in lora:
+            continue
+        for i in range(nl):
+            for s in ("A", "B"):
+                k = f"{prefix}.{i}.{mod}.lora_{s}"
+                out[k] = lora[k]
+    return ensure_voice_stacked(out)
+
+
+def _decode_ctx(lora: Optional[Dict[str, torch.Tensor]], vids: Optional[Sequence[int]],
+                scale: float, device) -> Ctx:
+    """The ``Ctx`` that routes row b through voice ``vids[b]`` of ``lora``."""
+    if lora is None:
+        return EVAL
+    return Ctx(lora=lora, lora_scale=scale,
+               lora_vids=torch.tensor(list(vids), dtype=torch.long, device=device))
+
+
 def llm_decode_step_batch(p: P, cfg: LLMConfig, cache: KVCache, tokens: Sequence[int],
-                          cols: Sequence[int]) -> torch.Tensor:
+                          cols: Sequence[int], ctx: Ctx = EVAL) -> torch.Tensor:
     """Feed row b's token ``tokens[b]`` at cache column ``cols[b]`` (its
     absolute position); writes its K/V there and returns every row's
     next-token logits (B, V+1).  Row b attends columns ``[start[b], cols[b]]``
     with its own positional window.  The step reads only the live columns
     ``[0, max(cols) + 1)``: the -1e10 bias beyond a row's last column adds
-    exact zeros to its softmax, so a row's result is its solo decode's."""
+    exact zeros to its softmax, so a row's result is its solo decode's.
+    ``ctx`` adds each row's adapter deltas (``_decode_ctx``)."""
     ecfg = cfg.llm
     H, dk = ecfg.attention_heads, ecfg.head_dim
     S = cache.k.shape[3]
@@ -281,17 +341,18 @@ def llm_decode_step_batch(p: P, cfg: LLMConfig, cache: KVCache, tokens: Sequence
         sp = p_llm.sub(f"encoders.{i}")
         sa = sp.sub("self_attn")
         hn = layer_norm(sp, "norm1", x, eps=eps)
-        q = dense(sa, "linear_q", hn).reshape(B, H, dk)
-        cache.k[i, rows, :, col] = dense(sa, "linear_k", hn).reshape(B, H, dk)
-        cache.v[i, rows, :, col] = dense(sa, "linear_v", hn).reshape(B, H, dk)
+        q = dense(sa, "linear_q", hn, ctx).reshape(B, H, dk)
+        cache.k[i, rows, :, col] = dense(sa, "linear_k", hn, ctx).reshape(B, H, dk)
+        cache.v[i, rows, :, col] = dense(sa, "linear_v", hn, ctx).reshape(B, H, dk)
         kc, vc = cache.k[i, :, :, :W], cache.v[i, :, :, :W]
         pk = cache.pos_k[i][:, pidx]  # (H, B, W, dk)
         scores = (torch.einsum("bhd,bhwd->bhw", q + sa["pos_bias_u"].to(q.dtype), kc)
                   + torch.einsum("bhd,hbwd->bhw", q + sa["pos_bias_v"].to(q.dtype), pk))
         attn = torch.softmax(scores.float() / math.sqrt(dk) + bias, dim=-1).to(x.dtype)
         o = torch.einsum("bhw,bhwd->bhd", attn, vc).reshape(B, 1, H * dk)
-        x = x + dense(sa, "linear_out", o)
-        x = x + positionwise_ff(sp, "feed_forward", layer_norm(sp, "norm2", x, eps=eps), act)
+        x = x + dense(sa, "linear_out", o, ctx)
+        x = x + positionwise_ff(sp, "feed_forward", layer_norm(sp, "norm2", x, eps=eps), act,
+                                ctx=ctx)
     x = layer_norm(p_llm, "after_norm", x, eps=1e-5)
     return dense(p, "llm_decoder", x[:, -1])
 
@@ -304,18 +365,38 @@ def llm_decode_step(p: P, cfg: LLMConfig, cache: KVCache, token: int,
 
 
 def llm_teacher_forced_logits(p: P, cfg: LLMConfig, prefix_emb: torch.Tensor,
-                              valid: Sequence[int], tokens: Sequence[Sequence[int]]
-                              ) -> torch.Tensor:
+                              valid: Sequence[int], tokens: Sequence[Sequence[int]],
+                              lora: Optional[Dict[str, torch.Tensor]] = None,
+                              vids: Optional[Sequence[int]] = None,
+                              lora_scale: float = 1.0) -> torch.Tensor:
     """(B, n + 1, V+1) next-token logits of B LEFT-padded prefixes fed the
     given tokens (B rows of n) through the batched prefill and steps: the
-    logits each step of a batched decode samples from, for those tokens."""
+    logits each step of a batched decode samples from, for those tokens
+    (with ``lora`` / ``vids`` as :func:`llm_decode_start` takes them)."""
     B, L0 = prefix_emb.shape[:2]
     n = len(tokens[0])
-    logits, cache = _prefilled_cache(p, cfg, prefix_emb, valid, L0 + n)
+    lora, vids = _voice_rows(cfg, lora, vids, B)
+    ctx = _decode_ctx(lora, vids, lora_scale, prefix_emb.device)
+    logits, cache = _prefilled_cache(p, cfg, prefix_emb, valid, L0 + n, ctx)
     out = [logits]
     for j in range(n):
-        out.append(llm_decode_step_batch(p, cfg, cache, [row[j] for row in tokens], [L0 + j] * B))
+        out.append(llm_decode_step_batch(p, cfg, cache, [row[j] for row in tokens],
+                                         [L0 + j] * B, ctx))
     return torch.stack(out, 1)
+
+
+def _voice_rows(cfg: LLMConfig, lora, vids, B: int):
+    """(the decode's voice-stacked adapters, each row's voice) or (None,
+    None); one un-stacked voice dict serves every row as voice 0."""
+    if lora is None:
+        if vids is not None:
+            raise ValueError("voice ids given without adapters")
+        return None, None
+    lora = _stack_decode_loras(lora, cfg.llm.num_blocks)
+    vids = [0] * B if vids is None else [int(v) for v in vids]
+    if len(vids) != B:
+        raise ValueError(f"{len(vids)} voice ids for {B} rows")
+    return lora, vids
 
 
 def _sample_token(logits: torch.Tensor, step: int, min_len: int, decoded: List[int],
@@ -344,7 +425,8 @@ class DecodeState:
     stopped, so segments give the tokens of one uninterrupted run.  Cache
     columns are slot-local (:class:`KVCache`): a request admitted into a
     free row (:func:`llm_admit_slot`) starts at its own column L0 whatever
-    the other rows have decoded."""
+    the other rows have decoded.  With adapters, ``lora`` is the
+    voice-stacked bank and ``vids[b]`` row b's voice in it."""
     p: P
     cfg: LLMConfig
     cache: KVCache
@@ -357,6 +439,9 @@ class DecodeState:
     generators: List[Optional[torch.Generator]]
     sampling: Tuple[float, int, int, float]  # top_p, top_k, win_size, tau_r
     i: int = 1  # loop steps so far (the prefill's sample is step 0)
+    lora: Optional[Dict[str, torch.Tensor]] = None  # voice-stacked decode adapters
+    vids: Optional[List[int]] = None  # each row's voice in ``lora``
+    lora_scale: float = 1.0
 
     @property
     def max_len(self) -> int:
@@ -378,12 +463,13 @@ class DecodeState:
         """Step until every row is done or ``i`` reaches ``stop_at``.  A
         frozen row is fed at column L0 - 1 and its output dropped, so it
         neither widens the step nor touches a live row."""
+        ctx = _decode_ctx(self.lora, self.vids, self.lora_scale, self.cache.k.device)
         while not all(self.done) and (stop_at is None or self.i < stop_at):
             cols = [self.L0 - 1 if d else self.L0 + len(t) - 1
                     for t, d in zip(self.tokens, self.done)]
             live = [b for b, d in enumerate(self.done) if not d]
             logits = llm_decode_step_batch(self.p, self.cfg, self.cache, self.last,
-                                           cols).float().cpu()
+                                           cols, ctx).float().cpu()
             for b in live:
                 self._sample(b, logits[b])
             self.i += 1
@@ -394,17 +480,24 @@ def llm_decode_start(p: P, cfg: LLMConfig, prefix_emb: torch.Tensor,
                      valid: Sequence[int], min_lens: Sequence[int], caps: Sequence[int],
                      generators: Sequence[Optional[torch.Generator]],
                      top_p: float = 0.8, top_k: int = 25, win_size: int = 10,
-                     tau_r: float = 0.1) -> DecodeState:
+                     tau_r: float = 0.1, lora: Optional[Dict[str, torch.Tensor]] = None,
+                     vids: Optional[Sequence[int]] = None,
+                     lora_scale: float = 1.0) -> DecodeState:
     """Prefill B LEFT-padded prefixes (B, L0, D) with ``valid[b]`` real
     rows each and sample every row's first token: a :class:`DecodeState` of
-    capacity ``max(caps)`` tokens a row, paused after step 0."""
+    capacity ``max(caps)`` tokens a row, paused after step 0.  ``lora``: a
+    voice-stacked adapter bank (or one voice's dict) served un-merged, row
+    b through voice ``vids[b]`` (all 0 when None) at ``lora_scale``."""
     B, L0 = prefix_emb.shape[:2]
     if min(caps) < 1:
         raise ValueError(f"every cap must be >= 1, got {list(caps)}")
-    logits, cache = _prefilled_cache(p, cfg, prefix_emb, valid, L0 + max(caps))
+    lora, vids = _voice_rows(cfg, lora, vids, B)
+    ctx = _decode_ctx(lora, vids, lora_scale, prefix_emb.device)
+    logits, cache = _prefilled_cache(p, cfg, prefix_emb, valid, L0 + max(caps), ctx)
     state = DecodeState(p, cfg, cache, L0, [[] for _ in range(B)], [0] * B, [False] * B,
                         list(min_lens), list(caps), list(generators),
-                        (top_p, top_k, win_size, tau_r))
+                        (top_p, top_k, win_size, tau_r), lora=lora, vids=vids,
+                        lora_scale=lora_scale)
     logits = logits.float().cpu()
     for b in range(B):
         state._sample(b, logits[b])
@@ -413,28 +506,42 @@ def llm_decode_start(p: P, cfg: LLMConfig, prefix_emb: torch.Tensor,
 
 def llm_decode_idle(p: P, cfg: LLMConfig, slots: int, L0: int, max_len: int, dtype, device,
                     top_p: float = 0.8, top_k: int = 25, win_size: int = 10,
-                    tau_r: float = 0.1) -> DecodeState:
+                    tau_r: float = 0.1, lora: Optional[Dict[str, torch.Tensor]] = None,
+                    lora_scale: float = 1.0) -> DecodeState:
     """A :class:`DecodeState` of ``slots`` free rows (all done), prefix width
-    L0 and ``max_len`` tokens a row, for :func:`llm_admit_slot` to fill."""
+    L0 and ``max_len`` tokens a row, for :func:`llm_admit_slot` to fill;
+    with ``lora`` (a voice-stacked bank) every admission names its voice."""
     cache = _empty_cache(p, cfg, slots, L0 + max_len, dtype, device)
+    lora, vids = _voice_rows(cfg, lora, None, slots)
     return DecodeState(p, cfg, cache, L0, [[] for _ in range(slots)], [0] * slots,
                        [True] * slots, [0] * slots, [0] * slots, [None] * slots,
-                       (top_p, top_k, win_size, tau_r))
+                       (top_p, top_k, win_size, tau_r), lora=lora, vids=vids,
+                       lora_scale=lora_scale)
 
 
 def llm_admit_slot(state: DecodeState, prefix_emb: torch.Tensor, valid: int, min_len: int,
-                   cap: int, generator: Optional[torch.Generator], slot: int) -> None:
+                   cap: int, generator: Optional[torch.Generator], slot: int,
+                   vid: Optional[int] = None) -> None:
     """Admit one request into row ``slot`` of a paused state (the
     continuous-batching join): prefill its (1, L0, D) LEFT-padded prefix
     (``valid`` real rows), sample its first token from ITS OWN generator, as
     a solo decode with that generator does, and splice its cache, tokens,
-    ``last``, ``done`` and bounds into the row.  ``state.i`` is untouched."""
+    ``last``, ``done`` and bounds into the row.  ``state.i`` is untouched.
+    ``vid``: the request's voice in the state's adapter bank; a state with
+    adapters needs one, a state without refuses one."""
     if prefix_emb.shape[1] != state.L0 or not 1 <= cap <= state.max_len:
         raise ValueError(f"prefix width {prefix_emb.shape[1]} (state {state.L0}) or cap "
                          f"{cap} (state {state.max_len}) does not fit")
+    if (vid is None) != (state.lora is None):
+        raise ValueError("a voice id needs a state started with adapters, and such a "
+                         "state needs every admission's voice id")
     L0 = state.L0
     start = torch.tensor([L0 - valid], device=prefix_emb.device)
-    logits, k, v = _prefill(state.p, state.cfg, prefix_emb, start)
+    if vid is not None:
+        state.vids[slot] = int(vid)
+    ctx = _decode_ctx(state.lora, None if vid is None else [vid], state.lora_scale,
+                      prefix_emb.device)
+    logits, k, v = _prefill(state.p, state.cfg, prefix_emb, start, ctx)
     state.cache.k[:, slot, :, :L0] = k[:, 0]
     state.cache.v[:, slot, :, :L0] = v[:, 0]
     state.cache.start[slot] = L0 - valid
@@ -454,12 +561,18 @@ def llm_decode(
     win_size: int = 10,
     tau_r: float = 0.1,
     generator: Optional[torch.Generator] = None,
+    lora: Optional[Dict[str, torch.Tensor]] = None,
+    vid: Optional[int] = None,
+    lora_scale: float = 1.0,
 ) -> List[int]:
     """AR decode of up to ``max_len`` speech tokens with RAS sampling: one
     uninterrupted run of a solo :class:`DecodeState`.  ``generator`` is a
-    CPU generator: sampling runs on the host."""
+    CPU generator: sampling runs on the host.  ``lora`` / ``vid``: serve
+    voice ``vid`` of a voice-stacked bank (or one voice's dict) un-merged."""
     state = llm_decode_start(p, cfg, prefix_emb, [prefix_emb.shape[1]], [min_len],
-                             [max_len], [generator], top_p, top_k, win_size, tau_r)
+                             [max_len], [generator], top_p, top_k, win_size, tau_r,
+                             lora=lora, vids=None if vid is None else [vid],
+                             lora_scale=lora_scale)
     return state.run().tokens[0]
 
 

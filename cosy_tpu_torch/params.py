@@ -14,6 +14,7 @@ The math lives in plain functions that read a module's parameters through
 
 from __future__ import annotations
 
+import json
 import math
 from typing import Callable, Dict, Optional, Tuple
 
@@ -238,3 +239,30 @@ def load_torch_checkpoint(path: str) -> Params:
         state = state["state_dict"]
     return {k: v.detach().to(torch.float32) for k, v in state.items()
             if isinstance(v, torch.Tensor)}
+
+
+def save_torch_checkpoint(params: Params, path: str):
+    """Save a flat param dict (tensors or arrays) as a plain ``.pt``
+    state_dict of CPU tensors, loadable by the reference and by
+    :func:`load_torch_checkpoint`."""
+    torch.save({k: (v.detach().cpu() if isinstance(v, torch.Tensor)
+                    else torch.from_numpy(np.array(v))) for k, v in params.items()}, path)
+
+
+def save_weight_meta(path: str, **meta):
+    """Write the ``<path>.meta.json`` provenance sidecar of a weight file
+    (the state dict itself stays a plain ``.pt``): e.g. whether a flow
+    checkpoint works in normalized mel space (``mel_space: normalized``
+    for fine-tune outputs, ``raw`` for pretrained-space weights), which
+    ``serve.resolve_finetuned_norm`` reads."""
+    with open(path + ".meta.json", "w") as f:
+        json.dump(meta, f, indent=0, sort_keys=True)
+
+
+def load_weight_meta(path: str) -> Optional[dict]:
+    """The ``<path>.meta.json`` sidecar, or None when absent or unreadable."""
+    try:
+        with open(path + ".meta.json") as f:
+            return json.load(f)
+    except (OSError, json.JSONDecodeError):
+        return None

@@ -24,7 +24,7 @@ import torch
 from ..config import ModelConfig, TrainConfig
 from ..lora import init_lora, merge_lora
 from ..models.joint import joint_forward_train
-from ..params import Params
+from ..params import Params, save_weight_meta
 from .schedules import make_schedule
 
 _METRIC_KEYS = {"joint": ("loss", "llm_loss", "llm_acc", "flow_loss"),
@@ -49,14 +49,6 @@ class TrainState:
 
 def _frozen(module) -> Params:
     return {} if module is None else {k: v.detach() for k, v in module.named_parameters()}
-
-
-def save_weight_meta(path: str, **meta):
-    """Write the ``<path>.meta.json`` provenance sidecar of a weight file
-    (the state dict itself stays a plain ``.pt``): e.g. whether a flow
-    checkpoint works in normalized mel space."""
-    with open(path + ".meta.json", "w") as f:
-        json.dump(meta, f, indent=0, sort_keys=True)
 
 
 class JointTrainer:

@@ -78,3 +78,30 @@ def golden_np(name):
 def assert_close(got, want, atol, rtol, name=""):
     got = got.detach().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
     np.testing.assert_allclose(got, np.asarray(want), atol=atol, rtol=rtol, err_msg=name)
+
+
+def tiny_flats(jcfg, seed=0):
+    """Seeded {'llm', 'flow', 'hift'} weights at ``jcfg``'s width as flat
+    numpy dicts (the port's init; both packages take them)."""
+    from cosy_tpu_torch.models.flow import init_flow_params
+    from cosy_tpu_torch.models.hift import init_hift_params
+    from cosy_tpu_torch.models.llm import init_llm_params
+
+    return {"llm": port_init(init_llm_params, jcfg.llm, seed),
+            "flow": port_init(init_flow_params, jcfg.flow, seed + 1),
+            "hift": port_init(init_hift_params, jcfg.hift, seed + 2)}
+
+
+def port_modules(tcfg, flats):
+    """The port's (TransformerLM, Flow, HiFT) on the CPU with ``flats``
+    loaded strictly."""
+    from cosy_tpu_torch.models.flow import Flow
+    from cosy_tpu_torch.models.hift import HiFT
+    from cosy_tpu_torch.models.llm import TransformerLM
+
+    mods = []
+    for cls, part in ((TransformerLM, "llm"), (Flow, "flow"), (HiFT, "hift")):
+        m = cls(getattr(tcfg, part), "cpu")
+        m.load_state_dict(from_numpy(flats[part], "cpu"), strict=True)
+        mods.append(m)
+    return tuple(mods)

@@ -68,8 +68,9 @@ def test_tokens_and_chunks_equal_solo_stream(pipe):
         req = eng.submit(ids, seed=7)
         chunks = _drain(req)
         assert np.array_equal(req.tokens, _solo_tokens(pipe, ids, 7, 256))
-        want = [c["tts_speech"][0] for c in pipe.synthesize(ids, max_len_cap=256, seed=7,
-                                                            stream=True)]
+        want = [c["tts_speech"][0] for c in pipe.synthesize(
+            ids, spk_embedding=np.zeros((1, 192), np.float32), max_len_cap=256, seed=7,
+            stream=True)]
         assert len(chunks) == len(want) == len(pipe.stream_plan(240)) == 3
         for g, w in zip(chunks, want):
             np.testing.assert_allclose(g, w, atol=1e-6, rtol=1e-6)

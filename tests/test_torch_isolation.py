@@ -84,3 +84,27 @@ def test_frontend_extractor_and_prepare_modules_load_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "--speech-tokenizer-onnx" in res.stdout
+
+
+def test_api_serve_client_and_yaml_modules_load_no_jax():
+    """The user API, the server, the client and the yaml reader in a fresh
+    interpreter, the server's and the client's ``__main__`` run to their
+    --help; the client and the server module load without torch."""
+    code = ("import sys, runpy\nbefore = set(sys.modules)\n"
+            "import cosy_tpu_torch.client, cosy_tpu_torch.serve\n"
+            "light = 'torch' not in sys.modules\n"
+            "import cosy_tpu_torch.api, cosy_tpu_torch.compat.yaml_config\n"
+            "for mod in ('cosy_tpu_torch.serve', 'cosy_tpu_torch.client'):\n"
+            "    sys.argv = [mod, '--help']\n"
+            "    try:\n"
+            "        runpy.run_module(mod, run_name='__main__')\n"
+            "    except SystemExit:\n"
+            "        pass\n"
+            "bad = sorted(m for m in set(sys.modules) - before if m == 'jax' or "
+            "m.startswith('jax.') or m == 'cosy_tpu' or m.startswith('cosy_tpu.'))\n"
+            "print(bad, light)\nsys.exit(1 if bad or not light else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "--voices" in res.stdout and "--stream" in res.stdout

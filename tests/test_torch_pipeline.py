@@ -50,7 +50,7 @@ def test_prefix_matches_jax(slice_pair):
     ids = np.asarray([list("hello world".encode())], np.int32)
     spk = np.zeros((1, 192), np.float32)
     want, jmin, jmax = jpipe._build_prefix(ids, None, None, spk, 2048)
-    got, tmin, tmax = tpipe._build_prefix(ids, spk, 2048)
+    got, tmin, tmax = tpipe._build_prefix(ids, None, None, spk, 2048)
     assert (tmin, tmax) == (jmin, jmax)
     assert_close(got, np.asarray(want), **TOL)
 
@@ -80,7 +80,8 @@ def test_token2wav_matches_jax(slice_pair):
 def test_synthesize_end_to_end_cpu(slice_pair):
     _, _, tpipe = slice_pair
     ids = np.asarray([list("hi".encode())], np.int64)
-    out = next(tpipe.synthesize(ids, max_len_cap=30, seed=3))
+    out = next(tpipe.synthesize(ids, spk_embedding=np.zeros((1, 192), np.float32),
+                                max_len_cap=30, seed=3))
     wav = out["tts_speech"]
     n_tok = len(tpipe.generate_tokens(ids, np.zeros((1, 192), np.float32), 30,
                                       generator=torch.Generator().manual_seed(3))[0])

@@ -225,7 +225,8 @@ def test_streamed_tokens_equal_generate_tokens(pair):
     assert [s.shape[1] for s, _ in segs] == [120, 220, 240]
     assert [d for _, d in segs] == [False, False, True]
     assert np.array_equal(segs[-1][0], whole)
-    chunks = [c["tts_speech"] for c in tp.synthesize(ids, max_len_cap=240, seed=4, stream=True)]
+    chunks = [c["tts_speech"] for c in tp.synthesize(ids, spk_embedding=spk, max_len_cap=240,
+                                                      seed=4, stream=True)]
     assert [c.shape[1] for c in chunks] == [s for _, _, s in tp.stream_plan(240)]
     assert all(np.isfinite(c).all() for c in chunks)
 
@@ -243,8 +244,9 @@ def test_stream_batch_equals_solo_streams(pair):
         got[b].append(wav)
         lasts[b].append(last)
     for b, ids in enumerate(texts):
-        want = [c["tts_speech"] for c in tp.synthesize(ids, seed=TPL.stream_seed(3, b, 0),
-                                                       stream=True)]
+        want = [c["tts_speech"] for c in tp.synthesize(
+            ids, spk_embedding=np.zeros((1, 192), np.float32), seed=TPL.stream_seed(3, b, 0),
+            stream=True)]
         assert len(got[b]) == len(want) == len(tp.stream_plan(20 * ids.shape[1]))
         assert lasts[b] == [False] * (len(want) - 1) + [True]
         for g, w in zip(got[b], want):
