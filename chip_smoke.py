@@ -103,7 +103,30 @@ Phases, each fatal on failure (nothing is caught and passed over):
      voices registered) after warmup() on 127.0.0.1: a whole request, a
      streamed one (the engine), 4 concurrent whole requests (fewer than 4
      batches), a voiced one, the client's tts and tts_stream, /stats and
-     /metrics; time to the first chunk, RTF, the wall of the four.
+     /metrics; time to the first chunk, RTF, the wall of the four;
+ 16. the other training regimes at full width on seeded weights: (a)
+     MeanFlow: phase 5's flow branched (add_meanflow_time_branch), three
+     integral-target FlowDistiller steps (4 teacher sub-steps) and one
+     jvp-target step on B = 2 at 250 / 220 frames, the teacher's launches
+     counted a step (exactly 4 x 64 and 64 fused blocks); phase 5's 181
+     tokens synthesized with sampler="meanflow" at 1 and 2 steps (64 x
+     steps fused blocks, no lone A) and held to the CPU, the flow stage
+     against the Euler solve at NFE 15; then the export through
+     python -m cosy_tpu_torch.infer --meanflow (in-process) and TTSServer
+     --sampler meanflow, whose refusal of Euler on distilled weights is
+     checked; two --cosyvoice2 distillation steps at Flow2Config() (the
+     second with the streaming estimator; 4 x 64 teacher blocks each) and
+     TTS2Pipeline's first streamed MeanFlow window on their export (64 x 2
+     fused blocks), its mel held to the CPU; A, B, B1 and B2 at the
+     MeanFlow path's and the teacher's shapes; (b) two FullTrainer steps
+     (accumulation 2 x batch 4) each for the 300M LLM, the vendored flow,
+     Qwen2-0.5B, Flow2Config() and DPO on Qwen2-0.5B: seconds a step, peak memory, no kernel launch, the idle
+     share of a profiled step, and a step-2 checkpoint restored into a new
+     trainer whose third step equals the uninterrupted run's (1e-6 x
+     max|p|); then python -m cosy_tpu_torch.train.full's main() on 32
+     seeded parquet records (2 steps, --resume for 1); (c) the native pitch
+     tracker against its numpy version on 8 clips, and two HiFiGanTrainer
+     turns at HiFTConfig() on 2 clips of 24 576 samples.
 Phase 3 also holds B2 and the GEMM epilogue with exact (erf) GELU beside
 tanh, refuses a GELU code the kernels lack, and runs A, the block, B1 and
 B2 at CosyVoice2's streaming shapes with the chunk bias; phase 4 repeats
@@ -175,11 +198,14 @@ from cosy_tpu_torch.data.frontend import Frontend  # noqa: E402
 from cosy_tpu_torch.data.prepare import main as prepare_main  # noqa: E402
 from cosy_tpu_torch.params import P, load_torch_checkpoint, save_torch_checkpoint  # noqa: E402
 from cosy_tpu_torch.train.trainer import JointTrainer  # noqa: E402
+from cosy_tpu_torch.train.distill import FlowDistiller  # noqa: E402
+from cosy_tpu_torch.ctx import Ctx  # noqa: E402
 from cosy_tpu_torch.infer.pipeline2 import (Stream2Cursor, TTS2Pipeline,  # noqa: E402
                                             hift24k_config)
 from cosy_tpu_torch.layers.unet import _stream_bias  # noqa: E402
 from cosy_tpu_torch.models import qwen2lm as Q  # noqa: E402
-from cosy_tpu_torch.models.flow2 import Flow2Config, init_flow2_params  # noqa: E402
+from cosy_tpu_torch.models.flow2 import (Flow2, Flow2Config, flow2_inference,  # noqa: E402
+                                         init_flow2_params)
 from cosy_tpu_torch.models.qwen2lm import (Qwen2LMConfig, init_qwen2lm_params,  # noqa: E402
                                            qwen2lm_teacher_forced_logits)
 
@@ -2032,6 +2058,508 @@ def api_and_serving(cfg, seed=80):
     return counts_api, counts_voiced
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the other training regimes
+# ---------------------------------------------------------------------------
+
+
+def _smi_line():
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def _reset_peak():
+    """Restart the peak counter; returns the bytes allocated now (what the
+    earlier phases still hold), which :func:`_peak_gib` leaves out."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def _peak_gib(base):
+    """GiB at the peak since :func:`_reset_peak`, beyond its ``base``."""
+    return (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+
+
+def _distill_batch(cfg, T, seed, B=2):
+    """B seeded utterances of T and T - 30 mel frames (the second padded)
+    with ~1/1.72 as many speech tokens: the distiller's batch."""
+    rng = np.random.default_rng(seed)
+    lens = [T - 30 * i for i in range(B)]
+    toks = [int(n / 1.72) for n in lens]
+    return {"speech_token": rng.integers(0, cfg.flow.vocab_size, (B, toks[0])).astype(np.int32),
+            "speech_token_len": np.asarray(toks, np.int32),
+            "speech_feat": (rng.standard_normal((B, T, 80)) * 2 - 6).astype(np.float32),
+            "speech_feat_len": np.asarray(lens, np.int32),
+            "embedding": rng.standard_normal((B, 192)).astype(np.float32)}
+
+
+def _flow_s(fn, iters=10):
+    """Median seconds of ``fn`` (a flow solve) over ``iters`` calls after a
+    warm-up, host clock around each call and a synchronize (the solves are
+    host-bound, so single calls vary with the host)."""
+    fn()
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times))
+
+
+def meanflow_phase(cfg, root, seed=90):
+    """Phase 16 (a).  Returns (the launches of every MeanFlow synthesis, the
+    teacher's launches over the distillation steps)."""
+    smi = _smi_line()
+    log(f"[16] the other training regimes at full width ({smi}); (a) MeanFlow: distillation "
+        "and the few-step sampler")
+    base = _reset_peak()
+    teacher = init_flow_params(cfg.flow, DEV, seed=1)  # phase 5's flow
+    kw = dict(lr=1e-5, teacher_substeps=4, seed=seed)
+    integral = FlowDistiller(cfg.flow, teacher, target="integral", **kw)
+    jvp = FlowDistiller(cfg.flow, teacher, target="jvp", **kw)
+    state = integral.init_state()
+    counts_teacher = {k: 0 for k in ops.launch_counts()}
+    for i, dist in enumerate((integral,) * 3 + (jvp,)):
+        batch = _distill_batch(cfg, 250, seed + i)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss = float(dist.step(state, batch))
+        sec = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        calls = 4 if dist.target == "integral" else 1
+        log(f"  step {i + 1} ({dist.target} target, B = 2 at 250 / 220 mel frames): loss "
+            f"{loss:.5f}, {sec:.3f} s; teacher launches {counts} ({smi})")
+        if not np.isfinite(loss):
+            raise SystemExit("chip_smoke: a distillation loss is not finite")
+        expect_blocks(counts, calls, f"distillation step {i + 1} (the teacher's {calls} "
+                      "CFG-batched calls)")
+        for k, v in counts.items():
+            counts_teacher[k] += v
+    log(f"  peak device memory of the distillation {_peak_gib(base):.2f} GiB (torch.cuda."
+        f"max_memory_allocated beyond the {base / 2**30:.2f} GiB held before); the student "
+        "trains on plain ops, no kernel")
+    path = os.path.join(root, "flow_distilled.pt")
+    integral.export(state, path)
+    flow_d = Flow(cfg.flow, DEV)
+    flow_d.load_state_dict(load_torch_checkpoint(path), strict=True)  # adds the branch
+
+    llm, hift = init_llm_params(cfg.llm, DEV, seed=3), init_hift_params(cfg.hift, DEV, seed=4)
+    spk = np.zeros((1, 192), np.float32)
+    ids = np.random.default_rng(5).integers(0, 256, (1, 16)).astype(np.int64)
+    pipe = TTSPipeline(cfg, llm, teacher, hift, InferenceConfig(min_token_text_ratio=12.0))
+    with torch.inference_mode():
+        tokens = pipe.generate_tokens(ids, spk, 181,
+                                      torch.Generator().manual_seed(stream_seed(6, 0, 0)))
+    if tokens.shape != (1, 181):
+        raise SystemExit(f"chip_smoke: phase 5's decode gave {tokens.shape} tokens")
+    counts_mf = {k: 0 for k in ops.launch_counts()}
+
+    def add(counts):
+        for k, v in counts.items():
+            counts_mf[k] += v
+
+    dev_tok = torch.as_tensor(tokens, device=DEV)
+    empty_t, empty_f = torch.zeros((1, 0), dtype=torch.long, device=DEV), torch.zeros((1, 0, 80),
+                                                                                       device=DEV)
+    spk_t = torch.zeros((1, 192), device=DEV)
+    z = torch.randn((1, 80, 312), generator=torch.Generator().manual_seed(seed)).to(DEV)
+    cpu_p = P({k: v.cpu() for k, v in flow_d.p.d.items()})
+    times = {}
+    for steps in (1, 2):
+        mpipe = TTSPipeline(cfg, llm, flow_d, hift,
+                            InferenceConfig(sampler="meanflow", meanflow_steps=steps))
+        ops.reset_launch_counts()
+        with torch.inference_mode():
+            wav = mpipe.token2wav(tokens, spk, z=z, generator=torch.Generator(
+                device=DEV).manual_seed(seed))
+        counts = ops.launch_counts()
+        add(counts)
+        expect_blocks(counts, steps, f"the {steps}-step MeanFlow utterance")
+        if wav.shape != (1, 256 * 311) or not np.isfinite(wav).all():
+            raise SystemExit("chip_smoke: the MeanFlow utterance is wrong in shape or not finite")
+
+        with torch.inference_mode():
+            mel = flow_inference(flow_d.p, cfg.flow, dev_tok, empty_t, empty_f, spk_t,
+                                 n_timesteps=steps, finetuned_norm=True, z=z, sampler="meanflow")
+            mel_cpu = flow_inference(cpu_p, cfg.flow, dev_tok.cpu(), empty_t.cpu(),
+                                     empty_f.cpu(), spk_t.cpu(), n_timesteps=steps,
+                                     finetuned_norm=True, z=z.cpu(), sampler="meanflow")
+            times[f"meanflow {steps}"] = _flow_s(lambda: flow_inference(
+                flow_d.p, cfg.flow, dev_tok, empty_t, empty_f, spk_t, n_timesteps=steps,
+                finetuned_norm=True, z=z, sampler="meanflow"))
+        err = (mel.cpu() - mel_cpu).abs().max().item()
+        scale = mel_cpu.abs().max().item()
+        log(f"  {steps}-step MeanFlow utterance of phase 5's 181 tokens (311 mel frames, padded "
+            f"312): launches {counts}; mel against the CPU max_abs_err {err:.3e}, max|mel| "
+            f"{scale:.3e} (tol 1e-4 * max(1, max|mel|))")
+        if not err <= 1e-4 * max(1.0, scale):
+            raise SystemExit("chip_smoke: the MeanFlow flow disagrees with the CPU")
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        times["euler 15"] = _flow_s(lambda: flow_inference(
+            teacher.p, cfg.flow, dev_tok, empty_t, empty_f, spk_t, n_timesteps=15,
+            finetuned_norm=True, z=z))
+    ops.reset_launch_counts()
+    log("  flow stage seconds on the same tokens (median of 10 after a warm-up): "
+        + ", ".join(f"{k} {v:.4f} s" for k, v in times.items())
+        + f"; Euler NFE 15 / MeanFlow 2 steps = {times['euler 15'] / times['meanflow 2']:.2f}x "
+        f"({smi})")
+
+    # the inference CLI and the server on a model dir of these weights
+    from cosy_tpu_torch.infer.__main__ import main as infer_main
+    from cosy_tpu_torch.serve import build_parser, build_server
+
+    mdir = os.path.join(root, "model")
+    os.makedirs(mdir)
+    for name, m in (("llm", llm), ("flow", teacher), ("hift", hift)):
+        save_torch_checkpoint(m.state_dict(), os.path.join(mdir, f"{name}.pt"))
+    del pipe, mpipe
+    ops.reset_launch_counts()
+    infer_main(["--text", "Hello.", "--device", DEV.type, "--pretrained", mdir, "--flow", path,
+                "--meanflow", "--meanflow-steps", "2", "--output", os.path.join(root, "mf.wav"),
+                "--seed", "5"] + ([] if cfg == ModelConfig() else ["--tiny"]))
+    counts = ops.launch_counts()
+    add(counts)
+    expect_blocks(counts, 2, "python -m cosy_tpu_torch.infer --meanflow")
+    log(f"  python -m cosy_tpu_torch.infer --meanflow --meanflow-steps 2 in-process: launches "
+        f"{counts}")
+    server = build_server(build_parser().parse_args(
+        ["--model-dir", mdir, "--device", DEV.type, "--flow-weights", path, "--sampler",
+         "meanflow", "--meanflow-steps", "2", "--finetuned-norm", "1"]))
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    chunks = list(server.synthesize("Hello from the distilled voice."))
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    add(counts)
+    expect_blocks(counts, 2, "TTSServer --sampler meanflow")
+    wav = np.concatenate(chunks)
+    if not np.isfinite(wav).all() or wav.size == 0:
+        raise SystemExit("chip_smoke: the MeanFlow server's audio is empty or not finite")
+    log(f"  TTSServer --sampler meanflow --meanflow-steps 2: one request, {wav.size / 22050:.2f} s "
+        f"of audio in {wall:.3f} s; launches {counts}")
+    with expect_raise(SystemExit, "MeanFlow-distilled"):
+        build_server(build_parser().parse_args(["--model-dir", mdir, "--device", DEV.type,
+                                                "--flow-weights", path]))
+    del server, llm, hift, flow_d, teacher, integral, jvp, state
+    torch.cuda.empty_cache()
+
+    return counts_mf, counts_teacher
+
+
+def meanflow_cv2(root, seed=93):
+    """Phase 16 (a), CosyVoice2: two ``--cosyvoice2`` distillation steps at
+    ``Flow2Config()`` (the second with the streaming estimator), then the
+    first streamed window of ``TTS2Pipeline`` at two MeanFlow steps on the
+    export, its mel held to the CPU's.  Returns (the window's launches,
+    the teacher's)."""
+    smi = _smi_line()
+    fcfg, hcfg = Flow2Config(), hift24k_config()
+    teacher = init_flow2_params(fcfg, DEV, seed=seed)
+    dist = FlowDistiller(fcfg, teacher, lr=1e-5, teacher_substeps=4, family="cv2", seed=seed)
+    state = dist.init_state()
+    rng = np.random.default_rng(seed)
+    lens = [250, 220]
+    batch = {"speech_token": rng.integers(0, fcfg.vocab_size, (2, 125)).astype(np.int32),
+             "speech_token_len": np.asarray([n // 2 for n in lens], np.int32),
+             "speech_feat": (rng.standard_normal((2, 250, 80)) * 2 - 6).astype(np.float32),
+             "speech_feat_len": np.asarray(lens, np.int32),
+             "embedding": rng.standard_normal((2, 192)).astype(np.float32)}
+    counts_teacher = {k: 0 for k in ops.launch_counts()}
+    for i in range(2):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss = float(dist.step(state, batch))
+        sec = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        log(f"  CosyVoice2 distillation step {i + 1} (integral, streaming "
+            f"{'on' if i else 'off'}, B = 2 at 250 / 220 frames): loss {loss:.5f}, {sec:.3f} s; "
+            f"teacher launches {counts} ({smi})")
+        if not np.isfinite(loss):
+            raise SystemExit("chip_smoke: a CosyVoice2 distillation loss is not finite")
+        expect_blocks(counts, 4, f"CosyVoice2 distillation step {i + 1}")
+        for k, v in counts.items():
+            counts_teacher[k] += v
+    merged = dist.export(state, os.path.join(root, "flow2_distilled.pt"))
+    flow_d = Flow2(fcfg, DEV)
+    flow_d.load_state_dict(merged, strict=True)  # adds the branch
+    pipe = TTS2Pipeline(Qwen2LMConfig(), fcfg, hcfg, Q.Qwen2LM(Qwen2LMConfig(), "meta"), flow_d,
+                        init_hift_params(hcfg, DEV, seed=seed + 1),
+                        InferenceConfig(sampler="meanflow", meanflow_steps=2),
+                        hop_samples=int(np.prod(hcfg.upsample_rates)) * hcfg.istft_hop_len)
+    n = pipe.token_hop_len + fcfg.pre_lookahead_len  # the first window: 25 tokens + lookahead
+    tokens = rng.integers(0, fcfg.vocab_size, (1, n))
+    spk = rng.standard_normal((1, 192)).astype(np.float32)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        wav, st = pipe.token2wav(tokens, None, None, spk, 0, stream=True, finalize=False,
+                                 generator=torch.Generator(device=DEV).manual_seed(seed))
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    expect_blocks(counts, 2, "the CosyVoice2 MeanFlow window")
+    if st is None or wav.shape[0] != 1 or wav.size == 0 or not np.isfinite(wav).all():
+        raise SystemExit("chip_smoke: the CosyVoice2 MeanFlow window is empty or not finite")
+    args = [torch.as_tensor(tokens), torch.zeros((1, 0), dtype=torch.long),
+            torch.zeros((1, 0, 80)), torch.as_tensor(spk)]
+    kw = dict(streaming=True, finalize=False, n_timesteps=2, sampler="meanflow")
+    with torch.inference_mode():
+        mel = flow2_inference(flow_d.p, fcfg, *(a.to(DEV) for a in args), **kw).cpu()
+        mel_cpu = flow2_inference(P({k: v.cpu() for k, v in flow_d.p.d.items()}), fcfg, *args,
+                                  **kw)
+    err = (mel - mel_cpu).abs().max().item()
+    scale = mel_cpu.abs().max().item()
+    log(f"  TTS2Pipeline MeanFlow window (2 steps, streaming estimator, {n} tokens -> "
+        f"{mel.shape[2]} mel frames): {wav.shape[1]} samples in {wall:.3f} s; launches {counts}; "
+        f"mel against the CPU max_abs_err {err:.3e}, max|mel| {scale:.3e} (tol 1e-4 * max(1, "
+        f"max|mel|)) ({smi})")
+    if not err <= 1e-4 * max(1.0, scale):
+        raise SystemExit("chip_smoke: the CosyVoice2 MeanFlow flow disagrees with the CPU")
+    del pipe, flow_d, teacher, dist, state, merged
+    torch.cuda.empty_cache()
+    return counts, counts_teacher
+
+
+class expect_raise:
+    """``with expect_raise(exc, text):`` fails unless the block raises
+    ``exc`` with ``text`` in its message."""
+
+    def __init__(self, exc, text):
+        self.exc, self.text = exc, text
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, typ, val, tb):
+        if typ is None or not issubclass(typ, self.exc) or self.text not in str(val):
+            raise SystemExit(f"chip_smoke: expected {self.exc.__name__} naming {self.text!r}, "
+                             f"got {typ.__name__ if typ else 'none'}: {val}")
+        return True
+
+
+def _lm_super(rng, text_vocab, speech_vocab, accum=2, B=4, n_text=30, n_speech=150,
+              reject=False):
+    """An (accum, B, ...) super-batch of seeded LM rows."""
+    sb = {"text_token": rng.integers(0, text_vocab, (accum, B, n_text)).astype(np.int32),
+          "text_token_len": np.full((accum, B), n_text, np.int32),
+          "speech_token": rng.integers(0, speech_vocab, (accum, B, n_speech)).astype(np.int32),
+          "speech_token_len": np.full((accum, B), n_speech, np.int32),
+          "embedding": rng.standard_normal((accum, B, 192)).astype(np.float32)}
+    if reject:
+        sb["reject_speech_token"] = rng.integers(0, speech_vocab, (accum, B, n_speech)).astype(
+            np.int32)
+        sb["reject_speech_token_len"] = np.full((accum, B), n_speech - 20, np.int32)
+    return sb
+
+
+def _flow_super(rng, vocab, ratio, accum=2, B=4, T=250):
+    """An (accum, B, ...) super-batch of seeded flow rows (the last row of
+    each micro-batch 50 frames short)."""
+    lens = np.full((accum, B), T, np.int32)
+    lens[:, -1] = T - 50
+    return {"speech_token": rng.integers(0, vocab, (accum, B, T // ratio)).astype(np.int32),
+            "speech_token_len": (lens // ratio).astype(np.int32),
+            "speech_feat": (rng.standard_normal((accum, B, T, 80)) * 2 - 6).astype(np.float32),
+            "speech_feat_len": lens,
+            "embedding": rng.standard_normal((accum, B, 192)).astype(np.float32)}
+
+
+def full_param_phase(root, cfg, lcfg, fcfg, seed=95):
+    """Phase 16 (b): two FullTrainer steps for each model at full width, a
+    checkpoint at step 2 restored into a new trainer whose third step must
+    equal the uninterrupted run's, then the CLI."""
+    from cosy_tpu_torch.models import flow as TFM
+    from cosy_tpu_torch.models.flow2 import flow2_forward_train
+    from cosy_tpu_torch.models.llm import llm_forward_train
+    from cosy_tpu_torch.models.qwen2lm import qwen2lm_forward_train
+    from cosy_tpu_torch.train.dpo import make_dpo_loss_fn
+    from cosy_tpu_torch.train.full_trainer import FullTrainer, adamw
+
+    smi = _smi_line()
+    log(f"[16] (b) full-parameter training at full width ({smi}): FullTrainer, AdamW 1e-4, "
+        "clip 5, accumulation 2 x batch 4")
+    rng = np.random.default_rng(seed)
+
+    def llm_loss(p, g, b):
+        out = llm_forward_train(P(p), cfg.llm, b, Ctx(generator=g, train=True))
+        return out["loss"], {"acc": out["acc"]}
+
+    def flow_loss(p, g, b):
+        return TFM.flow_forward_train(P(p), cfg.flow, g, b, Ctx(generator=g, train=True),
+                                      vendored_style=True), {}
+
+    def qwen_loss(p, g, b):
+        out = qwen2lm_forward_train(P(p), lcfg, b, Ctx(generator=g, train=True), generator=g)
+        return out["loss"], {"acc": out["acc"]}
+
+    def flow2_loss(p, g, b):
+        return flow2_forward_train(P(p), fcfg, g, b, Ctx(generator=g, train=True)), {}
+
+    def dpo_loss_fn():
+        ref = {k: v.detach() for k, v in init_qwen2lm_params(lcfg, DEV, seed=seed + 2)
+               .named_parameters()}
+        return ref, make_dpo_loss_fn(lcfg, ref, beta=0.01)
+
+    cases = [
+        ("CosyVoice-300M LLM", lambda: init_llm_params(cfg.llm, DEV, seed=seed), llm_loss,
+         lambda: _lm_super(rng, cfg.llm.text_token_size, cfg.llm.speech_token_size)),
+        ("CosyVoice-300M flow, vendored", lambda: init_flow_params(cfg.flow, DEV, seed=seed + 1),
+         flow_loss, lambda: _flow_super(rng, cfg.flow.vocab_size, 2)),
+        ("Qwen2-0.5B LM", lambda: init_qwen2lm_params(lcfg, DEV, seed=seed + 2), qwen_loss,
+         lambda: _lm_super(rng, lcfg.qwen.vocab_size, lcfg.speech_token_size)),
+        ("Flow2Config() flow", lambda: init_flow2_params(fcfg, DEV, seed=seed + 3), flow2_loss,
+         lambda: _flow_super(rng, fcfg.vocab_size, fcfg.token_mel_ratio)),
+        ("DPO on Qwen2-0.5B", None, None,
+         lambda: _lm_super(rng, lcfg.qwen.vocab_size, lcfg.speech_token_size, reject=True)),
+    ]
+    for name, make, loss_fn, batches in cases:
+        ref = None
+        base = _reset_peak()
+        if make is None:  # DPO: the policy starts from the frozen reference
+            ref, loss_fn = dpo_loss_fn()
+            params = ref
+        else:
+            params = {k: v.detach() for k, v in make().named_parameters()}
+        sbs = [batches() for _ in range(3)]
+        gens = [lambda i=i: torch.Generator(device=DEV).manual_seed(seed + 10 * i)
+                for i in range(6)]
+        tr = FullTrainer(loss_fn, params, adamw(1e-4), accum=2)
+        del params
+        ops.reset_launch_counts()
+        hist, secs = [], []
+        for s in range(2):
+            t0 = time.perf_counter()
+            hist.append(tr.step(sbs[s], gens[s]()))
+            secs.append(time.perf_counter() - t0)
+        launches = sum(ops.launch_counts().values())
+        peak = _peak_gib(base)
+        d = os.path.join(root, "ckpt_" + name.split()[0])
+        tr.save_checkpoint(d, keep=2)
+        hist.append(tr.step(sbs[2], gens[2]()))  # the uninterrupted third step
+        tr.close()
+        back = FullTrainer(loss_fn, tr.params, adamw(1e-4), accum=2)
+        if back.load_checkpoint(d) != 2:
+            raise SystemExit(f"chip_smoke: {name}: the checkpoint is not at step 2")
+        back.step(sbs[2], gens[2]())
+        worst = max(((back.params[k] - v).abs().max() / v.abs().max().clamp(min=1e-30)).item()
+                    for k, v in tr.params.items())
+        wall_ms, busy, by_name = profile_device(lambda: back.step(sbs[0], gens[3]()))
+        t0 = time.perf_counter()
+        back.step(sbs[1], gens[4]())
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        n_par = sum(v.numel() for v in tr.params.values())
+        log(f"  {name}: {n_par / 1e6:.1f} M params; losses "
+            + ", ".join(f"{m['loss']:.4f}" for m in hist)
+            + f" (grad_norm {hist[0]['grad_norm']:.3f}, skipped {sum(m['skipped'] for m in hist):.0f});"
+            f" {secs[0]:.3f} s then {secs[1]:.3f} s a step; peak {peak:.2f} GiB (beyond the "
+            f"{base / 2**30:.2f} GiB held before); kernel launches "
+            f"{launches}; resumed step 3 against the uninterrupted one: max |dp| / max|p| "
+            f"{worst:.2e} (tol 1e-6)")
+        log_profile(wall_ms, plain_ms, busy, by_name, top=4)
+        if not all(np.isfinite(v) for m in hist for v in m.values()) or launches:
+            raise SystemExit(f"chip_smoke: {name}: a metric is not finite or a kernel launched")
+        if not worst <= 1e-6:
+            raise SystemExit(f"chip_smoke: {name}: the resumed run left the uninterrupted one")
+        del tr, back, ref, loss_fn
+        torch.cuda.empty_cache()
+    full_cli(root, cfg, seed + 5)
+
+
+def full_cli(root, cfg, seed):
+    """python -m cosy_tpu_torch.train.full's main() at full width on 32
+    seeded parquet records (the vendored flow, batch 8 x accum 2: 2 steps),
+    then --resume for one more step."""
+    import pandas as pd
+
+    from cosy_tpu_torch.train import full as full_cli_mod
+
+    recs = _records(32, seed, cfg.flow.vocab_size)
+    d = os.path.join(root, "full_cli")
+    os.makedirs(d)
+    pd.DataFrame(recs).to_parquet(os.path.join(d, "part0.parquet"))
+    with open(os.path.join(d, "data.list"), "w") as f:
+        f.write(os.path.join(d, "part0.parquet") + "\n")
+    out = os.path.join(d, "out")
+    argv = ["--model", "flow", "--train_data", os.path.join(d, "data.list"), "--model_dir", out,
+            "--batch_size", "8", "--accum", "2", "--log_every", "1", "--shuffle_size", "32",
+            "--sort_size", "8", "--device", DEV.type] + ([] if cfg == ModelConfig() else ["--tiny"])
+    for extra, step in ((["--max_steps", "2"], 2), (["--max_steps", "1", "--resume"], 3)):
+        t0 = time.perf_counter()
+        if full_cli_mod.main(argv + extra) != 0:
+            raise SystemExit("chip_smoke: python -m cosy_tpu_torch.train.full failed")
+        steps = sorted(int(n) for n in os.listdir(os.path.join(out, "ckpt")) if n.isdigit())
+        log(f"  python -m cosy_tpu_torch.train.full --model flow {' '.join(extra)}: "
+            f"{time.perf_counter() - t0:.2f} s, checkpoints {steps}")
+        if steps[-1] != step:
+            raise SystemExit(f"chip_smoke: the CLI stopped at step {steps[-1]}, not {step}")
+    export = load_torch_checkpoint(os.path.join(out, "flow_epoch0.pt"))
+    if not all(torch.isfinite(v).all() for v in export.values()):
+        raise SystemExit("chip_smoke: the CLI's export is not finite")
+
+
+def gan_phase(cfg, seed=99):
+    """Phase 16 (c): two HiFiGanTrainer turns at HiFTConfig() against the
+    full-width discriminators on 2 clips of 24 576 samples, and the pitch
+    tracker native against numpy on 8 clips."""
+    from cosy_tpu_torch.models.gan import init_discriminator_params
+    from cosy_tpu_torch.ops.f0 import extract_f0, interpolate_f0
+    from cosy_tpu_torch.train.gan_trainer import HiFiGanTrainer
+
+    smi = _smi_line()
+    n = 24576
+    t = np.arange(n) / 22050
+    rng = np.random.default_rng(seed)
+    clips = [(0.4 * np.sin(2 * np.pi * (110 + 20 * i) * t * (1 + 0.05 * np.sin(3 * t)))
+              + 0.01 * rng.standard_normal(n)).astype(np.float32) for i in range(8)]
+    extract_f0(clips[0])  # the native build, before the clock
+    t0 = time.perf_counter()
+    f0s = [extract_f0(c) for c in clips]
+    native_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ref = [extract_f0(c, native=False) for c in clips]
+    numpy_ms = (time.perf_counter() - t0) * 1e3
+    agree = np.mean([((a > 0) == (b > 0)).mean() for a, b in zip(f0s, ref)])
+    log(f"[16] (c) HiFi-GAN ({smi}): the pitch tracker on 8 clips of {n} samples: native "
+        f"{native_ms:.2f} ms, numpy {numpy_ms:.2f} ms ({numpy_ms / native_ms:.1f}x); voicing "
+        f"agrees on {agree:.4f} of frames")
+    if agree < 0.99:
+        raise SystemExit("chip_smoke: the native pitch tracker disagrees with the numpy one")
+    speech = np.stack(clips[:2])
+    with torch.inference_mode():
+        mel = audio.mel_spectrogram(torch.as_tensor(speech, device=DEV)).transpose(1, 2)
+    T = mel.shape[1]
+    batch = {"speech": speech, "speech_feat": mel.cpu().numpy(),
+             "pitch_feat": np.stack([interpolate_f0(f)[:T] for f in f0s[:2]])}
+    base = _reset_peak()
+    gen = init_hift_params(cfg.hift, DEV, seed=seed)
+    disc = init_discriminator_params(DEV, seed=seed + 1)
+    tr = HiFiGanTrainer(cfg.hift, gen, disc)
+    del gen, disc
+    ops.reset_launch_counts()
+    for turn in range(2):
+        t0 = time.perf_counter()
+        m = tr.step(batch, torch.Generator(device=DEV).manual_seed(seed + turn))
+        sec = time.perf_counter() - t0
+        log(f"  turn {turn + 1} (B = 2, {T} mel frames): {sec:.3f} s; "
+            + " ".join(f"{k}={v:.4f}" for k, v in sorted(m.items())))
+        if not all(np.isfinite(v) for v in m.values()):
+            raise SystemExit("chip_smoke: a GAN loss is not finite")
+    launches = sum(ops.launch_counts().values())
+    n_gen, n_disc = (sum(v.numel() for v in d.values()) for d in (tr.gen_params, tr.disc_params))
+    log(f"  generator {n_gen / 1e6:.1f} M, discriminators {n_disc / 1e6:.1f} M params; peak "
+        f"{_peak_gib(base):.2f} GiB (beyond the {base / 2**30:.2f} GiB held before); kernel "
+        f"launches {launches}")
+    if launches:
+        raise SystemExit("chip_smoke: the GAN turns launched a kernel")
+    del tr
+    torch.cuda.empty_cache()
+
+
 def report(name, r):
     def dev(key):
         return "" if r.get(key) is None else f" ({r[key]:.4f} on the card)"
@@ -2358,6 +2886,25 @@ def main():
     del cv2_models
     torch.cuda.empty_cache()
     counts_api, counts_voiced = api_and_serving(cfg)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_regimes_") as root:
+        t = time.time()
+        counts_mf, counts_teacher = meanflow_phase(cfg, root)
+        for total, part in zip((counts_mf, counts_teacher), meanflow_cv2(root)):
+            for k, v in part.items():
+                total[k] += v
+        log("  the kernels at the MeanFlow path's T/2 level (B = 1, no CFG doubling: 156 rows) "
+            "and at the distillation teacher's (4 rows of 125 frames), f32")
+        mf = {"flash_attention": attention_case(g, 1, 8, 156, 156, torch.float32),
+              "fused_transformer_block": block_case(g, 1, 156, torch.float32, True),
+              "ln_gemm": ln_gemm_case(g, 156, torch.float32),
+              "block_tail": tail_case(g, 156, torch.float32)}
+        for kname, r in mf.items():
+            report(f"{kname} MeanFlow (B = 1, 156 rows)", r)
+        teacher_b = block_case(g, 4, 125, torch.float32, True)
+        report("B distillation teacher (4,125,256)", teacher_b)
+        full_param_phase(root, cfg, Qwen2LMConfig(), Flow2Config())
+        gan_phase(cfg)
+        log(f"  phase 16 took {time.time() - t:.1f} s")
 
     def entry(name, source, replaces, r, launches=None):
         # times on the card (torch.profiler) where the profiler gave them,
@@ -2416,11 +2963,29 @@ def main():
              "cosy_tpu/ops/fused_block.py:34"),
             ("ln_gemm", "cosy_tpu_torch/csrc/fused_block.cu", "cosy_tpu/ops/fused_block.py:49"),
             ("block_tail", "cosy_tpu_torch/csrc/block_tail.cu", "cosy_tpu/ops/fused_block.py:74"))
+    ] + [
+        # phase 16 (a): the MeanFlow syntheses' launches (1 and 2 steps, the
+        # inference CLI, the server), times at their T/2 level (B = 1)
+        entry(f"{name}_meanflow", src, rep, mf[name], launches=counts_mf[name])
+        for name, src, rep in (
+            ("flash_attention", "cosy_tpu_torch/csrc/flash_attention.cu",
+             "cosy_tpu/ops/flash_attention.py:76"),
+            ("fused_transformer_block", "cosy_tpu_torch/csrc/fused_block.cu",
+             "cosy_tpu/ops/fused_block.py:34"),
+            ("ln_gemm", "cosy_tpu_torch/csrc/fused_block.cu", "cosy_tpu/ops/fused_block.py:49"),
+            ("block_tail", "cosy_tpu_torch/csrc/block_tail.cu", "cosy_tpu/ops/fused_block.py:74"))
+    ] + [
+        # the distillation teacher's CFG-batched calls (4 x 64 blocks an
+        # integral step, 64 a jvp step)
+        entry("fused_transformer_block_distill_teacher", "cosy_tpu_torch/csrc/fused_block.cu",
+              "cosy_tpu/ops/fused_block.py:34", teacher_b,
+              launches=counts_teacher["fused_transformer_block"]),
     ]
     log(f"  run took {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
 
 

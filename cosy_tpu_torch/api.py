@@ -16,8 +16,10 @@ Every mode yields ``{"tts_speech": (1, n) float32}`` chunks: one a text
 segment, or one a streaming window.  Weights come from the model dir's
 ``llm.pt`` / ``flow.pt`` / ``hift.pt`` (``compat.loader``), the topology
 from its ``cosyvoice.yaml`` when there is one (``compat.yaml_config``), the
-frontend is ``data.frontend.Frontend``.  Everything runs on CUDA unless the
-caller passes another ``device``; without a card that raises.
+frontend is ``data.frontend.Frontend``; ``flow_state`` (a flow state dict,
+the server's ``--flow-weights``) takes the place of ``flow.pt``.  Everything
+runs on CUDA unless the caller passes another ``device``; without a card
+that raises.
 
 Randomness: the API keeps a request counter ``_n``; request n (from 1)
 synthesizes with the seed ``stream_seed(seed, n, 0) = seed + n * 2**32``
@@ -53,7 +55,7 @@ class CosyVoice:
 
     def __init__(self, model_dir: str, model_cfg: Optional[ModelConfig] = None,
                  infer_cfg: Optional[InferenceConfig] = None, finetuned_norm: bool = False,
-                 seed: int = 0, device=None):
+                 seed: int = 0, device=None, flow_state: Optional[dict] = None):
         self.model_dir = model_dir
         self.device = resolve_device(device)
         yaml_path = os.path.join(model_dir, "cosyvoice.yaml")
@@ -68,7 +70,8 @@ class CosyVoice:
         self.sample_rate = self.cfg.sample_rate
         mods = load_modules(model_dir, {"llm": (TransformerLM, self.cfg.llm),
                                         "flow": (Flow, self.cfg.flow),
-                                        "hift": (HiFT, self.cfg.hift)}, self.device)
+                                        "hift": (HiFT, self.cfg.hift)}, self.device,
+                            None if flow_state is None else {"flow": flow_state})
         self.frontend = Frontend(model_dir, self.sample_rate, device=self.device)
         self.model = TTSPipeline(self.cfg, mods["llm"], mods["flow"], mods["hift"],
                                  infer_cfg or InferenceConfig(), finetuned_norm=finetuned_norm)
@@ -180,7 +183,8 @@ class CosyVoice2(CosyVoice):
 
     def __init__(self, model_dir: str, llm_cfg=None, flow_cfg=None,
                  hift_cfg: Optional[HiFTConfig] = None,
-                 infer_cfg: Optional[InferenceConfig] = None, seed: int = 0, device=None):
+                 infer_cfg: Optional[InferenceConfig] = None, seed: int = 0, device=None,
+                 flow_state: Optional[dict] = None):
         from .infer.pipeline2 import TTS2Pipeline, hift24k_config
         from .models.flow2 import Flow2, Flow2Config
         from .models.qwen2lm import Qwen2LM, Qwen2LMConfig
@@ -198,7 +202,8 @@ class CosyVoice2(CosyVoice):
         flow_cfg = flow_cfg or Flow2Config()
         hift_cfg = hift_cfg or hift24k_config()
         mods = load_modules(model_dir, {"llm": (Qwen2LM, llm_cfg), "flow": (Flow2, flow_cfg),
-                                        "hift": (HiFT, hift_cfg)}, self.device)
+                                        "hift": (HiFT, hift_cfg)}, self.device,
+                            None if flow_state is None else {"flow": flow_state})
         self.frontend = Frontend(model_dir, self.sample_rate, device=self.device)
         hop = int(np.prod(hift_cfg.upsample_rates)) * hift_cfg.istft_hop_len
         self.model = TTS2Pipeline(llm_cfg, flow_cfg, hift_cfg, mods["llm"], mods["flow"],

@@ -23,29 +23,35 @@ from ..params import Params, fold_weight_norm, load_torch_checkpoint, resolve_de
 _MODULES = {"llm": TransformerLM, "flow": Flow, "hift": HiFT}
 
 
-def load_pretrained(model_dir: str) -> Dict[str, Params]:
+def load_pretrained(model_dir: str, given: Optional[Dict[str, Params]] = None
+                    ) -> Dict[str, Params]:
     """{'llm', 'flow', 'hift'} flat f32 CPU dicts from a CosyVoice model dir,
-    HiFT's weight norm folded.  A missing file raises, as the reference's
-    strict load does (inference_joint.py:113-127)."""
+    HiFT's weight norm folded; a dict of ``given`` takes the place of its
+    file.  A missing file raises, as the reference's strict load does
+    (inference_joint.py:113-127)."""
     out: Dict[str, Params] = {}
     for name in _MODULES:
         path = os.path.join(model_dir, f"{name}.pt")
-        if not os.path.exists(path):
+        if given and name in given:
+            params = given[name]
+        elif not os.path.exists(path):
             raise FileNotFoundError(f"missing {path}")
-        params = load_torch_checkpoint(path)
+        else:
+            params = load_torch_checkpoint(path)
         out[name] = fold_weight_norm(params) if name == "hift" else params
     return out
 
 
-def load_modules(model_dir: str, classes: Dict[str, tuple], device=None
-                 ) -> Dict[str, torch.nn.Module]:
+def load_modules(model_dir: str, classes: Dict[str, tuple], device=None,
+                 given: Optional[Dict[str, Params]] = None) -> Dict[str, torch.nn.Module]:
     """{'llm', 'flow', 'hift'} modules on ``device`` (CUDA unless asked) with
-    the model dir's checkpoints loaded strictly; ``classes`` maps each name
-    to its (module class, config): ``TransformerLM`` / ``Flow`` / ``HiFT``
-    for CosyVoice-300M, ``Qwen2LM`` / ``Flow2`` / ``HiFT`` for CosyVoice2."""
+    the model dir's checkpoints (or the dicts of ``given``) loaded strictly;
+    ``classes`` maps each name to its (module class, config):
+    ``TransformerLM`` / ``Flow`` / ``HiFT`` for CosyVoice-300M, ``Qwen2LM`` /
+    ``Flow2`` / ``HiFT`` for CosyVoice2."""
     dev = resolve_device(device)
     mods = {}
-    for name, params in load_pretrained(model_dir).items():
+    for name, params in load_pretrained(model_dir, given).items():
         cls, cfg = classes[name]
         mods[name] = cls(cfg, dev)
         mods[name].load_state_dict(params, strict=True)

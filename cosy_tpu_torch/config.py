@@ -336,7 +336,8 @@ class InferenceConfig:
     nfe_long: int = 20
     nfe_mid_threshold: int = 300
     nfe_long_threshold: int = 500
-    # the MeanFlow sampler is not ported yet: the port accepts "euler" only
+    # few-step MeanFlow sampler of distilled flow weights (train/distill.py):
+    # meanflow_steps single estimator calls instead of the CFG Euler solve
     sampler: str = "euler"  # "euler" | "meanflow"
     meanflow_steps: int = 2
     # AR decode limits (reference: llm.py:164-228)

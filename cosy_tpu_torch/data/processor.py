@@ -9,7 +9,7 @@ the LoRA fine-tune path uses data.dataset.DataLoader.
 Each stage is ``stage(iterable, **kw) -> iterable``; compose with
 ``build_pipeline(source, [(stage, kwargs), ...])``.  ``compute_fbank`` runs
 the mel frontend on a device (CUDA unless the caller passes another);
-``compute_f0_stage`` waits for the pitch tracker (ROADMAP A15).
+``compute_f0_stage`` runs the native pitch tracker (``ops/f0.py``).
 """
 
 from __future__ import annotations
@@ -126,11 +126,18 @@ def compute_fbank(data: Iterable[Dict], length_bucket: int = 16384,
 
 
 def compute_f0_stage(data: Iterable[Dict]) -> Iterator[Dict]:
-    """Pitch targets (processor.py compute_f0): not ported yet.  The JAX
-    stage runs the pitch tracker of ``ops/f0.py`` and ``native/f0.cpp``,
-    which come with the GAN trainer (ROADMAP A15)."""
-    raise NotImplementedError("compute_f0_stage needs the pitch tracker (ops/f0.py, "
-                              "native/f0.cpp), not ported yet: ROADMAP A15")
+    """Pitch targets (processor.py compute_f0; pyworld replaced by the
+    autocorrelation tracker of ``ops/f0.py``, its native kernel), gaps
+    filled linearly, edge-padded or cut to the mel length."""
+    from ..ops.f0 import extract_f0, interpolate_f0
+
+    for s in data:
+        f0 = interpolate_f0(extract_f0(s["speech"], s.get("sample_rate", 22050)))
+        n = s["speech_feat"].shape[0] if "speech_feat" in s else len(f0)
+        if len(f0) < n:
+            f0 = np.pad(f0, (0, n - len(f0)), mode="edge")
+        s["pitch_feat"] = f0[:n]
+        yield s
 
 
 def parse_embedding(data: Iterable[Dict], normalize: bool = True) -> Iterator[Dict]:

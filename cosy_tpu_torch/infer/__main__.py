@@ -4,6 +4,7 @@
     python -m cosy_tpu_torch.infer --text "..." [--device cuda|cpu]
         [--pretrained DIR] [--llm PATH] [--flow PATH] [--output out.wav]
         [--speed 1.0] [--seed 0] [--tiny] [--attn-window N] [--stream]
+        [--meanflow [--meanflow-steps 2]]
 
 Weights load from ``DIR/{llm,flow,hift}.pt`` (``--llm`` / ``--flow``
 override with merged fine-tuned weights); without them every model is
@@ -19,6 +20,11 @@ concatenated and prints the time to the first chunk.  On CUDA the
 estimator must have the widths the kernels are built for (the full
 configuration's); ``--tiny`` runs with ``--device cpu``, and with CUDA exits
 with one message naming those widths before any weight is built.
+``--meanflow`` synthesizes with the few-step sampler of MeanFlow-distilled
+flow weights (``python -m cosy_tpu_torch.train.distill``; ``--flow``
+points at them): ``--meanflow-steps`` single estimator calls instead of the
+CFG-batched Euler solve.  Distilled weights without ``--meanflow``, and
+``--meanflow`` without them, are refused.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ import time
 import numpy as np
 
 from ..compat.loader import load_or_init
-from ..config import ModelConfig, replace, tiny_model_config
+from ..config import InferenceConfig, ModelConfig, replace, tiny_model_config
 from ..ops.fused_block import require_kernel_widths
 from ..params import load_torch_checkpoint
 from .pipeline import TTSPipeline
@@ -80,6 +86,10 @@ def main(argv=None):
                          "(default: full attention)")
     ap.add_argument("--stream", action="store_true",
                     help="streamed synthesis; prints the time to the first chunk")
+    ap.add_argument("--meanflow", action="store_true",
+                    help="few-step distilled sampler (flow weights from "
+                         "python -m cosy_tpu_torch.train.distill)")
+    ap.add_argument("--meanflow-steps", type=int, default=2)
     args = ap.parse_args(argv)
 
     cfg = tiny_model_config() if args.tiny else ModelConfig()
@@ -92,7 +102,13 @@ def main(argv=None):
         sys.exit(f"error: {e}")
     llm, flow, hift = load_models(cfg, args.pretrained, args.llm, args.flow,
                                   args.device, args.seed)
-    pipe = TTSPipeline(cfg, llm, flow, hift, finetuned_norm=True)
+    icfg = InferenceConfig()
+    if args.meanflow:
+        icfg = replace(icfg, sampler="meanflow", meanflow_steps=args.meanflow_steps)
+    try:  # the sampler against the flow weights
+        pipe = TTSPipeline(cfg, llm, flow, hift, icfg, finetuned_norm=True)
+    except ValueError as e:
+        sys.exit(f"error: {e}")
     ids = np.asarray([list(args.text.encode("utf-8"))], np.int64)
     print(f"text: {args.text!r} -> {ids.shape[1]} byte ids")
     t0 = time.perf_counter()

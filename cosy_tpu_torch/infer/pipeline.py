@@ -111,10 +111,9 @@ class TTSPipeline:
     def __init__(self, model_cfg: ModelConfig, llm: L.TransformerLM, flow: F.Flow,
                  hift: H.HiFT, infer_cfg: InferenceConfig = InferenceConfig(),
                  finetuned_norm: bool = True):
-        if infer_cfg.sampler != "euler":
-            raise NotImplementedError("only the Euler CFM sampler is ported")
         self.device = next(flow.parameters()).device
         require_kernel_widths(model_cfg.flow.estimator, self.device)
+        F.check_sampler_weights(infer_cfg.sampler, infer_cfg.meanflow_steps, flow)
         self.cfg = model_cfg
         self.icfg = infer_cfg
         self.finetuned_norm = finetuned_norm
@@ -362,7 +361,10 @@ class TTSPipeline:
     # ------------------------------------------------------------------
 
     def _select_nfe(self, mel_len: int) -> int:
-        """Euler steps by true mel length: 10 / 15 / 20."""
+        """Euler steps by true mel length: 10 / 15 / 20; the fixed few-step
+        count under the distilled MeanFlow sampler."""
+        if self.icfg.sampler == "meanflow":
+            return self.icfg.meanflow_steps
         if mel_len > self.icfg.nfe_long_threshold:
             return self.icfg.nfe_long
         if mel_len > self.icfg.nfe_mid_threshold:
@@ -380,7 +382,8 @@ class TTSPipeline:
         _, _, flow_lora = self._voice(voice)
         return dict(finetuned_norm=self.finetuned_norm or flow_lora is not None,
                     mel_norm=(self.cfg.mel_mean, self.cfg.mel_std),
-                    lora=flow_lora, lora_scale=self._flow_lora_scale)
+                    lora=flow_lora, lora_scale=self._flow_lora_scale,
+                    sampler=self.icfg.sampler)
 
     def token2wav(self, token: np.ndarray, spk_embedding: np.ndarray,
                   prompt_token: Optional[np.ndarray] = None,
@@ -416,6 +419,14 @@ class TTSPipeline:
         self._mark(None)
         prompt_token = np.zeros((1, 0), np.int64) if prompt_token is None else prompt_token
         prompt_feat = np.zeros((1, 0, 80), np.float32) if prompt_feat is None else prompt_feat
+        if (self.icfg.sampler == "meanflow" and prompt_token.shape[1]
+                and not getattr(self, "_warned_mf_prompt", False)):
+            # the distiller trains the student prompt-free (zero conds):
+            # prompted conds are out of its distribution
+            print("WARNING: meanflow sampler with a prompt - the distilled student was "
+                  "trained prompt-free; expect degraded output (use the euler sampler for "
+                  "prompted synthesis)")
+            self._warned_mf_prompt = True
         if (self.icfg.bucket_final and stream_state is not None and finalize
                 and speed == 1.0 and prompt_token.shape[1] == 0 and prompt_feat.shape[1] == 0
                 and 0 < token.shape[1] <= self._final_tok_bucket):

@@ -36,6 +36,7 @@ from ..config import HiFTConfig, InferenceConfig
 from ..models import hift as H
 from ..models import qwen2lm as Q
 from ..models.flow import interpolate_linear
+from ..models.flow import check_sampler_weights
 from ..models.flow2 import Flow2, Flow2Config, flow2_inference
 from ..ops.fused_block import require_kernel_widths
 from .pipeline import _batch_prefixes, fade_in_out, stream_seed
@@ -89,8 +90,7 @@ class TTS2Pipeline:
         require_kernel_widths(flow_cfg.estimator, self.device)
         if infer_cfg.int8_decode:
             raise NotImplementedError("int8 weight-only decode is not ported (queue A15)")
-        if infer_cfg.sampler != "euler":
-            raise NotImplementedError("only the Euler CFM sampler is ported (MeanFlow: A14)")
+        check_sampler_weights(infer_cfg.sampler, infer_cfg.meanflow_steps, flow)
         self.lcfg, self.fcfg, self.hcfg, self.icfg = llm_cfg, flow_cfg, hift_cfg, infer_cfg
         self.llm_p, self.flow_p, self.hift_p = llm.p, flow.p, hift.p
         self.token_hop_len = 25  # model.py:307, the training chunk
@@ -113,6 +113,12 @@ class TTS2Pipeline:
         if stage is not None:
             self.stage_seconds[stage] = self.stage_seconds.get(stage, 0.0) + now - self._t_mark
         self._t_mark = now
+
+    def _nfe(self) -> int:
+        """Fixed NFE (the reference's 10), or the few-step count under the
+        distilled MeanFlow sampler."""
+        return (self.icfg.meanflow_steps if self.icfg.sampler == "meanflow"
+                else self.icfg.nfe_short)
 
     def _wav_generator(self, seed: int, row: int, chunk: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(stream_seed(seed, row, 1 + chunk))
@@ -221,7 +227,8 @@ class TTS2Pipeline:
             self.flow_p, self.fcfg, self._long(token), self._long(prompt_token),
             torch.as_tensor(prompt_feat, dtype=torch.float32, device=dev),
             torch.as_tensor(np.asarray(spk_embedding), dtype=torch.float32, device=dev),
-            streaming=stream, finalize=finalize, n_timesteps=self.icfg.nfe_short)
+            streaming=stream, finalize=finalize, n_timesteps=self._nfe(),
+            sampler=self.icfg.sampler)
         mel = mel[:, :, token_offset * self.fcfg.token_mel_ratio:]
         state = state or Stream2State()
         cache_source = None
@@ -261,7 +268,8 @@ class TTS2Pipeline:
             self.flow_p, self.fcfg, tok, torch.zeros((1, 0), dtype=torch.long, device=dev),
             torch.zeros((1, 0, 80), device=dev),
             torch.as_tensor(np.asarray(spk_embedding), dtype=torch.float32, device=dev),
-            streaming=False, finalize=True, n_timesteps=self.icfg.nfe_short, token_valid=n)
+            streaming=False, finalize=True, n_timesteps=self._nfe(), token_valid=n,
+            sampler=self.icfg.sampler)
         width = self._final_out_tokens * r
         mel = torch.nn.functional.pad(mel, (0, width))
         melw = mel[:, :, token_offset * r:token_offset * r + width]

@@ -157,6 +157,28 @@ def mish(x: torch.Tensor) -> torch.Tensor:
     return x * torch.tanh(F.softplus(x))
 
 
+def weight_norm_weight(p: P, name: str, dtype) -> torch.Tensor:
+    """A conv weight: ``name.weight``, or the weight-norm factorization
+    w = g * v / ||v|| (norm over every dim but 0) computed on the fly from
+    ``name.weight_g`` / ``name.weight_v``, the names torch's legacy
+    ``weight_norm`` stores and the GAN discriminators train."""
+    w = p.get(name + ".weight")
+    if w is not None:
+        return w.to(dtype)
+    g, v = p[name + ".weight_g"], p[name + ".weight_v"]
+    norm = torch.sqrt(torch.sum(torch.square(v.float()), dim=tuple(range(1, v.ndim)),
+                                keepdim=True))
+    return (g * v / torch.clamp(norm, min=1e-12)).to(dtype)
+
+
+def conv2d(p: P, name: str, x: torch.Tensor, stride=(1, 1), padding=(0, 0)) -> torch.Tensor:
+    """torch nn.Conv2d on (B, C, H, W): weight (out, in, kh, kw), plain or
+    weight-normed (:func:`weight_norm_weight`)."""
+    b = p.get(name + ".bias")
+    return F.conv2d(x, weight_norm_weight(p, name, x.dtype), None if b is None else b.to(x.dtype),
+                    stride=tuple(stride), padding=tuple(padding))
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     return F.silu(x)
 

@@ -4,7 +4,13 @@ token encoder (6-block conformer), the LLM text encoder (6-block causal
 conformer) and the LLM backbone (14-block causal transformer with the
 ``linear_legacy`` input).  The ``Ctx`` carries LoRA adapters and, in training,
 the dropout points of the reference (embedding, positional table, attention
-weights, feed-forward hidden and every residual branch)."""
+weights, feed-forward hidden and every residual branch).
+
+``EncoderConfig.gradient_checkpointing`` recomputes each layer's
+activations in the backward pass (``torch.utils.checkpoint``, non-reentrant)
+where the JAX package wraps the layer in ``jax.checkpoint``, in training
+only; a layer's dropout masks are drawn again from the same generator state
+on the recompute, so the loss and gradients equal the stored run's."""
 
 from __future__ import annotations
 
@@ -12,6 +18,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..config import EncoderConfig
 from ..ctx import EVAL, Ctx
@@ -100,6 +107,29 @@ def embed_input(p: P, cfg: EncoderConfig, xs: torch.Tensor, ctx: Ctx = EVAL,
     return xs, ctx.dropout(pos_emb, cfg.positional_dropout_rate)
 
 
+def _checkpointed(layer, ctx: Ctx, *args) -> torch.Tensor:
+    """``layer(*args, ctx)`` with its activations recomputed in backward.
+    The recompute rewinds ``ctx.generator`` to the state the forward saw, so
+    it draws the same dropout masks, and then puts the generator back where
+    the rest of the step left it."""
+    gen = ctx.generator
+    start = None if gen is None else gen.get_state()
+    calls = [0]
+
+    def run(*a):
+        calls[0] += 1
+        if calls[0] == 1 or gen is None:
+            return layer(*a, ctx)
+        after = gen.get_state()
+        gen.set_state(start)
+        try:
+            return layer(*a, ctx)
+        finally:
+            gen.set_state(after)
+
+    return checkpoint(run, *args, use_reentrant=False)
+
+
 def encoder_forward(
     p: P,
     cfg: EncoderConfig,
@@ -122,7 +152,10 @@ def encoder_forward(
     attn_bias = M.mask_to_bias(chunk_masks, xs.dtype)
     layer = conformer_layer if conformer else transformer_layer
     for i in range(cfg.num_blocks):
-        xs = layer(p, f"encoders.{i}", cfg, xs, attn_bias, pos_emb, ctx)
+        if cfg.gradient_checkpointing and ctx.train:
+            xs = _checkpointed(layer, ctx, p, f"encoders.{i}", cfg, xs, attn_bias, pos_emb)
+        else:
+            xs = layer(p, f"encoders.{i}", cfg, xs, attn_bias, pos_emb, ctx)
     if cfg.normalize_before:
         xs = layer_norm(p, "after_norm", xs, eps=1e-5)
     return xs, pad_mask

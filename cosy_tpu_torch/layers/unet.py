@@ -167,12 +167,16 @@ def conditional_decoder(
     causal: bool = False,
     streaming: bool = False,
     static_chunk_size: int = 50,
+    s: Optional[torch.Tensor] = None,  # (B,) MeanFlow target time (distilled nets)
 ) -> torch.Tensor:
     """Velocity field estimate (B, 80, T).  ``mask=None`` is the dense path
     (no masking multiplies, no padding bias); it equals an all-ones mask.
     ``causal``: CosyVoice2's estimator (left-padded convs, LayerNorm in
     its blocks); ``streaming`` adds the static-chunk attention bias of
-    ``static_chunk_size`` frames at every level."""
+    ``static_chunk_size`` frames at every level.  ``s``: the MeanFlow
+    average-velocity field u(x, t, s) of a distilled estimator, whose
+    ``time_mlp_s`` branch embeds the target time and adds it to the time
+    embedding; the blocks, and so the kernel gate, are unchanged."""
     B, _, T = x.shape
     if T % 2:
         raise ValueError("estimator time axis must be a multiple of 2")
@@ -181,6 +185,10 @@ def conditional_decoder(
     temb = timestep_embedding(t, cfg.in_channels).to(dtype)
     sp_t = p.sub("time_mlp")
     temb = dense(sp_t, "linear_2", silu(dense(sp_t, "linear_1", temb, ctx)), ctx)
+    if s is not None:
+        semb = timestep_embedding(s, cfg.in_channels).to(dtype)
+        sp_s = p.sub("time_mlp_s")
+        temb = temb + dense(sp_s, "linear_2", silu(dense(sp_s, "linear_1", semb, ctx)), ctx)
 
     spks_t = spks[:, None, :].expand(B, T, spks.shape[1]).to(dtype)
     h = torch.cat([x.transpose(1, 2), mu.transpose(1, 2), spks_t,
@@ -269,6 +277,19 @@ def conditional_decoder(
     h = block1d(p, "final_block", h, m, ctx, level_valid[0], causal)
     out = conv1d_nwc(p, "final_proj", _mul_mask(h, m), ctx=ctx)
     return _mul_mask(out, mask).transpose(1, 2)  # (B, 80, T)
+
+
+def meanflow_branch_spec(spec: Spec, prefix: str, cfg: EstimatorConfig) -> Spec:
+    """The ``time_mlp_s`` branch of a MeanFlow-distilled estimator
+    (``train.distill.add_meanflow_time_branch``): linear_1 at the torch
+    default init, linear_2 zero, so a fresh branch leaves the field as it
+    was."""
+    pre = prefix + "." if prefix else ""
+    ted = cfg.time_embed_dim
+    spec.linear(pre + "time_mlp_s.linear_1", cfg.in_channels, ted)
+    spec.zeros(pre + "time_mlp_s.linear_2.weight", (ted, ted))
+    spec.zeros(pre + "time_mlp_s.linear_2.bias", (ted,))
+    return spec
 
 
 def init_conditional_decoder(spec: Spec, prefix: str, cfg: EstimatorConfig,

@@ -1,7 +1,9 @@
 """Conditional flow-matching mel decoder (the port of the JAX package's
 ``models/flow.py``): token encoder, length regulator, the fixed-step Euler
-CFM solve with its classifier-free-guidance batch of 2, and the training
-forward (OT-CFM loss, no-prompt modes, anti-leakage strategies).
+CFM solve with its classifier-free-guidance batch of 2, the few-step
+MeanFlow solve of a distilled estimator (``cfm_solve_mean``, one estimator
+call a step), and the training forward (OT-CFM loss, no-prompt modes,
+anti-leakage strategies).
 
 Training draws every random number from an explicit ``torch.Generator`` on
 the tensors' device; each draw can also be passed in (``noise=``,
@@ -17,7 +19,7 @@ from ..config import AntiLeakageConfig, FlowConfig, NoPromptConfig
 from ..ctx import EVAL, Ctx
 from ..layers.basic import conv1d, dense, embedding, group_norm, mish
 from ..layers.conformer import encoder_forward, init_encoder
-from ..layers.unet import conditional_decoder, init_conditional_decoder
+from ..layers.unet import conditional_decoder, init_conditional_decoder, meanflow_branch_spec
 from ..ops import masks as M
 from ..params import P, ParamTree, Spec, resolve_device
 from .llm import _l2_normalize
@@ -163,6 +165,81 @@ def cfm_solve_euler(p: P, cfg: FlowConfig, z: torch.Tensor, mask, mu: torch.Tens
         dphi = (1.0 + r) * dphi[:B] - r * dphi[B:]
         x = (x + dt * dphi).to(x.dtype)
     return x.float()
+
+
+def cfm_solve_mean(p: P, cfg: FlowConfig, z: torch.Tensor, mask, mu: torch.Tensor,
+                   spks: torch.Tensor, cond: torch.Tensor, n_timesteps: int,
+                   frames_valid: Optional[int] = None, ctx: Ctx = EVAL,
+                   **est_kw) -> torch.Tensor:
+    """Few-step sampling with a MeanFlow-distilled average-velocity field
+    (``train/distill.py``): x_s = x_t + (s - t) * u(x_t, t, s) over a linear
+    t span.  No CFG batch: guidance is folded into the student, so each step
+    is one estimator call of B rows.  Needs the ``time_mlp_s`` branch;
+    ``est_kw`` (``causal``, ``streaming``, ``static_chunk_size``) goes to
+    the estimator (CosyVoice2's flow)."""
+    if n_timesteps < 1:
+        raise ValueError(f"meanflow n_timesteps must be >= 1, got {n_timesteps}")
+    B = z.shape[0]
+    t_span = torch.linspace(0.0, 1.0, n_timesteps + 1, device=z.device)
+    fv = None if frames_valid is None else torch.full((B,), frames_valid, device=z.device)
+    x = z
+    for i in range(n_timesteps):
+        t, s = t_span[i], t_span[i + 1]
+        u = conditional_decoder(p, cfg.estimator, x, mask, mu, t.expand(B).to(x.dtype), spks,
+                                cond, ctx, frames_valid=fv, s=s.expand(B).to(x.dtype), **est_kw)
+        x = (x + (s - t) * u).to(x.dtype)
+    return x.float()
+
+
+SAMPLERS = ("euler", "meanflow")
+
+
+def check_sampler(sampler: str, steps: Optional[int] = None):
+    """ValueError for a sampler other than ``SAMPLERS`` or a step count
+    below 1."""
+    if sampler not in SAMPLERS:
+        raise ValueError(f"unknown sampler {sampler!r} (one of {SAMPLERS})")
+    if steps is not None and steps < 1:
+        raise ValueError(f"meanflow steps must be >= 1, got {steps}")
+
+
+MEANFLOW_PREFIX = "decoder.estimator.time_mlp_s."
+
+
+def is_distilled(params) -> bool:
+    """Whether a flow state dict (or module) holds the MeanFlow branch."""
+    keys = params.state_dict() if isinstance(params, torch.nn.Module) else params
+    return any(k.startswith(MEANFLOW_PREFIX) for k in keys)
+
+
+def check_sampler_weights(sampler: str, steps: int, flow) -> None:
+    """ValueError unless the sampler and its step count fit the flow
+    weights: ``meanflow`` needs MeanFlow-distilled weights, and distilled
+    weights need ``meanflow`` (distillation retrains the whole estimator,
+    so under the Euler solve it evaluates neither v nor u)."""
+    check_sampler(sampler, steps)
+    distilled = is_distilled(flow)
+    if sampler == "meanflow" and not distilled:
+        raise ValueError("sampler 'meanflow' needs MeanFlow-distilled flow weights (a "
+                         "time_mlp_s branch: python -m cosy_tpu_torch.train.distill)")
+    if sampler != "meanflow" and distilled:
+        raise ValueError("these flow weights are MeanFlow-distilled (a time_mlp_s branch): "
+                         "use sampler 'meanflow', or un-distilled weights")
+
+
+class MeanFlowLoadable:
+    """Mixin of the flow modules: ``load_state_dict`` of a MeanFlow-distilled
+    state first adds the ``time_mlp_s`` branch, so the strict load takes
+    distilled weights; any other unknown key is still refused."""
+
+    def load_state_dict(self, state_dict, strict: bool = True, assign: bool = False):
+        if not is_distilled(self) and is_distilled(state_dict):
+            w = next(self.parameters())
+            gen = None if w.device.type == "meta" else \
+                torch.Generator(device=w.device).manual_seed(0)
+            self.add_spec(meanflow_branch_spec(Spec(), "decoder.estimator", self.cfg.estimator),
+                          w.device, w.dtype, gen)
+        return super().load_state_dict(state_dict, strict=strict, assign=assign)
 
 
 def cfm_compute_loss(
@@ -421,8 +498,13 @@ def flow_inference(
     mel_valid: Optional[int] = None,  # true mel frames of that window
     lora: Optional[Dict[str, torch.Tensor]] = None,  # one voice's un-merged adapters
     lora_scale: float = 1.0,
+    sampler: str = "euler",  # "euler" | "meanflow" (distilled weights only)
 ):
     """Inference -> mel (1, 80, T_mel) (prompt region dropped).
+
+    ``sampler="meanflow"`` runs the few-step solve of a distilled estimator
+    (:func:`cfm_solve_mean`, 2 steps unless ``n_timesteps`` says), one
+    estimator call of one row a step; ``"euler"`` the CFG-batched solve.
 
     An odd mel length is padded to even for the U-Net, with a valid-frame
     mask (and so a (B, T, T) attention bias) that drops the pad frame.  The
@@ -445,6 +527,7 @@ def flow_inference(
     un-merged for this call.  The estimator then runs its blocks unfused,
     as ``use_fused_block`` decides: on CUDA each block's attention is one
     kernel A launch (or C with a window)."""
+    check_sampler(sampler, n_timesteps if sampler == "meanflow" else None)
     ctx = EVAL if lora is None else Ctx(lora=lora, lora_scale=lora_scale)
     mean, std = mel_norm
     dev = token.device
@@ -479,7 +562,7 @@ def flow_inference(
     conds = conds.transpose(1, 2)
 
     if n_timesteps is None:
-        n_timesteps = 20 if T > 500 else (15 if T > 300 else 10)
+        n_timesteps = (20 if T > 500 else (15 if T > 300 else 10)) if sampler == "euler" else 2
 
     T_pad = T + (T % 2)
     mask = None
@@ -505,8 +588,9 @@ def flow_inference(
         new_cache = torch.stack([torch.cat([x[:, :, :mel_len1], x[:, :, T - 34:T]], dim=2)
                                  for x in (z, mu)], dim=-1)
 
-    feat = cfm_solve_euler(p.sub("decoder.estimator"), cfg, z, mask, mu, spk, conds,
-                           n_timesteps, frames_valid=mel_valid, ctx=ctx)
+    solve = cfm_solve_euler if sampler == "euler" else cfm_solve_mean
+    feat = solve(p.sub("decoder.estimator"), cfg, z, mask, mu, spk, conds, n_timesteps,
+                 frames_valid=mel_valid, ctx=ctx)
     feat = feat[:, :, mel_len1:T]
     if finetuned_norm:
         feat = feat * std + mean
@@ -517,8 +601,9 @@ def flow_inference(
     return (feat, new_cache) if return_cache else feat
 
 
-class Flow(ParamTree):
-    """MaskedDiffWithXvec weights (flow.pt names)."""
+class Flow(MeanFlowLoadable, ParamTree):
+    """MaskedDiffWithXvec weights (flow.pt names); a MeanFlow-distilled
+    state dict adds the ``time_mlp_s`` branch on load."""
 
     def __init__(self, cfg: FlowConfig, device=None, dtype=torch.float32,
                  generator: Optional[torch.Generator] = None):

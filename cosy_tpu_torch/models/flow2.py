@@ -1,5 +1,6 @@
 """CosyVoice2 flow: CausalMaskedDiffWithXvec + CausalConditionalCFM (the port
-of the JAX package's ``models/flow2.py``, its inference path).
+of the JAX package's ``models/flow2.py``): inference with the Euler or the
+distilled MeanFlow sampler, and the training forward.
 
 Reference behavior: cosyvoice/flow/flow.py:151-281 and
 flow_matching.py:196-227.  The encoder is the UpsampleConformerEncoder
@@ -19,13 +20,13 @@ import torch
 import torch.nn.functional as F
 
 from ..config import CFMConfig, EncoderConfig, EstimatorConfig
-from ..ctx import EVAL
+from ..ctx import EVAL, Ctx
 from ..layers.basic import dense, embedding
 from ..layers.unet import conditional_decoder, init_conditional_decoder
 from ..layers.upsample_encoder import init_upsample_encoder, upsample_encoder_forward
 from ..ops import masks as M
 from ..params import P, ParamTree, Spec, resolve_device
-from .flow import cfm_t_span
+from .flow import PI, MeanFlowLoadable, cfm_solve_mean, cfm_t_span, check_sampler
 from .llm import _l2_normalize
 
 
@@ -79,7 +80,7 @@ def fixed_noise(device=None, dtype=torch.float32, n_mels: int = 80,
 
 def flow2_encode(p: P, cfg: Flow2Config, token: torch.Tensor, token_len: torch.Tensor,
                  streaming: bool = False, context: Optional[torch.Tensor] = None,
-                 mask_pads_exact: bool = False) -> torch.Tensor:
+                 mask_pads_exact: bool = False, ctx: Ctx = EVAL) -> torch.Tensor:
     """Token ids (B, T_tok) -> encoder_proj(upsampled encoder) (B, 2 T_tok, 80);
     ``context``: the lookahead token ids a non-final window feeds as context."""
     tok_mask = M.make_non_pad_mask(token_len, token.shape[1])[:, :, None]
@@ -89,11 +90,78 @@ def flow2_encode(p: P, cfg: Flow2Config, token: torch.Tensor, token_len: torch.T
     if context is not None and context.shape[1] != 0:
         ctx_emb = embedding(p, "input_embedding", context, clamp_min=0)
     h, _ = upsample_encoder_forward(
-        p.sub("encoder"), cfg.encoder, emb, token_len, EVAL, streaming=streaming,
+        p.sub("encoder"), cfg.encoder, emb, token_len, ctx, streaming=streaming,
         context=ctx_emb, num_up_blocks=cfg.num_up_blocks, up_stride=cfg.token_mel_ratio,
         pre_lookahead_len=cfg.pre_lookahead_len,
         token_chunk_size=cfg.encoder.static_chunk_size, mask_pads_exact=mask_pads_exact)
-    return dense(p, "encoder_proj", h)
+    return dense(p, "encoder_proj", h, ctx)
+
+
+def prompt_conds(feat: torch.Tensor, feat_len: torch.Tensor, drop: torch.Tensor,
+                 plen_u: torch.Tensor) -> torch.Tensor:
+    """CosyVoice2's training prompt (flow.py:216-221): per row none when
+    ``drop``, else the first int(u * 0.3 * len) frames of its own mel;
+    (B, T, 80) -> (B, 80, T)."""
+    plen = (plen_u * 0.3 * feat_len.float()).long()
+    plen = torch.where(drop, 0, plen)
+    idx = torch.arange(feat.shape[1], device=feat.device)[None, :]
+    return torch.where((idx < plen[:, None])[:, :, None], feat, 0.0).transpose(1, 2)
+
+
+def _fit_frames(h: torch.Tensor, T: int) -> torch.Tensor:
+    """(B, T_h, C) cropped or zero-padded to T frames."""
+    return F.pad(h, (0, 0, 0, T - h.shape[1])) if h.shape[1] < T else h[:, :T]
+
+
+def flow2_forward_train(p: P, cfg: Flow2Config, generator: Optional[torch.Generator],
+                        batch: Dict[str, torch.Tensor], ctx: Ctx, streaming: bool = False,
+                        draws: Optional[dict] = None) -> torch.Tensor:
+    """Training forward (flow.py:189-233) -> the scalar CFM loss: the
+    upsampled encoding cropped or padded to the mel grid, the prompt conds
+    of :func:`prompt_conds`, and the plain masked MSE of the causal
+    estimator (raw mel, no normalization).  ``streaming`` (drawn per step by
+    the caller) runs the chunked encoder and estimator.  ``draws`` overrides
+    the random numbers by name: ``drop`` (B,) bool, ``plen_u`` (B,),
+    ``t_u`` (B, 1, 1) before the scheduler, ``z`` (B, 80, T), ``cfg_u`` (B,);
+    the rest come from ``generator``."""
+    draws = draws or {}
+    token = batch["speech_token"].long()
+    token_len = batch["speech_token_len"].long()
+    feat = batch["speech_feat"]
+    feat_len = batch["speech_feat_len"].long()
+    B, T, _ = feat.shape
+    dev = feat.device
+
+    def draw(name, fn):
+        return torch.as_tensor(draws[name], device=dev) if name in draws else fn()
+
+    spk = dense(p, "spk_embed_affine_layer",
+                _l2_normalize(batch["embedding"].to(feat.dtype), dim=1), ctx)
+    h = _fit_frames(flow2_encode(p, cfg, token, token_len, streaming=streaming, ctx=ctx), T)
+    drop = draw("drop", lambda: torch.rand((B,), generator=generator, device=dev) < 0.5).bool()
+    plen_u = draw("plen_u", lambda: torch.rand((B,), generator=generator, device=dev))
+    conds = prompt_conds(feat, feat_len, drop, plen_u)
+    mask = M.make_non_pad_mask(token_len * cfg.token_mel_ratio, T)[:, None, :].to(h.dtype)
+
+    x1 = feat.transpose(1, 2)
+    t = draw("t_u", lambda: torch.rand((B, 1, 1), generator=generator, device=dev)).to(x1.dtype)
+    if cfg.cfm.t_scheduler == "cosine":
+        t = 1.0 - torch.cos(t * 0.5 * PI)
+    z = draw("z", lambda: torch.randn(x1.shape, generator=generator, device=dev)).to(x1.dtype)
+    sigma = cfg.cfm.sigma_min
+    y = (1.0 - (1.0 - sigma) * t) * z + t * x1
+    u = x1 - (1.0 - sigma) * z
+    mu = h.transpose(1, 2)
+    if cfg.cfm.training_cfg_rate > 0:
+        keep = (draw("cfg_u", lambda: torch.rand((B,), generator=generator, device=dev))
+                > cfg.cfm.training_cfg_rate).to(x1.dtype)
+        mu = mu * keep[:, None, None]
+        spk = spk * keep[:, None]
+        conds = conds * keep[:, None, None]
+    pred = conditional_decoder(p.sub("decoder.estimator"), cfg.estimator, y, mask, mu,
+                               t[:, 0, 0], spk, conds, ctx, causal=True, streaming=streaming,
+                               static_chunk_size=cfg.decoder_static_chunk_size)
+    return torch.square((pred - u) * mask).sum() / (mask.sum() * u.shape[1])
 
 
 def flow2_inference(
@@ -119,8 +187,7 @@ def flow2_inference(
     ``token_valid * token_mel_ratio`` frames equal the unpadded solve's
     (causal convs, key-masked attention, the fixed noise's common prefix)
     and the rest are zero."""
-    if sampler != "euler":
-        raise NotImplementedError("only the Euler CFM sampler is ported (MeanFlow: queue A14)")
+    check_sampler(sampler, n_timesteps if sampler == "meanflow" else None)
     dev = token.device
     spk = dense(p, "spk_embed_affine_layer", _l2_normalize(spk_embedding, dim=1))
     full = torch.cat([prompt_token, token], dim=1)
@@ -144,8 +211,8 @@ def flow2_inference(
     # an even T (token_mel_ratio 2 gives one whenever the prompt's mel length
     # is even) takes the mask-free dense path
     T_pad = T + T % 2
+    mel_valid = None if token_valid is None else token_valid * cfg.token_mel_ratio
     if token_valid is not None:
-        mel_valid = token_valid * cfg.token_mel_ratio
         mask = (torch.arange(T_pad, device=dev) < mel_valid).to(h.dtype)[None, None]
     elif T_pad == T:
         mask = None
@@ -155,6 +222,12 @@ def flow2_inference(
     mu = F.pad(h.transpose(1, 2), (0, T_pad - T))
     conds = F.pad(conds.transpose(1, 2), (0, T_pad - T))
     x = fixed_noise(dev, h.dtype, cfg.output_size)[:, :, :T_pad]
+    est = p.sub("decoder.estimator")
+    if sampler == "meanflow":
+        x = cfm_solve_mean(est, cfg, x, mask, mu, spk, conds, n_timesteps, causal=True,
+                           streaming=streaming,
+                           static_chunk_size=cfg.decoder_static_chunk_size)
+        return _finish(x, mel_len1, T, mel_valid)
 
     r = cfg.cfm.inference_cfg_rate
     t_span = cfm_t_span(n_timesteps, cfg.cfm.t_scheduler, dev)
@@ -162,7 +235,6 @@ def flow2_inference(
     mu2 = torch.cat([mu, torch.zeros_like(mu)])
     spk2 = torch.cat([spk, torch.zeros_like(spk)])
     cond2 = torch.cat([conds, torch.zeros_like(conds)])
-    est = p.sub("decoder.estimator")
     for i in range(n_timesteps):
         t, dt = t_span[i], t_span[i + 1] - t_span[i]
         dphi = conditional_decoder(est, cfg.estimator, torch.cat([x, x]), mask2, mu2,
@@ -170,16 +242,22 @@ def flow2_inference(
                                    streaming=streaming,
                                    static_chunk_size=cfg.decoder_static_chunk_size)
         x = (x + dt * ((1.0 + r) * dphi[:1] - r * dphi[1:])).to(x.dtype)
+    return _finish(x, mel_len1, T, mel_valid)
+
+
+def _finish(x: torch.Tensor, mel_len1: int, T: int, mel_valid: Optional[int]) -> torch.Tensor:
+    """The solved mel without the prompt region, f32; a bucketed window's
+    pad region (which still holds the fixed noise) zeroed for the masked
+    HiFT of the final chunk."""
     out = x[:, :, mel_len1:T].float()
-    if token_valid is not None:
-        # the pad region still holds the fixed noise: the masked HiFT of the
-        # final chunk needs exact zeros there
-        out = out * (torch.arange(out.shape[2], device=dev) < mel_valid)
+    if mel_valid is not None:
+        out = out * (torch.arange(out.shape[2], device=x.device) < mel_valid)
     return out
 
 
-class Flow2(ParamTree):
-    """CausalMaskedDiffWithXvec weights (CosyVoice2 flow.pt names)."""
+class Flow2(MeanFlowLoadable, ParamTree):
+    """CausalMaskedDiffWithXvec weights (CosyVoice2 flow.pt names); a
+    MeanFlow-distilled state dict adds the ``time_mlp_s`` branch on load."""
 
     def __init__(self, cfg: Flow2Config, device=None, dtype=torch.float32,
                  generator: Optional[torch.Generator] = None):

@@ -29,24 +29,30 @@ whatever the other rows have done.  Streaming text (bistream):
 fixed-capacity cache and :func:`qwen2lm_inference_bistream` interleaves text
 and speech on the host (llm.py:513-611).
 
-Left out here: the training forwards (``qwen2lm_forward_train`` /
-``_dpo``).
+Training (llm.py:304-425): :func:`qwen2lm_forward_train` and
+:func:`qwen2lm_forward_dpo` build the ragged uni/bistream sequences densely
+from integer index maps, both layouts for every row, and pick one per row by
+the reference's coin (p 0.5, and only where speech/text exceeds the mix
+ratio); the coin is an argument, so a test passes JAX's.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import Iterable, Iterator, List, Optional, Sequence, Tuple
+from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..ctx import Ctx
 from ..layers.basic import dense, embedding
-from ..layers.qwen2 import Qwen2Config, qwen2_layer, qwen2_spec, rms_norm, rope_cos_sin
+from ..layers.qwen2 import (Qwen2Config, qwen2_forward, qwen2_layer, qwen2_spec, rms_norm,
+                            rope_cos_sin)
 from ..ops import masks as M
 from ..ops.sampling import ras_sample
 from ..params import P, ParamTree, Spec, resolve_device
+from .llm import IGNORE_ID, label_smoothing_loss, th_accuracy
 
 
 @dataclass(frozen=True)
@@ -75,6 +81,162 @@ def qwen2lm_prefix(p: P, cfg: Qwen2LMConfig, text_tokens: torch.Tensor,
         parts.append(embedding(p, "speech_embedding", prompt_speech_token)
                      .reshape(1, -1, cfg.llm_input_size))
     return torch.cat(parts, dim=1)
+
+
+def _gather(emb: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """emb (B, L, D) rows at idx (B, S) -> (B, S, D)."""
+    return torch.gather(emb, 1, idx[:, :, None].expand(-1, -1, emb.shape[2]))
+
+
+def _pick(conds, values, default):
+    """Nested where: the value of the first true condition, else default."""
+    out = default
+    for c, v in reversed(list(zip(conds, values))):
+        out = torch.where(c, v, out)
+    return out
+
+
+def _pack_unistream(cfg: "Qwen2LMConfig", pos, tl, sl, text_emb, speech_emb, speech_tok,
+                    sos, task):
+    """input [sos, text, task, speech]; target [IGN x (1 + tl), speech, EOS]
+    (llm.py:335-338).  pos (1, S), tl / sl (B, 1)."""
+    B = tl.shape[0]
+    pos = pos.expand(B, -1)
+    t_idx = torch.clamp(pos - 1, 0, text_emb.shape[1] - 1)
+    s_idx = torch.clamp(pos - 2 - tl, 0, speech_emb.shape[1] - 1)
+    zero = torch.zeros((), dtype=text_emb.dtype, device=text_emb.device)
+    lm_input = _pick(
+        [(pos == 0)[..., None], ((pos >= 1) & (pos < 1 + tl))[..., None],
+         (pos == 1 + tl)[..., None], ((pos > 1 + tl) & (pos < 2 + tl + sl))[..., None]],
+        [sos, _gather(text_emb, t_idx), task, _gather(speech_emb, s_idx)], zero)
+    g_tok = torch.gather(speech_tok, 1, torch.clamp(pos - 1 - tl, 0, speech_tok.shape[1] - 1))
+    lm_target = _pick([(pos >= 1 + tl) & (pos < 1 + tl + sl), pos == 1 + tl + sl],
+                      [g_tok, torch.full_like(g_tok, cfg.speech_token_size)],
+                      torch.full_like(g_tok, IGNORE_ID))
+    return lm_input, lm_target, (2 + tl + sl)[:, 0]
+
+
+def _pack_bistream(cfg: "Qwen2LMConfig", pos, tl, sl, text_emb, speech_emb, speech_tok,
+                   sos, task):
+    """Interleaved [m0 text | m1 speech] blocks with FILL targets, then the
+    partial tail [text_rest, task, speech_rest] (llm.py:312-333)."""
+    B = tl.shape[0]
+    pos = pos.expand(B, -1)
+    m0, m1 = cfg.mix_ratio
+    blk = m0 + m1
+    n_full = tl // m0
+    q = pos - 1
+    block, off = torch.div(q, blk, rounding_mode="floor"), torch.remainder(q, blk)
+    in_blocks = (pos >= 1) & (block < n_full)
+    r = pos - (1 + blk * n_full)
+    t_rest, s_rest = tl - m0 * n_full, sl - m1 * n_full
+
+    blk_is_text = in_blocks & (off < m0)
+    tail_is_text = (r >= 0) & (r < t_rest)
+    tail_is_task = r == t_rest
+    tail_is_speech = (r > t_rest) & (r < t_rest + 1 + s_rest)
+    t_idx = torch.clamp(torch.where(blk_is_text, block * m0 + off, m0 * n_full + r),
+                        0, text_emb.shape[1] - 1)
+    s_idx = torch.clamp(torch.where(in_blocks, block * m1 + (off - m0),
+                                    m1 * n_full + r - t_rest - 1), 0, speech_emb.shape[1] - 1)
+    zero = torch.zeros((), dtype=text_emb.dtype, device=text_emb.device)
+    lm_input = _pick(
+        [(pos == 0)[..., None], (blk_is_text | tail_is_text)[..., None],
+         tail_is_task[..., None], ((in_blocks & (off >= m0)) | tail_is_speech)[..., None]],
+        [sos, _gather(text_emb, t_idx), task, _gather(speech_emb, s_idx)], zero)
+
+    # a full block: off 0..m0-2 ignored, m0-1..m0+m1-2 speech, the last FILL;
+    # the tail: t_rest ignored, then s_rest speech, then EOS
+    blk_tgt_speech = in_blocks & (off >= m0 - 1) & (off < m0 - 1 + m1)
+    tail_tgt_speech = (r >= t_rest) & (r < t_rest + s_rest)
+    tgt_sidx = torch.clamp(torch.where(in_blocks, block * m1 + (off - (m0 - 1)),
+                                       m1 * n_full + r - t_rest), 0, speech_tok.shape[1] - 1)
+    g_tok = torch.gather(speech_tok, 1, tgt_sidx)
+    lm_target = _pick(
+        [in_blocks & (off == blk - 1), blk_tgt_speech | tail_tgt_speech,
+         (r == t_rest + s_rest) & (pos > 0)],
+        [torch.full_like(g_tok, cfg.speech_token_size + 2), g_tok,
+         torch.full_like(g_tok, cfg.speech_token_size)],
+        torch.full_like(g_tok, IGNORE_ID))
+    return lm_input, lm_target, (2 + tl + sl)[:, 0]
+
+
+def _packed(p: P, cfg: "Qwen2LMConfig", text_token, tl_vec, speech_token, sl_vec, use_coin):
+    """(lm_input, lm_target, lm_len) of rows packed uni- or bistream:
+    bistream where ``use_coin`` and speech/text exceeds the mix ratio."""
+    qp = p.sub("llm.model.model")
+    text_emb = embedding(qp, "embed_tokens", text_token)
+    speech_emb = embedding(p, "speech_embedding", torch.clamp(speech_token, min=0))
+    S = 2 + text_token.shape[1] + speech_token.shape[1]
+    pos = torch.arange(S, device=text_token.device)[None, :]
+    tl, sl = tl_vec[:, None], sl_vec[:, None]
+    sos = p["llm_embedding.weight"][cfg.sos_eos].to(text_emb.dtype)[None, None]
+    task = p["llm_embedding.weight"][cfg.task_id].to(text_emb.dtype)[None, None]
+    args = (pos, tl, sl, text_emb, speech_emb, speech_token, sos, task)
+    uni, bi = _pack_unistream(cfg, *args), _pack_bistream(cfg, *args)
+    use_bi = use_coin & (sl_vec * cfg.mix_ratio[0] > tl_vec * cfg.mix_ratio[1])
+    return (torch.where(use_bi[:, None, None], bi[0], uni[0]),
+            torch.where(use_bi[:, None], bi[1], uni[1]), uni[2])
+
+
+def _coin(B: int, coin, generator, device) -> torch.Tensor:
+    """The (B,) uni/bistream coin: the given one, one drawn from
+    ``generator`` (uniform < 0.5), or all False (unistream)."""
+    if coin is not None:
+        return torch.as_tensor(coin, device=device).bool()
+    if generator is not None:
+        return torch.rand((B,), generator=generator, device=device) < 0.5
+    return torch.zeros((B,), dtype=torch.bool, device=device)
+
+
+def qwen2lm_forward_train(p: P, cfg: "Qwen2LMConfig", batch: Dict[str, torch.Tensor], ctx: Ctx,
+                          generator: Optional[torch.Generator] = None,
+                          coin: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """Training forward (llm.py:346-378) -> {'loss', 'acc'}.  ``coin`` (B,)
+    bool picks bistream rows; else drawn from ``generator``; neither forces
+    unistream."""
+    text_token = batch["text_token"].long()
+    speech_token = batch["speech_token"].long()
+    tl_vec, sl_vec = batch["text_token_len"].long(), batch["speech_token_len"].long()
+    use = _coin(text_token.shape[0], coin, generator, text_token.device)
+    lm_input, lm_target, lm_len = _packed(p, cfg, text_token, tl_vec, speech_token, sl_vec, use)
+    hidden = qwen2_forward(p.sub("llm.model.model"), cfg.qwen, lm_input, lm_len, ctx)
+    logits = dense(p, "llm_decoder", hidden, ctx)
+    loss = label_smoothing_loss(logits, lm_target, cfg.lsm_weight, cfg.length_normalized_loss)
+    return {"loss": loss, "acc": th_accuracy(logits, lm_target)}
+
+
+def qwen2lm_forward_dpo(p: P, cfg: "Qwen2LMConfig", batch: Dict[str, torch.Tensor], ctx: Ctx,
+                        generator: Optional[torch.Generator] = None,
+                        coin: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """DPO forward (llm.py:380-425): chosen and rejected continuations in one
+    batch of 2B rows (each pair packed by the same coin) -> the chosen rows'
+    loss and accuracy and per-row mean target log-probs for ``dpo_loss``."""
+    B = batch["text_token"].shape[0]
+    text_token = torch.cat([batch["text_token"]] * 2).long()
+    tl_vec = torch.cat([batch["text_token_len"]] * 2).long()
+    speech_token = torch.cat([batch["speech_token"].long(),
+                              batch["reject_speech_token"].long()])
+    sl_vec = torch.cat([batch["speech_token_len"], batch["reject_speech_token_len"]]).long()
+    use = _coin(B, coin, generator, text_token.device).repeat(2)
+    lm_input, lm_target, lm_len = _packed(p, cfg, text_token, tl_vec, speech_token, sl_vec, use)
+    hidden = qwen2_forward(p.sub("llm.model.model"), cfg.qwen, lm_input, lm_len, ctx)
+    logits = dense(p, "llm_decoder", hidden, ctx)
+    chosen, rejected = logits[:B], logits[B:]
+    loss = label_smoothing_loss(chosen, lm_target[:B], cfg.lsm_weight,
+                                cfg.length_normalized_loss)
+
+    def mean_logps(lg, tgt):
+        # the reference averages log-probs over the IGNORE mask, an
+        # acknowledged quirk (llm.py:419-424) kept for parity
+        mask = tgt == IGNORE_ID
+        logp = torch.log_softmax(lg.float(), dim=-1)
+        tok = torch.gather(logp, 2, torch.where(mask, 0, tgt)[:, :, None])[:, :, 0]
+        return (tok * mask).sum(-1) / torch.clamp(mask.sum(-1), min=1)
+
+    return {"loss": loss, "acc": th_accuracy(chosen, lm_target[:B]),
+            "chosen_logps": mean_logps(chosen, lm_target[:B]),
+            "rejected_logps": mean_logps(rejected, lm_target[B:])}
 
 
 @dataclass

@@ -1,0 +1,58 @@
+"""Native (C++) host kernels of the port, built at first use.
+
+``f0.cpp`` is the autocorrelation pitch tracker (the port's copy of the JAX
+package's ``native/f0.cpp``; reference: pyworld, a C++ library, via
+cosyvoice/dataset/processor.py compute_f0).  It is compiled with the system
+``g++`` (OpenMP, ``-march=native -ffast-math``: the hot loop is a dot
+product that vectorizes only under reassociation) into the git-ignored
+``build/cosy_tpu_torch/`` beside the package, named by a hash of the source
+and flags, and loaded with ``ctypes`` through a plain C entry point.  A
+failed build raises: nothing falls back to the numpy tracker behind the
+caller's back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import subprocess
+import threading
+from pathlib import Path
+
+SRC_DIR = Path(__file__).resolve().parent
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cosy_tpu_torch"
+FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-fopenmp", "-march=native", "-ffast-math")
+
+_lock = threading.Lock()
+_libs = {}
+
+
+def build(name: str) -> Path:
+    """Compile ``<name>.cpp`` unless a library of the same source and flags
+    exists; returns its path.  Raises with g++'s output on failure."""
+    src = SRC_DIR / f"{name}.cpp"
+    h = hashlib.sha1(src.read_bytes() + " ".join(FLAGS).encode()).hexdigest()[:12]
+    out = BUILD_DIR / f"lib{name}_{h}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{threading.get_ident()}.tmp")
+    res = subprocess.run(["g++", *FLAGS, str(src), "-o", str(tmp)], capture_output=True,
+                         text=True, timeout=300)
+    if res.returncode != 0:
+        raise RuntimeError(f"g++ failed to build {src}:\n{res.stdout}{res.stderr}")
+    tmp.replace(out)
+    return out
+
+
+def f0_library() -> ctypes.CDLL:
+    """The loaded pitch tracker (built on first use)."""
+    with _lock:
+        if "f0" not in _libs:
+            lib = ctypes.CDLL(str(build("f0")))
+            lib.cosy_extract_f0.argtypes = [
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_double,
+                ctypes.c_double, ctypes.c_double, ctypes.c_void_p, ctypes.c_int64]
+            lib.cosy_extract_f0.restype = None
+            _libs["f0"] = lib
+        return _libs["f0"]

@@ -124,6 +124,9 @@ class Spec:
         self.add(name + ".weight", (in_c, out_c, kernel), _kaiming_uniform(fan_in))
         self.add(name + ".bias", (out_c,), _uniform(1.0 / math.sqrt(fan_in)))
 
+    def zeros(self, name: str, shape):
+        self.add(name, shape, _const(0.0))
+
     def norm(self, name: str, dim: int):
         self.add(name + ".weight", (dim,), _const(1.0))
         self.add(name + ".bias", (dim,), _const(0.0))
@@ -168,6 +171,13 @@ class ParamTree(nn.Module):
         dev = resolve_device(device)
         if generator is None and dev.type != "meta":
             generator = torch.Generator(device=dev).manual_seed(0)
+        self.add_spec(spec, dev, dtype, generator)
+
+    def add_spec(self, spec: Spec, device, dtype=torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        """Register (frozen) the parameters of ``spec``, drawn from
+        ``generator`` unless ``device`` is meta."""
+        dev = torch.device(device)
         for name, (shape, init) in spec.entries.items():
             parts = name.split(".")
             mod: nn.Module = self
@@ -178,12 +188,24 @@ class ParamTree(nn.Module):
                 init(t, generator)
             mod.register_parameter(
                 parts[-1], nn.Parameter(t.to(dtype), requires_grad=False))
-        self.requires_grad_(False)
 
     @property
     def p(self) -> P:
         """Flat ``{state_dict name: tensor}`` view the math functions read."""
         return P(dict(self.named_parameters()))
+
+
+def spec_tensors(spec: Spec, device=None, generator: Optional[torch.Generator] = None
+                 ) -> Params:
+    """The entries of ``spec`` as a flat dict of f32 tensors on ``device``,
+    drawn from ``generator``."""
+    dev = resolve_device(device)
+    out: Params = {}
+    for name, (shape, init) in spec.entries.items():
+        t = torch.empty(shape, device=dev, dtype=torch.float32)
+        init(t, generator)
+        out[name] = t
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -33,6 +33,7 @@ from __future__ import annotations
 import argparse
 import collections
 import json
+import os
 import struct
 import threading
 import time
@@ -599,8 +600,6 @@ def warmup(server: TTSServer, text: str = "warmup.") -> float:
 # each with its default, which is the only value accepted
 _QUEUED = {"tp": (1, "A15 (parallel/)"), "int8": (False, "A15 (quant.py)"),
            "aot_cache": (None, "A15 (utils/aot.py)"),
-           "sampler": ("euler", "A14 (the MeanFlow sampler)"),
-           "meanflow_steps": (None, "A14 (the MeanFlow sampler)"),
            "engine_prefetch": (False, "A9 (prefetch is left out by design: the port syncs "
                                       "every token for host sampling)")}
 
@@ -614,6 +613,9 @@ def refuse_queued_flags(args):
     if args.voices and args.cosyvoice2:
         raise SystemExit("--voices is CosyVoice(1)-only for now (the CosyVoice2 pipeline has "
                          "no multi-voice decode wiring)")
+    if args.meanflow_steps is not None and args.sampler != "meanflow":
+        raise SystemExit("--meanflow-steps applies to --sampler meanflow only (the MeanFlow "
+                         "sampler of ROADMAP A14)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -643,12 +645,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--attn-window", type=int, default=0,
                     help="local-band estimator attention of +-N mel frames (kernel C); 0: "
                          "full attention")
+    ap.add_argument("--sampler", default="euler", choices=["euler", "meanflow"],
+                    help="meanflow: the few-step sampler of MeanFlow-distilled flow weights "
+                         "(--flow-weights from python -m cosy_tpu_torch.train.distill)")
+    ap.add_argument("--meanflow-steps", type=int, default=None,
+                    help="estimator calls a flow solve under --sampler meanflow (default 2)")
     # flags of the JAX server whose modules are still queued: refused
     ap.add_argument("--tp", type=int, default=1)
     ap.add_argument("--int8", action="store_true")
     ap.add_argument("--aot-cache", default=None)
-    ap.add_argument("--sampler", default="euler", choices=["euler", "meanflow"])
-    ap.add_argument("--meanflow-steps", type=int, default=None)
     ap.add_argument("--engine-prefetch", action="store_true")
     return ap
 
@@ -658,31 +663,35 @@ def build_server(args) -> TTSServer:
     server (nothing listens yet)."""
     refuse_queued_flags(args)
     from .api import CosyVoice, CosyVoice2
-    from .config import replace
+    from .config import InferenceConfig, replace
     from .params import load_torch_checkpoint
 
     override_flow = None
     if args.flow_weights:
         override_flow = load_torch_checkpoint(args.flow_weights)
-        if "decoder.estimator.time_mlp_s.linear_1.weight" in override_flow:
-            raise SystemExit("these flow weights are MeanFlow-distilled: the MeanFlow sampler "
-                             "is not ported yet (ROADMAP queue A14)")
     fnorm = resolve_finetuned_norm(args.flow_weights, override_flow, args.finetuned_norm,
                                    args.cosyvoice2)
-    if args.cosyvoice2:
-        api = CosyVoice2(args.model_dir, device=args.device)
-    else:
-        api = CosyVoice(args.model_dir, finetuned_norm=fnorm, device=args.device)
+    icfg = None
+    if args.sampler == "meanflow":
+        # the model dir's yaml knobs survive the sampler override
+        yaml_path = os.path.join(args.model_dir, "cosyvoice.yaml")
+        if not args.cosyvoice2 and os.path.exists(yaml_path):
+            from .compat.yaml_config import inference_config_from_yaml
+
+            icfg = inference_config_from_yaml(yaml_path)
+        icfg = replace(icfg or InferenceConfig(), sampler="meanflow",
+                       meanflow_steps=2 if args.meanflow_steps is None else args.meanflow_steps)
+    kw = dict(infer_cfg=icfg, device=args.device, flow_state=override_flow)
+    try:  # the pipeline holds the sampler against the flow weights
+        api = (CosyVoice2(args.model_dir, **kw) if args.cosyvoice2
+               else CosyVoice(args.model_dir, finetuned_norm=fnorm, **kw))
+    except ValueError as e:
+        raise SystemExit(f"error: {e}") from None
     model = api.model
     if override_flow is not None:
-        from .models.flow import Flow
-        from .models.flow2 import Flow2
-
-        cls, fcfg = (Flow2, model.fcfg) if args.cosyvoice2 else (Flow, model.cfg.flow)
-        flow = cls(fcfg, api.device)
-        flow.load_state_dict(override_flow, strict=True)
-        model.flow_p = flow.p
         print(f"flow weights <- {args.flow_weights}")
+    if icfg is not None:
+        print(f"flow sampler: meanflow, {icfg.meanflow_steps} steps")
     if args.attn_window:
         if args.cosyvoice2:
             model.fcfg = replace(model.fcfg, estimator=replace(

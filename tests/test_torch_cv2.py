@@ -201,12 +201,19 @@ def test_flow2_inference_matches_jax(cv2, case):
 
 
 def test_sampler_and_int8_options_that_are_not_ported_raise(cv2):
+    """An unknown sampler and a step count below 1 raise; the MeanFlow
+    sampler (ported, tests/test_torch_distill.py) is refused on weights
+    without the distilled branch; int8 decode is not ported (A15)."""
     _, tpipe, _ = cv2
-    with pytest.raises(NotImplementedError, match="MeanFlow"):
-        TF2.flow2_inference(tpipe.flow_p, FCFG, torch.zeros((1, 4), dtype=torch.long),
-                            torch.zeros((1, 0), dtype=torch.long), torch.zeros((1, 0, 80)),
-                            torch.zeros((1, 12)), sampler="meanflow")
+    args = (tpipe.flow_p, FCFG, torch.zeros((1, 4), dtype=torch.long),
+            torch.zeros((1, 0), dtype=torch.long), torch.zeros((1, 0, 80)), torch.zeros((1, 12)))
+    with pytest.raises(ValueError, match="unknown sampler"):
+        TF2.flow2_inference(*args, sampler="heun")
+    with pytest.raises(ValueError, match=">= 1"):
+        TF2.flow2_inference(*args, sampler="meanflow", n_timesteps=0)
     mods = (Qwen2LM(LCFG, "meta"), TF2.Flow2(FCFG, "meta"), HiFT(HCFG, "meta"))
+    with pytest.raises(ValueError, match="MeanFlow-distilled"):
+        TP2.TTS2Pipeline(LCFG, FCFG, HCFG, *mods, TC.InferenceConfig(sampler="meanflow"))
     with pytest.raises(NotImplementedError, match="int8"):
         TP2.TTS2Pipeline(LCFG, FCFG, HCFG, *mods, TC.InferenceConfig(int8_decode=True))
 

@@ -108,3 +108,29 @@ def test_api_serve_client_and_yaml_modules_load_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "--voices" in res.stdout and "--stream" in res.stdout
+
+
+def test_training_regime_modules_load_no_jax():
+    """The distiller, the full-parameter and GAN trainers, their checkpoints,
+    the GAN models, the pitch tracker and its native build, the DPO loss and
+    the TensorBoard writer in a fresh interpreter, and the two command lines
+    (``train.full``, ``train.distill``) run to their --help."""
+    code = ("import sys, runpy\nbefore = set(sys.modules)\n"
+            "import cosy_tpu_torch.train.distill, cosy_tpu_torch.train.full_trainer, "
+            "cosy_tpu_torch.train.checkpoint, cosy_tpu_torch.train.gan_trainer, "
+            "cosy_tpu_torch.train.dpo, cosy_tpu_torch.models.gan, cosy_tpu_torch.ops.f0, "
+            "cosy_tpu_torch.native, cosy_tpu_torch.utils.tb, cosy_tpu_torch.train.full\n"
+            "for mod in ('cosy_tpu_torch.train.full', 'cosy_tpu_torch.train.distill'):\n"
+            "    sys.argv = [mod, '--help']\n"
+            "    try:\n"
+            "        runpy.run_module(mod, run_name='__main__')\n"
+            "    except SystemExit:\n"
+            "        pass\n"
+            "bad = sorted(m for m in set(sys.modules) - before if m == 'jax' or "
+            "m.startswith('jax.') or m == 'cosy_tpu' or m.startswith('cosy_tpu.'))\n"
+            "print(bad)\nsys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "--dpo_beta" in res.stdout and "--teacher-substeps" in res.stdout

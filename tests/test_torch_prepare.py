@@ -124,7 +124,9 @@ def test_processor_stages_equal_jax(batching):
 
 def test_record_stages_equal_jax(tmp_path):
     """truncate_stage under the same seed, tokenize, shard_list, the parquet
-    opener over prepared shards; compute_f0_stage waits for ROADMAP A15."""
+    opener over prepared shards; compute_f0_stage against JAX's (the native
+    trackers of both agree within tests/test_f0.py's rule: 99% of frames
+    within 3%)."""
     recs = _records()
     random.seed(3)
     want = list(JPS.truncate_stage([dict(r) for r in recs], truncate_length=6000))
@@ -141,8 +143,13 @@ def test_record_stages_equal_jax(tmp_path):
         _write_clips(str(tmp_path / "raw"), n=4), out)
     paths = sorted(os.path.join(out, f) for f in os.listdir(out) if f.endswith(".parquet"))
     _same(list(TPS.parquet_opener(paths)), list(JPS.parquet_opener(paths)))
-    with pytest.raises(NotImplementedError, match="A15"):
-        TPS.compute_f0_stage(iter(recs))
+    got = list(TPS.compute_f0_stage([dict(r) for r in recs]))
+    want = list(JPS.compute_f0_stage([dict(r) for r in recs]))
+    assert len(got) == len(want) == len(recs)
+    for g, w in zip(got, want):
+        assert g["pitch_feat"].shape == w["pitch_feat"].shape
+        close = np.isclose(g["pitch_feat"], w["pitch_feat"], rtol=0.03, atol=1e-3)
+        assert close.mean() > 0.99
 
 
 def test_prepare_cli_writes_shards_the_dataset_reads(tmp_path):
