@@ -126,7 +126,21 @@ Phases, each fatal on failure (nothing is caught and passed over):
      max|p|); then python -m cosy_tpu_torch.train.full's main() on 32
      seeded parquet records (2 steps, --resume for 1); (c) the native pitch
      tracker against its numpy version on 8 clips, and two HiFiGanTrainer
-     turns at HiFTConfig() on 2 clips of 24 576 samples.
+     turns at HiFTConfig() on 2 clips of 24 576 samples;
+ 17. training scale-out at a world of one: (a) a one-member NCCL process
+     group (a TCP store on 127.0.0.1 at a free port, destroyed after the
+     phase) and make_mesh() on the card; two FullTrainer steps each for the
+     300M LLM and the vendored FlowConfig() flow with ZeRO-2, tensor and
+     sequence parallelism on phase 16 (b)'s super-batches, held to the
+     trainer without a mesh on the same inputs (loss within 1e-5 relative,
+     parameters within 1e-4 x max(1, max|p|)), seconds a step, idle share,
+     peak and launches beside the plain trainer's; (b) JointTrainer at
+     TrainConfig() over the mesh, fit SIGTERM'd from its loader after step
+     2: the snapshot and its seconds, a fresh trainer resumed from it at
+     the same step, and its next step equal to the uninterrupted run's
+     (1e-6 x max|p|); (c) no dp, tp, seq or pp size above 1 on one card
+     (NCCL takes one rank a device): the multi-rank equalities are held on
+     the CPU over gloo (tests/test_torch_parallel.py).
 Phase 3 also holds B2 and the GEMM epilogue with exact (erf) GELU beside
 tanh, refuses a GELU code the kernels lack, and runs A, the block, B1 and
 B2 at CosyVoice2's streaming shapes with the chunk bias; phase 4 repeats
@@ -2560,6 +2574,211 @@ def gan_phase(cfg, seed=99):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 17: training scale-out at a world of one
+# ---------------------------------------------------------------------------
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def _timed_steps(tr, sbs, gens, n=2):
+    """``n`` steps: (metrics, seconds of each)."""
+    hist, secs = [], []
+    for s in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hist.append(tr.step(sbs[s], gens[s]()))
+        secs.append(time.perf_counter() - t0)
+    return hist, secs
+
+
+def _rel_param_gap(got, want):
+    """max |got - want| over every leaf, over max(1, max|want|)."""
+    return max((got[k] - v).abs().max().item() / max(1.0, v.abs().max().item())
+               for k, v in want.items())
+
+
+def scale_out_phase(root, cfg, seed=95):
+    """Phase 17: the scale-out paths at a world of one over a real NCCL
+    group.  Returns the kernel launches of the phase (there must be none)."""
+    import torch.distributed as dist
+
+    from cosy_tpu_torch.models import flow as TFM
+    from cosy_tpu_torch.models.llm import llm_forward_train
+    from cosy_tpu_torch.parallel import tp as TPM
+    from cosy_tpu_torch.parallel.mesh import make_mesh
+    from cosy_tpu_torch.train.full_trainer import FullTrainer, adamw
+    from cosy_tpu_torch.utils.distributed import all_hosts_agree
+
+    smi = _smi_line()
+    t_phase = time.time()
+    port = _free_port()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                            world_size=1, device_id=DEV if DEV.index is not None
+                            else torch.device("cuda", torch.cuda.current_device()))
+    ops.reset_launch_counts()
+    try:
+        mesh = make_mesh(device=DEV)
+        agreed = all_hosts_agree(True)
+        log(f"[17] training scale-out at a world of one ({smi}): NCCL group of 1 on "
+            f"tcp://127.0.0.1:{port}, {mesh}, all_hosts_agree over NCCL -> {agreed}")
+        if mesh.shape != {"dp": 1, "seq": 1, "model": 1} or not agreed:
+            raise SystemExit("chip_smoke: the world-1 mesh or its agreement is wrong")
+
+        def llm_loss(p, g, b):
+            out = llm_forward_train(P(p), cfg.llm, b, Ctx(generator=g, train=True))
+            return out["loss"], {"acc": out["acc"]}
+
+        def flow_loss(p, g, b):
+            return TFM.flow_forward_train(P(p), cfg.flow, g, b, Ctx(generator=g, train=True),
+                                          vendored_style=True), {}
+
+        # phase 16 (b)'s weights, generators and super-batches (its rng order)
+        rng = np.random.default_rng(seed)
+        lm_sbs = [_lm_super(rng, cfg.llm.text_token_size, cfg.llm.speech_token_size)
+                  for _ in range(3)]
+        flow_sbs = [_flow_super(rng, cfg.flow.vocab_size, 2) for _ in range(3)]
+        gens = [lambda i=i: torch.Generator(device=DEV).manual_seed(seed + 10 * i)
+                for i in range(6)]
+        cases = (("CosyVoice-300M LLM", lambda: init_llm_params(cfg.llm, DEV, seed=seed),
+                  llm_loss, lm_sbs),
+                 ("CosyVoice-300M flow, vendored",
+                  lambda: init_flow_params(cfg.flow, DEV, seed=seed + 1), flow_loss, flow_sbs))
+        log("  (a) FullTrainer(mesh, zero2, tensor_parallel, sequence_parallel) against "
+            "FullTrainer() on the same inputs, 2 steps each, AdamW 1e-4, accumulation 2 x batch 4")
+        for name, make, loss_fn, sbs in cases:
+            params = {k: v.detach() for k, v in make().named_parameters()}
+            row = {}
+            for kind, kw in (("no mesh", {}),
+                             ("mesh", dict(mesh=mesh, zero2=True, tensor_parallel=True,
+                                           sequence_parallel=True))):
+                base = _reset_peak()
+                tr = FullTrainer(loss_fn, params, adamw(1e-4), accum=2, **kw)
+                n0 = sum(ops.launch_counts().values())
+                hist, secs = _timed_steps(tr, sbs, gens)
+                launches = sum(ops.launch_counts().values()) - n0
+                peak = _peak_gib(base)
+                wall_ms, busy, by_name = profile_device(lambda: tr.step(sbs[2], gens[2]()))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tr.step(sbs[0], gens[3]())
+                torch.cuda.synchronize()
+                plain_ms = (time.perf_counter() - t0) * 1e3
+                idle = None if busy is None else 1 - busy / plain_ms
+                row[kind] = (hist, tr.whole_params() if kind == "mesh" else
+                             {k: v.detach() for k, v in tr.params.items()})
+                log(f"  {name}, {kind}: losses " + ", ".join(f"{m['loss']:.6f}" for m in hist)
+                    + f"; {secs[0]:.3f} s then {secs[1]:.3f} s a step; a profiled step "
+                    f"{wall_ms:.1f} ms, device busy "
+                    + ("not measured" if busy is None else f"{busy:.1f} ms")
+                    + f", idle share "
+                    + ("not measured" if idle is None else f"{idle:.3f}")
+                    + f" of {plain_ms:.1f} ms unprofiled; peak {peak:.2f} GiB; "
+                    f"{sum(n for n, _ in by_name.values())} device kernels a step; kernel "
+                    f"wrapper launches {launches}")
+                if kind == "mesh":
+                    log(f"    the mesh trainer: {TPM.count_sharded(tr.param_specs)} leaves "
+                        f"split over model (size 1), ZeRO-2 slices "
+                        f"{sum(a is not None for a in tr._zaxis.values())} (dp 1)")
+                if launches:
+                    raise SystemExit(f"chip_smoke: {name} ({kind}) launched a kernel")
+                del tr
+                torch.cuda.empty_cache()
+            (h0, p0), (h1, p1) = row["no mesh"], row["mesh"]
+            loss_gap = max(abs(a["loss"] - b["loss"]) / max(abs(a["loss"]), 1e-30)
+                           for a, b in zip(h1, h0))
+            p_gap = _rel_param_gap(p1, p0)
+            log(f"  {name}: the mesh trainer against no mesh: loss rel gap {loss_gap:.2e} "
+                f"(tol 1e-5), parameters max |dp| / max(1, max|p|) {p_gap:.2e} (tol 1e-4)")
+            if not all(np.isfinite(m["loss"]) for m in h0 + h1):
+                raise SystemExit(f"chip_smoke: {name}: a loss is not finite")
+            if not (loss_gap <= 1e-5 and p_gap <= 1e-4):
+                raise SystemExit(f"chip_smoke: {name}: the world-1 mesh left the plain trainer")
+            del params, row, p0, p1
+            torch.cuda.empty_cache()
+        preemption_at_world_one(root, cfg, mesh, seed)
+        log("  (c) not run: dp, tp, seq or pp above 1 needs more than one card (this machine "
+            f"has {torch.cuda.device_count()}; NCCL takes one rank a device); the multi-rank "
+            "equalities are held over gloo on the CPU (tests/test_torch_parallel.py)")
+    finally:
+        dist.destroy_process_group()
+    launches = sum(ops.launch_counts().values())
+    log(f"  phase 17 took {time.time() - t_phase:.1f} s; kernel wrapper launches {launches}")
+    if launches:
+        raise SystemExit("chip_smoke: phase 17 launched a kernel")
+    return launches
+
+
+def preemption_at_world_one(root, cfg, mesh, seed):
+    """Phase 17 (b): JointTrainer at TrainConfig() over the mesh, fit
+    SIGTERM'd after step 2; a fresh trainer resumed from the snapshot."""
+    import signal
+
+    tcfg = TrainConfig(max_epochs=1)
+    rng = np.random.default_rng(seed + 7)
+    B, A, T = tcfg.batch_size, tcfg.accumulate_grad_batches, tcfg.max_feat_len
+    n_tok = tcfg.max_token_len
+    sbs = [{"text_token": rng.integers(0, 3000, (A, B, 40)).astype(np.int32),
+            "text_token_len": rng.integers(20, 41, (A, B)).astype(np.int32),
+            "speech_token": rng.integers(0, cfg.llm.speech_token_size, (A, B, n_tok))
+            .astype(np.int32),
+            "speech_token_len": rng.integers(n_tok // 2, n_tok + 1, (A, B)).astype(np.int32),
+            "speech_feat": (rng.standard_normal((A, B, T, 80)) * 2 - 6).astype(np.float32),
+            "speech_feat_len": rng.integers(T // 2, T + 1, (A, B)).astype(np.int32),
+            "embedding": rng.standard_normal((A, B, 192)).astype(np.float32)} for _ in range(4)]
+    llm = init_llm_params(cfg.llm, DEV, seed=seed + 8)
+    flow = init_flow_params(cfg.flow, DEV, seed=seed + 9)
+
+    def loader():
+        for i, sb in enumerate(sbs[:3]):
+            if i == 2:  # after step 2: the notice arrives while step 3 is fetched
+                os.kill(os.getpid(), signal.SIGTERM)
+            yield sb
+
+    d = os.path.join(root, "preempt")
+    tr = JointTrainer(cfg, tcfg, llm, flow, out_dir=d, total_steps=100, mesh=mesh)
+    t0 = time.perf_counter()
+    state = tr.fit(loader(), log_every=1000)
+    fit_s = time.perf_counter() - t0
+    snap = os.path.join(d, f"joint_{tcfg.training_mode}_preempt.ckpt.pt")
+    t0 = time.perf_counter()
+    tr.save_checkpoint(os.path.join(root, "snapshot_timing.ckpt"), state)
+    snap_s = time.perf_counter() - t0
+    k = state.step
+    log(f"  (b) JointTrainer at TrainConfig() (joint, bf16, batch {B} x accum {A}, {T} mel "
+        f"frames) over the mesh: SIGTERM after step 2 -> stopped at step {k} after "
+        f"{fit_s:.2f} s; snapshot {os.path.basename(snap)} "
+        f"{'written' if os.path.exists(snap) else 'MISSING'} ({os.path.getsize(snap) / 2**20 if os.path.exists(snap) else 0:.1f} MiB, "
+        f"{snap_s:.3f} s a write); SIGTERM handler restored: "
+        f"{signal.getsignal(signal.SIGTERM) is signal.SIG_DFL}")
+    if not (3 <= k <= 4 and os.path.exists(snap)):
+        raise SystemExit("chip_smoke: the preempted fit did not stop with a snapshot")
+    resumed = JointTrainer(cfg, tcfg, llm, flow, out_dir=os.path.join(root, "resumed"),
+                           total_steps=100, mesh=mesh)
+    back = resumed.load_checkpoint(snap, resumed.init_state(
+        torch.Generator(device=DEV).manual_seed(1)))
+    after = resumed.fit([sbs[k]], resume=snap, log_every=1000)
+    plain = JointTrainer(cfg, tcfg, llm, flow, out_dir=os.path.join(root, "plain"),
+                         total_steps=100, mesh=mesh)
+    want = plain.fit(sbs[:k + 1], log_every=1000)
+    got_l = {f"{n}.{q}": v for n, dd in after.loras.items() for q, v in dd.items()}
+    want_l = {f"{n}.{q}": v for n, dd in want.loras.items() for q, v in dd.items()}
+    scale = max(v.abs().max().item() for v in want_l.values())
+    gap = max((got_l[q] - v).abs().max().item() for q, v in want_l.items()) / scale
+    log(f"  resumed at step {back.step}; its step {after.step} against the uninterrupted "
+        f"run's step {want.step}: max |dp| / max|p| {gap:.2e} (tol 1e-6)")
+    if back.step != k or after.step != k + 1 or want.step != k + 1 or not gap <= 1e-6:
+        raise SystemExit("chip_smoke: the resumed run left the uninterrupted one")
+    del tr, resumed, plain, llm, flow
+    torch.cuda.empty_cache()
+
+
 def report(name, r):
     def dev(key):
         return "" if r.get(key) is None else f" ({r[key]:.4f} on the card)"
@@ -2905,6 +3124,7 @@ def main():
         full_param_phase(root, cfg, Qwen2LMConfig(), Flow2Config())
         gan_phase(cfg)
         log(f"  phase 16 took {time.time() - t:.1f} s")
+        scale_out_phase(root, cfg)
 
     def entry(name, source, replaces, r, launches=None):
         # times on the card (torch.profiler) where the profiler gave them,

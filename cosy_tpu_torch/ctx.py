@@ -15,6 +15,8 @@ from typing import Dict, Optional
 
 import torch
 
+from .parallel.mesh import draw_rows
+
 
 class Ctx:
     __slots__ = ("generator", "train", "lora", "lora_scale", "lora_dropout", "lora_vids")
@@ -35,14 +37,21 @@ class Ctx:
         self.lora_dropout = lora_dropout
         self.lora_vids = lora_vids
 
-    def dropout(self, x: torch.Tensor, rate: float) -> torch.Tensor:
-        """Inverted dropout; identity in eval mode or when rate == 0."""
+    def dropout(self, x: torch.Tensor, rate: float, batched: bool = True) -> torch.Tensor:
+        """Inverted dropout; identity in eval mode or when rate == 0.  A
+        ``batched`` input (axis 0 = the batch) draws its mask through
+        ``parallel.mesh.draw_rows``, so a data-parallel rank gets the rows
+        of the whole batch's mask; a shared table passes ``batched=False``."""
         if not self.train or rate <= 0.0:
             return x
         if self.generator is None:
             raise ValueError("Ctx has no generator but a stochastic op requested one")
         keep = 1.0 - rate
-        mask = torch.rand(x.shape, generator=self.generator, device=x.device) < keep
+
+        def draw(shape):
+            return torch.rand(shape, generator=self.generator, device=x.device)
+
+        mask = (draw_rows(draw, x.shape) if batched else draw(x.shape)) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 

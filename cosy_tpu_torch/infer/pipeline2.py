@@ -89,7 +89,7 @@ class TTS2Pipeline:
         self.device = next(flow.parameters()).device
         require_kernel_widths(flow_cfg.estimator, self.device)
         if infer_cfg.int8_decode:
-            raise NotImplementedError("int8 weight-only decode is not ported (queue A15)")
+            raise NotImplementedError("int8 weight-only decode is not ported (queue A16)")
         check_sampler_weights(infer_cfg.sampler, infer_cfg.meanflow_steps, flow)
         self.lcfg, self.fcfg, self.hcfg, self.icfg = llm_cfg, flow_cfg, hift_cfg, infer_cfg
         self.llm_p, self.flow_p, self.hift_p = llm.p, flow.p, hift.p

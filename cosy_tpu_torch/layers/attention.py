@@ -22,6 +22,7 @@ import torch
 from ..ctx import EVAL, Ctx
 from ..ops import masks as M
 from ..ops.flash_attention import banded_attention, flash_attention
+from ..parallel import sp as SP
 from ..params import P
 from .basic import dense
 
@@ -135,6 +136,9 @@ def diffusers_attention(
     scale = q.shape[-1] ** -0.5
     T = x.shape[1]
     plain = ctx.train
+    if plain and SP.in_region():
+        # sequence parallelism: this rank's queries attend to every frame
+        k, v = SP.gather_keys(k, 2), SP.gather_keys(v, 2)
     if window is not None and bias is None and not plain:
         out = banded_attention(q, k, v, scale, window)
         return dense(sp, "to_out.0", _merge_heads(out), ctx)

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ctx import EVAL, Ctx
+from ..parallel.tp import split_axis, split_dense
 from ..params import P
 
 
@@ -53,8 +54,16 @@ def _lora_delta(ctx: Ctx, full_name: str, x: torch.Tensor, conv: bool):
 
 
 def dense(p: P, name: str, x: torch.Tensor, ctx: Ctx = EVAL) -> torch.Tensor:
-    """torch nn.Linear: weight (out, in), y = x @ W^T + b, plus the LoRA delta."""
+    """torch nn.Linear: weight (out, in), y = x @ W^T + b, plus the LoRA delta.
+    Under ``parallel.tp.tensor_parallel`` a weight split over the model axis
+    runs the split product (``parallel.tp.split_dense``)."""
     b = p.get(name + ".bias")
+    axis = split_axis(p.full(name + ".weight"))
+    if axis is not None:
+        if ctx.lora is not None:
+            raise NotImplementedError("LoRA adapters on a tensor-parallel weight")
+        return split_dense(x, p[name + ".weight"].to(x.dtype),
+                           None if b is None else b.to(x.dtype), axis)
     y = F.linear(x, p[name + ".weight"].to(x.dtype),
                  None if b is None else b.to(x.dtype))
     if ctx.lora is not None:

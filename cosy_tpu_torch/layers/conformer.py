@@ -23,6 +23,8 @@ from torch.utils.checkpoint import checkpoint
 from ..config import EncoderConfig
 from ..ctx import EVAL, Ctx
 from ..ops import masks as M
+from ..parallel import comm
+from ..parallel.tp import model_group, split_axis
 from ..params import P, Spec
 from .attention import mha, rel_pos_mha
 from .basic import ACT, dense, layer_norm
@@ -35,6 +37,53 @@ def positionwise_ff(p: P, name: str, x: torch.Tensor, act, dropout: float = 0.0,
     sp = p.sub(name)
     h = ctx.dropout(act(dense(sp, "w_1", x, ctx)), dropout)
     return dense(sp, "w_2", h, ctx)
+
+
+def moe_ffn(p: P, name: str, x: torch.Tensor, n_expert: int, n_expert_per_token: int,
+            act, dropout: float = 0.0, ctx: Ctx = EVAL) -> torch.Tensor:
+    """Mixture-of-experts feed-forward (positionwise_feed_forward.py:58-115;
+    weights ``gate`` and ``experts.{i}.w_1/w_2``, or stacked
+    ``experts_stacked.w_1/w_2`` of (E, ...)).  Off every CosyVoice model
+    path (the reference never instantiates it).  As in the JAX package,
+    every expert runs over all tokens and is combined with its routing
+    weight (zero for an unrouted token): static shapes, no gather loop.
+
+    Expert parallelism: under ``parallel.tp.tensor_parallel`` stacked
+    experts split their expert axis over the model ranks; each rank runs
+    its experts and the routed combine's contraction over E is summed
+    over the ranks."""
+    sp = p.sub(name)
+    B, L, D = x.shape
+    xs = x.reshape(-1, D)
+    router = dense(sp, "gate", xs, ctx)  # (B*L, n_expert)
+    logits, indices = torch.topk(router, n_expert_per_token, dim=-1)
+    weights = torch.softmax(logits.float(), dim=1).to(x.dtype)
+    w_full = torch.zeros((xs.shape[0], n_expert), dtype=x.dtype, device=x.device)
+    w_full = w_full.scatter_add(1, indices, weights)
+
+    if sp.get("experts_stacked.w_1.weight") is not None:
+        se = sp.sub("experts_stacked")
+        w1, b1 = se["w_1.weight"].to(x.dtype), se["w_1.bias"].to(x.dtype)
+        w2, b2 = se["w_2.weight"].to(x.dtype), se["w_2.bias"].to(x.dtype)
+        group = None
+        if split_axis(se.full("w_1.weight")) == 0:
+            # this rank's experts: its columns of the routing weights
+            group = model_group()
+            E_l = w1.shape[0]
+            xs = comm.grad_sum(xs, group)
+            w_full = comm.grad_sum(w_full, group).narrow(1, comm.group_rank(group) * E_l, E_l)
+        h = act(torch.einsum("nd,ehd->neh", xs, w1) + b1[None])
+        if ctx.train and dropout > 0.0:
+            h = ctx.dropout(h, dropout)
+        y = torch.einsum("neh,edh->ned", h, w2) + b2[None]
+        out = comm.reduce_sum(torch.einsum("ne,ned->nd", w_full, y), group)
+        return out.reshape(B, L, D)
+
+    out = torch.zeros_like(xs)
+    for i in range(n_expert):
+        out = out + w_full[:, i][:, None] * positionwise_ff(sp, f"experts.{i}", xs, act,
+                                                            dropout, ctx)
+    return out.reshape(B, L, D)
 
 
 def conformer_layer(p: P, name: str, cfg: EncoderConfig, x, attn_bias, pos_emb,
@@ -104,7 +153,7 @@ def embed_input(p: P, cfg: EncoderConfig, xs: torch.Tensor, ctx: Ctx = EVAL,
     if xscale:
         xs = xs * math.sqrt(d)
     pos_emb = rel_pos_table(xs.shape[1], d, xs.device).to(xs.dtype)
-    return xs, ctx.dropout(pos_emb, cfg.positional_dropout_rate)
+    return xs, ctx.dropout(pos_emb, cfg.positional_dropout_rate, batched=False)
 
 
 def _checkpointed(layer, ctx: Ctx, *args) -> torch.Tensor:
@@ -142,7 +191,15 @@ def encoder_forward(
     conformer: bool = True,
 ):
     """Full-sequence encoder forward.  Returns (xs (B, T, D), pad_mask
-    (B, 1, T) bool)."""
+    (B, 1, T) bool).  Under the trainer's ``parallel.pp.pipeline_context``
+    an eligible transformer stack runs as a GPipe pipeline."""
+    if not conformer and decoding_chunk_size == 0:
+        from ..parallel.pp import maybe_pipeline
+
+        res = maybe_pipeline(p, cfg, xs, xs_lens, ctx, xscale,
+                             num_decoding_left_chunks=num_decoding_left_chunks)
+        if res is not None:
+            return res
     B, T, _ = xs.shape
     pad_mask = M.make_non_pad_mask(xs_lens, T)[:, None, :]
     xs, pos_emb = embed_input(p, cfg, xs, ctx, xscale=xscale)

@@ -20,6 +20,7 @@ window.  The causal estimator's streaming bias is expanded to a contiguous
 
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import Optional
 
 import torch
@@ -29,6 +30,7 @@ from ..config import EstimatorConfig
 from ..ctx import EVAL, Ctx
 from ..ops import masks as M
 from ..ops.fused_block import fused_transformer_block, use_fused_block
+from ..parallel import sp as SP
 from ..params import P, Spec
 from .attention import diffusers_attention
 from .basic import (conv1d_nwc, conv_transpose1d_nwc, dense, gelu, group_norm_nwc,
@@ -232,11 +234,19 @@ def conditional_decoder(
         level_window = [None] * n_levels
 
     def run_transformers(prefix, ht, lvl):
-        for j in range(cfg.n_blocks):
-            ht = basic_transformer_block(
-                p, f"{prefix}.{j}", ht, level_bias[lvl], cfg.num_heads, cfg.act_fn,
-                ctx, cfg.gelu_approximate, cfg.dropout, window=level_window[lvl])
-        return ht
+        # sequence parallelism (parallel/sp.py): under the trainer's
+        # sequence_sharding each seq rank runs the stack on its frames
+        bias, pr = level_bias[lvl], p
+        split = ctx.train and cfg.dropout == 0.0 and SP.applies(ht.shape[1])
+        if split:
+            pr, bias = SP.region_params(p), SP.bias_rows(bias, ht.shape[1])
+            ht = SP.shard_seq(ht, 1)
+        with SP.region() if split else nullcontext():
+            for j in range(cfg.n_blocks):
+                ht = basic_transformer_block(
+                    pr, f"{prefix}.{j}", ht, bias, cfg.num_heads, cfg.act_fn,
+                    ctx, cfg.gelu_approximate, cfg.dropout, window=level_window[lvl])
+        return SP.gather_seq(ht, 1) if split else ht
 
     hiddens = []
     for i in range(n_levels):

@@ -21,6 +21,7 @@ from ..layers.basic import conv1d, dense, embedding, group_norm, mish
 from ..layers.conformer import encoder_forward, init_encoder
 from ..layers.unet import conditional_decoder, init_conditional_decoder, meanflow_branch_spec
 from ..ops import masks as M
+from ..parallel.mesh import draw_rows, rows_denominator
 from ..params import P, ParamTree, Spec, resolve_device
 from .llm import _l2_normalize
 
@@ -265,9 +266,11 @@ def cfm_compute_loss(
     if noise is not None:
         t, z, cfg_u = (torch.as_tensor(a, device=dev).to(x1.dtype) for a in noise)
     else:
-        t = torch.rand((B, 1, 1), generator=generator, device=dev).to(x1.dtype)
-        z = torch.randn(x1.shape, generator=generator, device=dev).to(x1.dtype)
-        cfg_u = torch.rand((B,), generator=generator, device=dev)
+        t = draw_rows(lambda s: torch.rand(s, generator=generator, device=dev),
+                      (B, 1, 1)).to(x1.dtype)
+        z = draw_rows(lambda s: torch.randn(s, generator=generator, device=dev),
+                      x1.shape).to(x1.dtype)
+        cfg_u = draw_rows(lambda s: torch.rand(s, generator=generator, device=dev), (B,))
     if cfg.cfm.t_scheduler == "cosine":
         t = 1.0 - torch.cos(t * 0.5 * PI)
 
@@ -299,7 +302,7 @@ def cfm_compute_loss(
     # That is the reference's formula, kept for loss-curve parity.
     diff = (pred - u) * loss_mask
     valid = loss_mask.sum() * u.shape[1]
-    return torch.square(diff).sum() / torch.clamp(valid, min=1.0)
+    return torch.square(diff).sum() / rows_denominator(valid, minimum=1.0)
 
 
 def normalize_mel(cfg, mel):
@@ -325,7 +328,7 @@ def _draw(draws: Optional[dict], key: str, B: int, generator, device) -> torch.T
     """The (B,) uniform draw ``key``: the caller's, or a fresh one."""
     if draws is not None and key in draws:
         return torch.as_tensor(draws[key], device=device)
-    return torch.rand((B,), generator=generator, device=device)
+    return draw_rows(lambda s: torch.rand(s, generator=generator, device=device), (B,))
 
 
 def flow_forward_train(
@@ -407,7 +410,7 @@ def flow_forward_train(
     if vendored_style:
         drop = (torch.as_tensor(draws["drop"], device=dev).bool()
                 if draws is not None and "drop" in draws
-                else torch.rand((B,), generator=generator, device=dev) < 0.5)
+                else _draw(None, "drop", B, generator, dev) < 0.5)
         # randint(0, int(0.3 * len)) is inclusive: uniform over {0..K}
         k_top = floor_mul(0.3)
         plen = torch.minimum(
@@ -462,8 +465,9 @@ def flow_forward_train(
         if draws is not None and "sil_tok" in draws:
             sil_tok = torch.as_tensor(draws["sil_tok"], device=dev).long()
         else:
-            sil_tok = torch.randint(leak.silence_min_tokens, leak.silence_max_tokens + 1,
-                                    (B,), generator=generator, device=dev)
+            sil_tok = draw_rows(
+                lambda s: torch.randint(leak.silence_min_tokens, leak.silence_max_tokens + 1,
+                                        s, generator=generator, device=dev), (B,))
         sil_frames = torch.clamp(sil_tok * 22050 // 256 // cfg.input_frame_rate, 3, 20)
         fits = (prompt_lens + sil_frames < j) & (prompt_lens > 0)
         sil_val = (leak.silence_mel_value - mean) / std

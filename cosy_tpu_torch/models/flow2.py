@@ -25,6 +25,7 @@ from ..layers.basic import dense, embedding
 from ..layers.unet import conditional_decoder, init_conditional_decoder
 from ..layers.upsample_encoder import init_upsample_encoder, upsample_encoder_forward
 from ..ops import masks as M
+from ..parallel.mesh import draw_rows, rows_denominator
 from ..params import P, ParamTree, Spec, resolve_device
 from .flow import PI, MeanFlowLoadable, cfm_solve_mean, cfm_t_span, check_sampler
 from .llm import _l2_normalize
@@ -135,25 +136,29 @@ def flow2_forward_train(p: P, cfg: Flow2Config, generator: Optional[torch.Genera
     def draw(name, fn):
         return torch.as_tensor(draws[name], device=dev) if name in draws else fn()
 
+    def rand(shape, normal=False):
+        return draw_rows(lambda s: (torch.randn if normal else torch.rand)(
+            s, generator=generator, device=dev), shape)
+
     spk = dense(p, "spk_embed_affine_layer",
                 _l2_normalize(batch["embedding"].to(feat.dtype), dim=1), ctx)
     h = _fit_frames(flow2_encode(p, cfg, token, token_len, streaming=streaming, ctx=ctx), T)
-    drop = draw("drop", lambda: torch.rand((B,), generator=generator, device=dev) < 0.5).bool()
-    plen_u = draw("plen_u", lambda: torch.rand((B,), generator=generator, device=dev))
+    drop = draw("drop", lambda: rand((B,)) < 0.5).bool()
+    plen_u = draw("plen_u", lambda: rand((B,)))
     conds = prompt_conds(feat, feat_len, drop, plen_u)
     mask = M.make_non_pad_mask(token_len * cfg.token_mel_ratio, T)[:, None, :].to(h.dtype)
 
     x1 = feat.transpose(1, 2)
-    t = draw("t_u", lambda: torch.rand((B, 1, 1), generator=generator, device=dev)).to(x1.dtype)
+    t = draw("t_u", lambda: rand((B, 1, 1))).to(x1.dtype)
     if cfg.cfm.t_scheduler == "cosine":
         t = 1.0 - torch.cos(t * 0.5 * PI)
-    z = draw("z", lambda: torch.randn(x1.shape, generator=generator, device=dev)).to(x1.dtype)
+    z = draw("z", lambda: rand(x1.shape, normal=True)).to(x1.dtype)
     sigma = cfg.cfm.sigma_min
     y = (1.0 - (1.0 - sigma) * t) * z + t * x1
     u = x1 - (1.0 - sigma) * z
     mu = h.transpose(1, 2)
     if cfg.cfm.training_cfg_rate > 0:
-        keep = (draw("cfg_u", lambda: torch.rand((B,), generator=generator, device=dev))
+        keep = (draw("cfg_u", lambda: rand((B,)))
                 > cfg.cfm.training_cfg_rate).to(x1.dtype)
         mu = mu * keep[:, None, None]
         spk = spk * keep[:, None]
@@ -161,7 +166,7 @@ def flow2_forward_train(p: P, cfg: Flow2Config, generator: Optional[torch.Genera
     pred = conditional_decoder(p.sub("decoder.estimator"), cfg.estimator, y, mask, mu,
                                t[:, 0, 0], spk, conds, ctx, causal=True, streaming=streaming,
                                static_chunk_size=cfg.decoder_static_chunk_size)
-    return torch.square((pred - u) * mask).sum() / (mask.sum() * u.shape[1])
+    return torch.square((pred - u) * mask).sum() / rows_denominator(mask.sum() * u.shape[1])
 
 
 def flow2_inference(

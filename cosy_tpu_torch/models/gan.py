@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from ..config import HiFTConfig
 from ..layers.basic import conv2d, leaky_relu
 from ..ops import audio as A
+from ..parallel.mesh import gather_rows
 from ..params import P, Params, resolve_device
 from . import hift as H
 
@@ -139,7 +140,8 @@ def tpr_loss(disc_real: List[torch.Tensor], disc_gen: List[torch.Tensor],
     of the two middle values, as ``jnp.median`` takes it."""
     loss = 0.0
     for dr, dg in zip(disc_real, disc_gen):
-        diff = (dr - dg).float().reshape(-1)
+        # the median is over the whole batch: data-parallel ranks gather it
+        diff = gather_rows((dr - dg).float()).reshape(-1)
         m = torch.quantile(diff, 0.5)
         sel = diff < m
         l_rel = torch.where(sel, torch.square(diff - m), 0.0).sum() / torch.clamp(sel.sum(), min=1)

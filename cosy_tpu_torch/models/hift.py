@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from ..config import HiFTConfig
 from ..layers.basic import conv1d, conv_transpose1d, dense, leaky_relu, snake
 from ..ops.audio import istft, stft_center
+from ..parallel.mesh import draw_rows
 from ..params import P, ParamTree, Spec, resolve_device
 
 
@@ -59,9 +60,10 @@ def sine_source(
     H = cfg.nb_harmonics + 1
     dev = f0_up.device
     if phase is None:
-        phase = torch.rand((B, H, 1), generator=generator, device=dev) * (2 * math.pi) - math.pi
+        phase = draw_rows(lambda s: torch.rand(s, generator=generator, device=dev),
+                          (B, H, 1)) * (2 * math.pi) - math.pi
     if noise is None:
-        noise = torch.randn((B, H, L), generator=generator, device=dev)
+        noise = draw_rows(lambda s: torch.randn(s, generator=generator, device=dev), (B, H, L))
     harmonics = torch.arange(1, H + 1, dtype=torch.float32, device=dev)[None, :, None]
     f_mat = f0_up * harmonics / cfg.sampling_rate  # (B, H, L)
     theta = 2.0 * math.pi * torch.remainder(torch.cumsum(f_mat, dim=-1), 1.0)

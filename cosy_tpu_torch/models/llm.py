@@ -38,6 +38,7 @@ from ..layers.conformer import (encoder_forward, init_encoder, positionwise_ff,
 from ..layers.posenc import rel_pos_table
 from ..ops import masks as M
 from ..ops.sampling import ras_sample
+from ..parallel.mesh import rows_denominator
 from ..params import P, ParamTree, Spec, resolve_device
 
 
@@ -146,7 +147,8 @@ def label_smoothing_loss(
     else:
         kl = -logp_tgt
     kl = torch.where(valid, kl, 0.0)
-    denom = torch.clamp(valid.sum(), min=1) if normalize_length else B
+    # batch-wide count: a data-parallel rank divides by the whole batch's
+    denom = rows_denominator(valid.sum(), minimum=1) if normalize_length else B
     return kl.sum() / denom
 
 
@@ -155,7 +157,7 @@ def th_accuracy(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     pred = logits.argmax(dim=-1)
     valid = target != IGNORE_ID
     correct = (valid & (pred == target)).sum()
-    return correct / torch.clamp(valid.sum(), min=1)
+    return correct / rows_denominator(valid.sum(), minimum=1)
 
 
 def llm_forward_train(p: P, cfg: LLMConfig, batch: Dict[str, torch.Tensor],

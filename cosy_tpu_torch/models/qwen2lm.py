@@ -51,6 +51,7 @@ from ..layers.qwen2 import (Qwen2Config, qwen2_forward, qwen2_layer, qwen2_spec,
                             rope_cos_sin)
 from ..ops import masks as M
 from ..ops.sampling import ras_sample
+from ..parallel.mesh import draw_rows
 from ..params import P, ParamTree, Spec, resolve_device
 from .llm import IGNORE_ID, label_smoothing_loss, th_accuracy
 
@@ -185,7 +186,7 @@ def _coin(B: int, coin, generator, device) -> torch.Tensor:
     if coin is not None:
         return torch.as_tensor(coin, device=device).bool()
     if generator is not None:
-        return torch.rand((B,), generator=generator, device=device) < 0.5
+        return draw_rows(lambda s: torch.rand(s, generator=generator, device=device), (B,)) < 0.5
     return torch.zeros((B,), dtype=torch.bool, device=device)
 
 

@@ -598,8 +598,10 @@ def warmup(server: TTSServer, text: str = "warmup.") -> float:
 
 # flags of the JAX server whose modules are still queued (ROADMAP queue A):
 # each with its default, which is the only value accepted
-_QUEUED = {"tp": (1, "A15 (parallel/)"), "int8": (False, "A15 (quant.py)"),
-           "aot_cache": (None, "A15 (utils/aot.py)"),
+_QUEUED = {"tp": (1, "A16 (serve --tp: one process per GPU needs a server design of its "
+                    "own; the training scale-out is ported)"),
+           "int8": (False, "A16 (quant.py)"),
+           "aot_cache": (None, "A16 (utils/aot.py)"),
            "engine_prefetch": (False, "A9 (prefetch is left out by design: the port syncs "
                                       "every token for host sampling)")}
 

@@ -7,6 +7,8 @@ counterpart of ``train_joint.py``).
         [--max-feat-len N] [--accum N] [--no-augmentation] [--tiny]
         [--batched-micro | --reference-layout] [--device cuda|cpu]
 
+    torchrun --nproc-per-node G -m cosy_tpu_torch.train ...
+
 The flags, their conflicts and the batch folding are ``train_joint.py``'s.
 ``main()`` parses them and reads the parquet records of ``--data-dir``
 (``data.list`` or every ``*.parquet`` below it) into a
@@ -15,8 +17,15 @@ The flags, their conflicts and the batch folding are ``train_joint.py``'s.
 prefetching ``DataLoader`` of (accum, batch, ...) super-batches,
 ``JointTrainer.fit`` with ``--resume``, then the merged weights
 (``<name>_merged_<mode>.pt``) and the adapters (``adapters_<mode>.pt``) in
-``--output``.  One process on one device: the reference's rounding of the
-batch size up to a data-parallel mesh has no counterpart yet.
+``--output``.
+
+Under ``torchrun`` each rank drives one GPU (``cuda:LOCAL_RANK`` over
+NCCL; with ``--device cpu`` the CPU over gloo) and the world is the
+data-parallel mesh: ``--batch-size`` (the global batch) is rounded up to
+the dp size, as ``train_joint.py`` does, and each rank reads its shard of
+the records (``DataLoader(num_shards=world, shard_index=rank)``) at
+``batch_size / dp`` rows a micro-batch.  Rank 0 logs and writes the
+checkpoints and exports.  Without a launcher the run is a world of one.
 """
 
 from __future__ import annotations
@@ -30,14 +39,16 @@ from typing import Iterator, Optional
 from ..compat.loader import load_or_init
 from ..config import ModelConfig, TrainConfig, replace, tiny_model_config
 from ..data.dataset import DataLoader, FlowFinetuneDataset
+from ..parallel.mesh import (finish_distributed, init_distributed, is_main, make_mesh,
+                             world_rank, world_size)
 from .trainer import JointTrainer, TrainState
 
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(
         description="Joint LLM+Flow LoRA training (PyTorch port)",
-        epilog="One process on one device: train_joint.py's rounding of the batch "
-               "size up to the data-parallel mesh has no counterpart yet.")
+        epilog="Under torchrun --nproc-per-node G every rank trains data-parallel on "
+               "its shard of the records.")
     ap.add_argument("--mode", default="joint", choices=["joint", "llm_only", "flow_only"])
     ap.add_argument("--resume", default=None, help="checkpoint to resume from")
     ap.add_argument("--epochs", type=int, default=None)
@@ -127,48 +138,64 @@ class RunResult:
 def run(dataset: FlowFinetuneDataset, model_cfg: ModelConfig, tcfg: TrainConfig,
         pretrained: Optional[str], output: str, device="cuda",
         resume: Optional[str] = None) -> RunResult:
-    """Everything after the dataset: base weights, loader, ``fit`` (from
-    ``resume`` when given), the merged and adapter exports.  Prints the
-    seconds a step and the loader's wait a step."""
-    loaded = load_or_init(pretrained, model_cfg, device, tcfg.seed)
-    loader = _TimedLoader(DataLoader(dataset, tcfg, seed=tcfg.seed))
+    """Everything after the dataset: the process group under a launcher,
+    base weights, this rank's loader, ``fit`` (from ``resume`` when given),
+    the merged and adapter exports.  Prints the seconds a step and the
+    loader's wait a step."""
+    dev = init_distributed(device)
+    mesh = make_mesh(device=dev)
+    dp = mesh.size("dp")
+    if tcfg.batch_size % dp != 0:
+        tcfg = replace(tcfg, batch_size=((tcfg.batch_size + dp - 1) // dp) * dp)
+        _print(f"batch_size rounded up to {tcfg.batch_size} for the {dp}-way dp mesh")
+    loaded = load_or_init(pretrained, model_cfg, dev, tcfg.seed)
+    loader = _TimedLoader(DataLoader(dataset, tcfg, batch_size=tcfg.batch_size // dp,
+                                     seed=tcfg.seed, num_shards=world_size(),
+                                     shard_index=world_rank()))
     total_steps = max(1, loader.loader.steps_per_epoch()) * tcfg.max_epochs
     trainer = JointTrainer(model_cfg, tcfg, loaded["llm"], loaded["flow"], out_dir=output,
-                           total_steps=total_steps)
+                           total_steps=total_steps, mesh=mesh)
     t0 = time.perf_counter()
-    state = trainer.fit(loader, resume=resume)
+    state = trainer.fit(loader, resume=resume, sharded=True)
     seconds = time.perf_counter() - t0
     steps = loader.batches  # one optimizer step a super-batch
     per = max(steps, 1)
-    print(f"{steps} steps in {seconds:.3f} s: {seconds / per:.4f} s/step, loader wait "
-          f"{loader.wait / per:.4f} s/step")
+    _print(f"{steps} steps in {seconds:.3f} s: {seconds / per:.4f} s/step, loader wait "
+           f"{loader.wait / per:.4f} s/step")
 
-    print("\nsaving merged weights...")
+    _print("\nsaving merged weights...")
     trainer.export_merged(state, save=True)
     trainer.export_adapters(state, os.path.join(output, f"adapters_{tcfg.training_mode}.pt"))
-    print("done; next: python -m cosy_tpu_torch.infer --llm ... --flow ... --text '...'")
+    _print("done; next: python -m cosy_tpu_torch.infer --llm ... --flow ... --text '...'")
     return RunResult(trainer, state, steps, seconds, loader.wait)
+
+
+def _print(msg: str) -> None:
+    if is_main():
+        print(msg, flush=True)
 
 
 def main(argv=None) -> Optional[RunResult]:
     args = parse_args(argv)
     model_cfg = tiny_model_config() if args.tiny else ModelConfig()
     tcfg = train_config(args)
-    print("=" * 60)
-    print("cosy_tpu_torch joint LLM + Flow LoRA training")
-    print("=" * 60)
-    print(f"mode={tcfg.training_mode} lr={tcfg.learning_rate} "
-          f"bs={tcfg.batch_size} x accum={tcfg.accumulate_grad_batches} "
-          f"max_feat_len={tcfg.max_feat_len} device={args.device}")
-    print(f"stop: llm_loss<={tcfg.llm_loss_threshold} flow_loss<={tcfg.flow_loss_threshold} "
-          f"early-stop patience {tcfg.early_stop_patience}")
+    _print("=" * 60)
+    _print("cosy_tpu_torch joint LLM + Flow LoRA training")
+    _print("=" * 60)
+    _print(f"mode={tcfg.training_mode} lr={tcfg.learning_rate} "
+           f"bs={tcfg.batch_size} x accum={tcfg.accumulate_grad_batches} "
+           f"max_feat_len={tcfg.max_feat_len} device={args.device}")
+    _print(f"stop: llm_loss<={tcfg.llm_loss_threshold} flow_loss<={tcfg.flow_loss_threshold} "
+           f"early-stop patience {tcfg.early_stop_patience}")
     dataset = FlowFinetuneDataset(args.data_dir, augmentation=not args.no_augmentation,
                                   leak=tcfg.anti_leakage, seed=tcfg.seed)
     if len(dataset) == 0:
-        print(f"no data in {args.data_dir}; run prepare_joint_data.py first")
+        _print(f"no data in {args.data_dir}; run prepare_joint_data.py first")
         return None
-    return run(dataset, model_cfg, tcfg, args.pretrained, args.output, args.device,
-               args.resume)
+    res = run(dataset, model_cfg, tcfg, args.pretrained, args.output, args.device,
+              args.resume)
+    finish_distributed()
+    return res
 
 
 if __name__ == "__main__":

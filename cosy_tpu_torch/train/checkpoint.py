@@ -8,6 +8,11 @@ tensors (parameters, optimizer state dicts, counters).  The two packages'
 step checkpoints are therefore not interchangeable; the ``.pt`` model
 exports are (a plain state dict of the reference's names).
 
+Under a process group rank 0 writes whole tensors (gathered from ZeRO-2 or
+tensor-parallel blocks) and every rank reads them back into its own
+layout, so a checkpoint written at one mesh resumes at another, as
+orbax's restore to a target layout does.
+
 ``async_save``: ``save`` copies every tensor to host memory before it
 returns, so the caller may update the live tensors at once, and a writer
 thread puts the file on disk (one write in flight; ``wait`` drains it).
@@ -24,10 +29,11 @@ import threading
 from typing import List, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..params import Params, load_torch_checkpoint, save_torch_checkpoint
 
-__all__ = ["TrainCheckpointer", "save_model_pt", "load_model_pt", "to_host"]
+__all__ = ["TrainCheckpointer", "save_model_pt", "load_model_pt", "to_host", "wait_written"]
 
 
 def to_host(tree):
@@ -120,6 +126,14 @@ class TrainCheckpointer:
         self.wait()
 
 
+def wait_written(ck: TrainCheckpointer) -> None:
+    """Before any rank reads: the writer (rank 0) drains its pending save,
+    then every rank of the process group meets it."""
+    ck.wait()
+    if dist.is_initialized():
+        dist.barrier()
+
+
 def _like(tree, like):
     if isinstance(like, torch.Tensor):
         return tree.to(device=like.device, dtype=like.dtype)
@@ -135,7 +149,7 @@ def _like(tree, like):
 
 def save_model_pt(params: Params, path: str, info: Optional[dict] = None) -> str:
     """Reference-format model export: a ``.pt`` state dict plus a yaml info
-    sidecar (train_utils.py:195-214).  One process, so no rank check."""
+    sidecar (train_utils.py:195-214).  The trainers call it on rank 0."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     save_torch_checkpoint(params, path)
     if info is not None:

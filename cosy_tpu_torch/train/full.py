@@ -8,7 +8,11 @@ utils/executor.py and utils/train_utils.py).
         [--epochs 1] [--max_steps N] [--lr 1e-4] [--grad_clip 5] [--accum 1]
         [--batch_size 4] [--seq_bucket 32] [--flow_style vendored|finetune]
         [--cosyvoice2 [--cv2_streaming]] [--dpo [--dpo_beta 0.01]] [--resume]
+        [--no_zero2] [--tensor_parallel] [--sequence_parallel]
+        [--pp_microbatches M] [--mesh_model N] [--mesh_seq N]
         [--device cuda|cpu]
+
+    torchrun --nproc-per-node G -m cosy_tpu_torch.train.full ...
 
 ``train_full.py``'s flags over the port's processor chain
 (``data/processor.py``): ``FullTrainer`` for ``llm`` (the 300M
@@ -20,25 +24,39 @@ flow), ``HiFiGanTrainer`` for ``hifigan`` (raw speech rows: resample, crop to
 ``--model_dir/ckpt`` (``--resume`` continues from the newest), a
 reference-format ``.pt`` export and per-epoch CV loss after every epoch,
 TensorBoard scalars to ``--model_dir/tb``.  ``--tiny`` takes the toy widths
-of the smoke tests.  One process on one device: ``--tensor_parallel``,
-``--sequence_parallel`` and ``--pp_microbatches`` wait for ROADMAP A15 and
-are refused; ``--no_zero2`` is accepted (ZeRO-2 is the identity here).
+of the smoke tests.
+
+Under ``torchrun`` every rank drives one GPU (``cuda:LOCAL_RANK`` over
+NCCL; with ``--device cpu`` the CPU over gloo) and the world is laid out
+as a (dp, seq, model) mesh, ``--mesh_model`` x ``--mesh_seq`` ranks a
+group and dp the rest (the JAX CLI's mesh is all dp, where the size-1
+axes make the three flags below no-ops).  Every rank reads the same
+batches and runs its dp rows of each; ``--batch_size`` must divide by dp.
+ZeRO-2 splits the AdamW moments over dp unless ``--no_zero2``;
+``--tensor_parallel`` splits the transformer products over ``model``,
+``--sequence_parallel`` the estimator's frames over ``seq``, and
+``--pp_microbatches M`` pipelines eligible transformer stacks over
+``model``.  Rank 0 logs and writes the checkpoints and exports.  Without
+a launcher the run is a world of one.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import random
 import time
 from typing import Optional
 
 import numpy as np
-import torch
 
 from ..ctx import Ctx
 from ..data import processor as Pr
 from ..data.dataset import MEL_PADDING_VALUE
-from ..params import P, load_torch_checkpoint, resolve_device
+from ..parallel.mesh import finish_distributed, init_distributed, is_main, make_mesh
+from ..params import P, load_torch_checkpoint
+from ..utils.distributed import joined_loader
+from .full_trainer import step_generator
 
 # keys each objective reads; the rest of a batch is dropped before the step
 MODEL_KEYS = {
@@ -156,6 +174,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--tensor_parallel", action="store_true")
     ap.add_argument("--sequence_parallel", action="store_true")
     ap.add_argument("--pp_microbatches", type=int, default=0)
+    ap.add_argument("--mesh_model", type=int, default=1,
+                    help="ranks on the mesh's model axis (tensor / pipeline parallelism)")
+    ap.add_argument("--mesh_seq", type=int, default=1,
+                    help="ranks on the mesh's seq axis (sequence parallelism)")
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--log_every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=1986)
@@ -254,19 +276,22 @@ def objective(args, cfg, cv2, dev, init):
     return params, loss_fn
 
 
-def _step_generator(dev, seed: int, step: int) -> torch.Generator:
-    """A step's own generator (JAX folds the step into its key)."""
-    return torch.Generator(device=dev).manual_seed(seed * 100_003 + step)
-
-
 def _log(tb, step, m, epoch, every):
-    if step % every == 0:
+    if step % every == 0 and is_main():
         tb.add_scalars(step, m, prefix="train")
         print(f"epoch {epoch} step {step}: "
               + " ".join(f"{k}={v:.4f}" for k, v in sorted(m.items())), flush=True)
 
 
-def _gan(args, cfg, cv2, dev, init, tb, ckpt_dir) -> int:
+def _require_divisible(batch_size: int, dp: int) -> None:
+    if batch_size % dp:
+        raise SystemExit(
+            f"--batch_size {batch_size} must be divisible by the data-"
+            f"parallel mesh size ({dp} devices): each micro batch shards "
+            "over dp (reference DDP divides the global batch the same way)")
+
+
+def _gan(args, cfg, cv2, dev, init, tb, ckpt_dir, mesh) -> int:
     """The hifigan branch: two-optimizer GAN turns (executor.py:88-144)."""
     from ..models.gan import init_discriminator_params
     from ..models.hift import init_hift_params
@@ -277,22 +302,24 @@ def _gan(args, cfg, cv2, dev, init, tb, ckpt_dir) -> int:
     gen = init if init is not None else init_hift_params(hcfg, dev, seed=args.seed)
     disc = init_discriminator_params(dev, seed=args.seed + 1)
     trainer = HiFiGanTrainer(hcfg, gen, disc, gen_lr=args.lr, disc_lr=args.lr,
-                             grad_clip=args.grad_clip)
+                             grad_clip=args.grad_clip, mesh=mesh)
     start = trainer.load_checkpoint(ckpt_dir) if args.resume and \
         os.path.isdir(ckpt_dir) and os.listdir(ckpt_dir) else 0
     step = start
     for epoch in range(args.epochs):
         t0 = time.time()
-        for batch in build_loader(args.train_data, args, gan=True, device=dev):
+        for batch in joined_loader(build_loader(args.train_data, args, gan=True, device=dev)):
             step += 1
-            _log(tb, step, trainer.step(batch, _step_generator(dev, args.seed, 7000 + step)),
+            _log(tb, step, trainer.step(batch, step_generator(dev, args.seed, 7000 + step)),
                  epoch, args.log_every)
             if args.max_steps and step - start >= args.max_steps:
                 break
         trainer.save_checkpoint(ckpt_dir, step=step)
-        save_model_pt(trainer.gen_params, os.path.join(args.model_dir, f"hift_epoch{epoch}.pt"),
-                      info={"epoch": epoch, "step": step})
-        print(f"== epoch {epoch} done ({time.time() - t0:.1f}s)", flush=True)
+        if is_main():
+            save_model_pt(trainer.gen_params,
+                          os.path.join(args.model_dir, f"hift_epoch{epoch}.pt"),
+                          info={"epoch": epoch, "step": step})
+            print(f"== epoch {epoch} done ({time.time() - t0:.1f}s)", flush=True)
         if args.max_steps and step - start >= args.max_steps:
             break
     trainer.close()
@@ -301,34 +328,40 @@ def _gan(args, cfg, cv2, dev, init, tb, ckpt_dir) -> int:
 
 def main(argv=None) -> int:
     from ..utils.tb import TBWriter
-    from .full_trainer import FullTrainer, adamw, refuse_parallel
+    from .full_trainer import FullTrainer, adamw
 
     args = parse_args(argv)
-    try:
-        refuse_parallel(None, args.tensor_parallel, args.sequence_parallel,
-                        args.pp_microbatches)
-    except NotImplementedError as e:
-        raise SystemExit(str(e)) from None
-    dev = resolve_device(args.device)
+    dev = init_distributed(args.device)
+    mesh = make_mesh(model=args.mesh_model, seq=args.mesh_seq, device=dev)
+    _require_divisible(args.batch_size, mesh.size("dp"))
+    random.seed(args.seed)  # every rank shuffles its batches alike
     cfg, cv2 = configs(args)
     os.makedirs(args.model_dir, exist_ok=True)
     ckpt_dir = os.path.join(args.model_dir, "ckpt")
-    tb = TBWriter(args.tensorboard_dir or os.path.join(args.model_dir, "tb"))
+    tb = TBWriter(args.tensorboard_dir or os.path.join(args.model_dir, "tb"),
+                  enabled=is_main())
     init = None
     if args.checkpoint:
         init = {k: v.to(dev) for k, v in load_torch_checkpoint(args.checkpoint).items()}
-        print(f"init weights <- {args.checkpoint} ({len(init)} tensors)")
+        if is_main():
+            print(f"init weights <- {args.checkpoint} ({len(init)} tensors)")
 
     if args.model == "hifigan":
-        code = _gan(args, cfg, cv2, dev, init, tb, ckpt_dir)
+        code = _gan(args, cfg, cv2, dev, init, tb, ckpt_dir, mesh)
         tb.close()
+        finish_distributed()
         return code
 
     params, loss_fn = objective(args, cfg, cv2, dev, init)
-    trainer = FullTrainer(loss_fn, params, adamw(args.lr), zero2=not args.no_zero2,
-                          grad_clip=args.grad_clip, accum=args.accum)
+    trainer = FullTrainer(loss_fn, params, adamw(args.lr), mesh=mesh, zero2=not args.no_zero2,
+                          grad_clip=args.grad_clip, accum=args.accum,
+                          tensor_parallel=args.tensor_parallel,
+                          sequence_parallel=args.sequence_parallel,
+                          pipeline_parallel_microbatches=args.pp_microbatches)
     if args.resume and os.path.isdir(ckpt_dir) and os.listdir(ckpt_dir):
-        print(f"resumed at step {trainer.load_checkpoint(ckpt_dir)}")
+        step = trainer.load_checkpoint(ckpt_dir)
+        if is_main():
+            print(f"resumed at step {step}")
     start = trainer.step_count
     keep = MODEL_KEYS["llm_dpo" if args.model == "llm" and args.dpo else args.model]
 
@@ -342,19 +375,21 @@ def main(argv=None) -> int:
             return None
         eval_fn = lambda p, g, b: loss_fn(p, g, b, train=False)  # noqa: E731
         losses = [trainer.evaluate_loss({k: v[0] for k, v in sb.items()}, eval_fn,
-                                        _step_generator(dev, args.seed, 0))
+                                        step_generator(dev, args.seed, 0))
                   for sb in stack_accum(batches(args.cv_data), 1, args.seq_bucket)]
         if not losses:
             return None
         cv = float(np.mean(losses))
         tb.add_scalars(step, {"loss": cv}, prefix="cv")
-        print(f"CV loss at step {step}: {cv:.4f} ({len(losses)} batches)", flush=True)
+        if is_main():
+            print(f"CV loss at step {step}: {cv:.4f} ({len(losses)} batches)", flush=True)
         return cv
 
     for epoch in range(args.epochs):
         t0 = time.time()
-        for sb in stack_accum(batches(args.train_data), args.accum, args.seq_bucket):
-            m = trainer.step(sb, _step_generator(dev, args.seed, 9000 + trainer.step_count))
+        for sb in joined_loader(stack_accum(batches(args.train_data), args.accum,
+                                            args.seq_bucket)):
+            m = trainer.step(sb, step_generator(dev, args.seed, 9000 + trainer.step_count))
             _log(tb, trainer.step_count, m, epoch, args.log_every)
             if args.max_steps and trainer.step_count - start >= args.max_steps:
                 break
@@ -362,12 +397,14 @@ def main(argv=None) -> int:
         trainer.save_checkpoint(ckpt_dir)
         trainer.save_model(os.path.join(args.model_dir, f"{args.model}_epoch{epoch}.pt"),
                            info={"epoch": epoch})
-        print(f"== epoch {epoch} done ({time.time() - t0:.1f}s, step {trainer.step_count})",
-              flush=True)
+        if is_main():
+            print(f"== epoch {epoch} done ({time.time() - t0:.1f}s, step "
+                  f"{trainer.step_count})", flush=True)
         if args.max_steps and trainer.step_count - start >= args.max_steps:
             break
     trainer.close()
     tb.close()
+    finish_distributed()
     return 0
 
 

@@ -203,7 +203,7 @@ def test_flow2_inference_matches_jax(cv2, case):
 def test_sampler_and_int8_options_that_are_not_ported_raise(cv2):
     """An unknown sampler and a step count below 1 raise; the MeanFlow
     sampler (ported, tests/test_torch_distill.py) is refused on weights
-    without the distilled branch; int8 decode is not ported (A15)."""
+    without the distilled branch; int8 decode is not ported (A16)."""
     _, tpipe, _ = cv2
     args = (tpipe.flow_p, FCFG, torch.zeros((1, 4), dtype=torch.long),
             torch.zeros((1, 0), dtype=torch.long), torch.zeros((1, 0, 80)), torch.zeros((1, 12)))

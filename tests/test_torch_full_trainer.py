@@ -7,7 +7,8 @@ function with its frozen reference, two ``FullTrainer`` steps at
 accumulation 2 against JAX's ``FullTrainer``, the inf/nan skip (parameters
 and moments untouched, as in JAX), the step checkpoints (a resumed run
 equal to an uninterrupted one, retention, the asynchronous save), the
-``.pt`` exports read by the other package, the refusals naming A15, and
+``.pt`` exports read by the other package, the parallel options at a
+world of one (once refused naming A15), and
 gradient checkpointing (the same loss and gradients as without, dropout
 included).  Tolerances: 2e-4 for losses, cosine >= 0.9999 for gradients,
 1e-4 x max(1, max|p|) for parameters after two steps."""
@@ -301,13 +302,28 @@ def test_pt_exports_are_read_by_the_other_package(lm, tmp_path):
     assert all(np.array_equal(got[k].numpy(), lm[k]) for k in lm)
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object()), dict(tensor_parallel=True),
+@pytest.mark.parametrize("kw", [dict(mesh="world"), dict(tensor_parallel=True),
                                 dict(sequence_parallel=True),
                                 dict(pipeline_parallel_microbatches=2)])
 def test_parallel_options_are_refused_naming_a15(kw):
-    with pytest.raises(NotImplementedError, match="A15"):
-        FullTrainer(lambda *a: None, {"w": torch.zeros(2)}, **kw)
-    FullTrainer(lambda *a: None, {"w": torch.zeros(2)}, zero2=False)  # zero2: the identity
+    """The options these tests once saw refused (naming ROADMAP A15) are
+    taken now: at a world of one each trainer's step equals the plain
+    trainer's exactly (every collective is skipped at size 1).  The
+    multi-rank equalities are held in tests/test_torch_parallel.py."""
+    from cosy_tpu_torch.parallel.mesh import make_mesh
+
+    if kw.get("mesh") == "world":
+        kw = dict(mesh=make_mesh(device="cpu"))
+
+    def loss_fn(p, g, b):
+        return torch.sum(torch.square(p["w"] * b["x"][:, :2].sum(0) - 1.0)), {}
+
+    sb = {"x": np.arange(12, dtype=np.float32).reshape(1, 2, 6)}
+    plain = FullTrainer(loss_fn, {"w": torch.ones(2)}, zero2=False)
+    taken = FullTrainer(loss_fn, {"w": torch.ones(2)}, **kw)
+    assert taken.mesh.shape == {"dp": 1, "seq": 1, "model": 1}
+    assert plain.step(sb) == taken.step(sb)
+    assert torch.equal(plain.params["w"], taken.params["w"])
 
 
 def test_gradient_checkpointing_gives_the_same_loss_and_gradients():

@@ -112,14 +112,19 @@ def test_api_serve_client_and_yaml_modules_load_no_jax():
 
 def test_training_regime_modules_load_no_jax():
     """The distiller, the full-parameter and GAN trainers, their checkpoints,
-    the GAN models, the pitch tracker and its native build, the DPO loss and
-    the TensorBoard writer in a fresh interpreter, and the two command lines
-    (``train.full``, ``train.distill``) run to their --help."""
+    the GAN models, the pitch tracker and its native build, the DPO loss,
+    the TensorBoard writer, the scale-out modules (the mesh, the
+    collectives, tensor / sequence / pipeline parallelism, the agreement)
+    in a fresh interpreter, and the two command lines (``train.full``,
+    ``train.distill``) run to their --help."""
     code = ("import sys, runpy\nbefore = set(sys.modules)\n"
             "import cosy_tpu_torch.train.distill, cosy_tpu_torch.train.full_trainer, "
             "cosy_tpu_torch.train.checkpoint, cosy_tpu_torch.train.gan_trainer, "
             "cosy_tpu_torch.train.dpo, cosy_tpu_torch.models.gan, cosy_tpu_torch.ops.f0, "
-            "cosy_tpu_torch.native, cosy_tpu_torch.utils.tb, cosy_tpu_torch.train.full\n"
+            "cosy_tpu_torch.native, cosy_tpu_torch.utils.tb, cosy_tpu_torch.train.full, "
+            "cosy_tpu_torch.parallel.mesh, cosy_tpu_torch.parallel.comm, "
+            "cosy_tpu_torch.parallel.tp, cosy_tpu_torch.parallel.sp, "
+            "cosy_tpu_torch.parallel.pp, cosy_tpu_torch.utils.distributed\n"
             "for mod in ('cosy_tpu_torch.train.full', 'cosy_tpu_torch.train.distill'):\n"
             "    sys.argv = [mod, '--help']\n"
             "    try:\n"
@@ -134,3 +139,4 @@ def test_training_regime_modules_load_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "--dpo_beta" in res.stdout and "--teacher-substeps" in res.stdout
+

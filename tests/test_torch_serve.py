@@ -441,7 +441,7 @@ def test_export_merged_writes_the_flow_sidecar(tmp_path):
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--tp", "2"], "A15"), (["--int8"], "A15"), (["--aot-cache", "d"], "A15"),
+    (["--tp", "2"], "A16"), (["--int8"], "A16"), (["--aot-cache", "d"], "A16"),
     (["--sampler", "euler", "--meanflow-steps", "1"], "A14"), (["--meanflow-steps", "2"], "A14"),
     (["--engine-prefetch"], "A9"), (["--voices", "a=b.pt", "--cosyvoice2"], "CosyVoice")])
 def test_refused_flags(flags, item):

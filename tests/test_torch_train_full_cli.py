@@ -1,7 +1,7 @@
 """The port's command lines of the other training regimes on the CPU at
 ``--tiny``: ``python -m cosy_tpu_torch.train.full`` (every branch: llm,
 flow in both styles, CosyVoice2's llm and flow, DPO, hifigan, with CV,
-``--max_steps``, ``--resume`` and the refused parallel flags) and
+``--max_steps``, ``--resume`` and the parallel flags at a world of one) and
 ``python -m cosy_tpu_torch.train.distill`` (an export that ``infer
 --meanflow`` synthesizes from), and its loader against ``train_full.py``'s
 (batches equal).  One intra-op thread, one or two steps a branch."""
@@ -150,8 +150,13 @@ def test_full_cli_hifigan_branch(tmp_path):
 @pytest.mark.parametrize("flag", [["--tensor_parallel"], ["--sequence_parallel"],
                                   ["--pp_microbatches", "2"]])
 def test_full_cli_refuses_parallelism(tmp_path, flag):
-    with pytest.raises(SystemExit, match="A15"):
-        TFULL.main(base("llm", "unused.list", str(tmp_path), *flag))
+    """The parallel flags, once refused naming ROADMAP A15, run: at a world
+    of one every axis is 1, so a step is the plain one; under torchrun
+    they split over the mesh (tests/test_torch_parallel.py)."""
+    train = write_dataset(str(tmp_path), "train", n=4)
+    mdir = str(tmp_path / "out")
+    assert TFULL.main(base("llm", train, mdir, "--max_steps", "1", *flag)) == 0
+    assert TrainCheckpointer(os.path.join(mdir, "ckpt")).latest_step() == 1
 
 
 def test_distill_cli_export_serves_meanflow(tmp_path, capsys):
