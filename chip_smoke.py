@@ -140,7 +140,22 @@ Phases, each fatal on failure (nothing is caught and passed over):
      the same step, and its next step equal to the uninterrupted run's
      (1e-6 x max|p|); (c) no dp, tp, seq or pp size above 1 on one card
      (NCCL takes one rank a device): the multi-rank equalities are held on
-     the CPU over gloo (tests/test_torch_parallel.py).
+     the CPU over gloo (tests/test_torch_parallel.py);
+ 18. the modules of queue A16's first part at full width on seeded
+     weights: (a) TTSPipeline with int8_decode on and off over one
+     ModelConfig() LLM: the step view's int8 weights (84: six a block at
+     14 blocks) equal to the CPU's quantization, the int8 step logits on
+     the card against the CPU int8 decode (1e-4 x max(1, max|logit|)) and
+     apart from the f32 decode's, tokens/s over 200 steps at B = 1 for
+     both (f32, int8, int8, f32), the int8 decode's idle share under
+     torch.profiler, validate_int8_voice on two prompts at a cap of 40
+     tokens; (b) flow_inference_like_training at FlowConfig(): 169 tokens
+     regulated to 291 frames, a 3 s prompt mel as conditioning, NFE 4, z
+     injected: exactly 64 x 4 fused blocks, the mel within 2e-4 x max(1,
+     max|mel|) of the CPU; (c) a conformer with the CNN module (kernel 15)
+     at the 300M text encoder's widths against the CPU (2e-4 x max(1,
+     max|y|)), and maximum_path at (4, 200, 1000) on the host, native
+     against numpy.
 Phase 3 also holds B2 and the GEMM epilogue with exact (erf) GELU beside
 tanh, refuses a GELU code the kernels lack, and runs A, the block, B1 and
 B2 at CosyVoice2's streaming shapes with the chunk bias; phase 4 repeats
@@ -189,10 +204,15 @@ from cosy_tpu_torch.infer.engine import ContinuousBatchEngine  # noqa: E402
 from cosy_tpu_torch.infer.pipeline import (StreamState, TTSPipeline,  # noqa: E402
                                            _batch_prefixes, stream_seed)
 from cosy_tpu_torch.layers.unet import conditional_decoder  # noqa: E402
-from cosy_tpu_torch.models.flow import Flow, flow_inference, init_flow_params  # noqa: E402
+from cosy_tpu_torch.models.flow import (Flow, flow_inference,  # noqa: E402
+                                        flow_inference_like_training, init_flow_params)
 from cosy_tpu_torch.models.hift import init_hift_params  # noqa: E402
+from cosy_tpu_torch.models import llm as TLLM  # noqa: E402
 from cosy_tpu_torch.models.llm import (TransformerLM, init_llm_params,  # noqa: E402
-                                       llm_teacher_forced_logits)
+                                       llm_teacher_forced_logits, quantize_decode_step)
+from cosy_tpu_torch.layers.conformer import encoder_forward, init_encoder  # noqa: E402
+from cosy_tpu_torch.ops.mas import maximum_path  # noqa: E402
+from cosy_tpu_torch.quant import count_quantized, validate_int8_voice  # noqa: E402
 from cosy_tpu_torch.ops import _cuda  # noqa: E402
 from cosy_tpu_torch.ops.flash_attention import (_attention_plan,  # noqa: E402
                                                 banded_attention, banded_attention_ref,
@@ -210,7 +230,8 @@ from cosy_tpu_torch.compat.replicas import make_campplus_replica, make_s3_replic
 from cosy_tpu_torch.data.dataset import DataLoader, FlowFinetuneDataset  # noqa: E402
 from cosy_tpu_torch.data.frontend import Frontend  # noqa: E402
 from cosy_tpu_torch.data.prepare import main as prepare_main  # noqa: E402
-from cosy_tpu_torch.params import P, load_torch_checkpoint, save_torch_checkpoint  # noqa: E402
+from cosy_tpu_torch.params import (P, Spec, load_torch_checkpoint,  # noqa: E402
+                                   save_torch_checkpoint, spec_tensors)
 from cosy_tpu_torch.train.trainer import JointTrainer  # noqa: E402
 from cosy_tpu_torch.train.distill import FlowDistiller  # noqa: E402
 from cosy_tpu_torch.ctx import Ctx  # noqa: E402
@@ -2779,6 +2800,197 @@ def preemption_at_world_one(root, cfg, mesh, seed):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 18: weight-only int8 decode, train-style flow inference, the CNN
+# conformer and monotonic alignment search
+# ---------------------------------------------------------------------------
+
+
+def _decode_rate(pipe, cfg, prefix, steps, seed):
+    """(tokens a second over ``steps`` decode steps after the prefill, the
+    state) of a solo decode with EOS held off, on the pipeline's step
+    weights; host clock around the steps and a synchronize."""
+    L0 = prefix.shape[1]
+    state = TLLM.llm_decode_start(pipe.llm_p, cfg.llm, prefix, [L0], [steps + 1], [steps + 1],
+                                  [torch.Generator().manual_seed(seed)], **pipe._sampling(),
+                                  step_p=pipe.llm_step_p)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state.run()
+    torch.cuda.synchronize()
+    return steps / (time.perf_counter() - t0), state
+
+
+def int8_decode_phase(cfg, llm, flow, hift, seed=110):
+    """Phase 18 (a): TTSPipeline with int8_decode on and off over one set of
+    full-width weights.  Returns nothing; raises on a failed check."""
+    smi = _smi_line()
+    log(f"[18] int8 decode, train-style flow inference, the CNN conformer, MAS ({smi})")
+    pipes = {q: TTSPipeline(cfg, llm, flow, hift, InferenceConfig(int8_decode=q),
+                            finetuned_norm=True) for q in (False, True)}
+    step_p = pipes[True].llm_step_p
+    n8 = count_quantized(step_p.d)
+    int8_mb = sum(v.numel() for v in step_p.d.values() if v.dtype == torch.int8) / 2 ** 20
+    log(f"  (a) the int8 step view: {n8} int8 weights ({int8_mb:.1f} MiB; six a block at "
+        f"{cfg.llm.llm.num_blocks} blocks); the prefill, positional keys and head read f32")
+    if n8 != 6 * cfg.llm.llm.num_blocks:
+        raise SystemExit(f"chip_smoke: {n8} int8 weights in the decode step's view")
+    cpu_p = P({k: v.detach().cpu() for k, v in pipes[False].llm_p.d.items()})
+    cpu_step = quantize_decode_step(cpu_p, cfg.llm)
+    same = all(torch.equal(cpu_step.d[k], v.cpu()) for k, v in step_p.d.items()
+               if v.dtype == torch.int8 or k.endswith("@scale"))
+    ids = np.random.default_rng(seed).integers(0, 256, (1, 16)).astype(np.int64)
+    spk = np.zeros((1, 192), np.float32)
+    with torch.inference_mode():
+        prefix, _, _ = pipes[True]._build_prefix(ids, None, None, spk, 201, None)
+        L0 = prefix.shape[1]
+        feed = [[17, 42]]
+        got = llm_teacher_forced_logits(pipes[True].llm_p, cfg.llm, prefix, [L0], feed,
+                                        step_p=step_p)[0].float().cpu()
+        full = llm_teacher_forced_logits(pipes[False].llm_p, cfg.llm, prefix, [L0],
+                                         feed)[0].float().cpu()
+        want = llm_teacher_forced_logits(cpu_p, cfg.llm, prefix.cpu(), [L0], feed,
+                                         step_p=cpu_step)[0].float()
+    gap = (got - want).abs().max().item()
+    tol = 1e-4 * max(1.0, want.abs().max().item())
+    vs_full = (got[1:] - full[1:]).abs().max().item()
+    log(f"  int8 values and scales equal to the CPU's quantization: {same}; step logits on the "
+        f"card against the CPU int8 decode: max gap {gap:.3e} (tol 1e-4 x max(1, max|logit|) "
+        f"= {tol:.3e}); the f32 decode's steps differ by {vs_full:.3e}, its prefill by "
+        f"{(got[0] - full[0]).abs().max().item():.1e}")
+    if not (same and gap <= tol and vs_full > tol):
+        raise SystemExit("chip_smoke: the int8 decode disagrees with the CPU's or equals the "
+                         "f32 decode")
+    rates = {}
+    with torch.inference_mode():
+        for q in (False, True, True, False):  # f32, int8, int8, f32: warm-up, then the pair
+            rates.setdefault(q, []).append(_decode_rate(pipes[q], cfg, prefix, 200, seed)[0])
+        _decode_rate(pipes[True], cfg, prefix, 50, seed)
+        t0 = time.perf_counter()
+        _decode_rate(pipes[True], cfg, prefix, 50, seed)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        wall_ms, busy, by_name = profile_device(lambda: _decode_rate(pipes[True], cfg, prefix,
+                                                                     50, seed))
+    log(f"  tokens/s over 200 steps at B = 1 (two runs each, f32 / int8 / int8 / f32): f32 "
+        f"{rates[False][0]:.1f} and {rates[False][1]:.1f}, int8 {rates[True][0]:.1f} and "
+        f"{rates[True][1]:.1f} (int8 / f32 {rates[True][1] / rates[False][1]:.3f})")
+    log("  the int8 decode (prefill + 50 steps) under torch.profiler:")
+    log_profile(wall_ms, plain_ms, busy, by_name, top=6)
+    t0 = time.time()
+    texts = [np.random.default_rng(seed + i).integers(0, 256, (1, 8)) for i in (1, 2)]
+    rep = validate_int8_voice(cfg, llm, flow, hift, InferenceConfig(), texts, seeds=(0,),
+                              max_len_cap=40)
+    log(f"  validate_int8_voice, 2 prompts, cap 40 tokens: agreement min "
+        f"{rep['agreement_min']:.4f} mean {rep['agreement_mean']:.4f}, MCD max "
+        f"{rep['mcd_db_max']:.4f} dB, per prompt "
+        + ", ".join(f"{r['tokens_full']}/{r['tokens_int8']} tokens {r['agreement']:.3f} "
+                    f"{r['mcd_db']:.3f} dB" for r in rep["prompts"])
+        + f" ({time.time() - t0:.1f} s)")
+
+
+def train_style_flow_phase(cfg, flow, seed=112):
+    """Phase 18 (b): flow_inference_like_training at FlowConfig() with a 3 s
+    prompt mel, z injected, against the CPU.  Returns its launch counts."""
+    rng = np.random.default_rng(seed)
+    n_tok, nfe, T_prompt = 169, 4, int(3 * 22050 / 256)
+    T = int(n_tok / cfg.flow.input_frame_rate * 22050 / 256)
+    tok = torch.as_tensor(rng.integers(0, cfg.flow.vocab_size, (1, n_tok)), device=DEV)
+    pfeat = torch.as_tensor((rng.standard_normal((1, T_prompt, 80)) * 2 - 6).astype(np.float32),
+                            device=DEV)
+    spk = torch.as_tensor(rng.standard_normal((1, 192)).astype(np.float32), device=DEV)
+    z = torch.randn((1, 80, T + T % 2), generator=torch.Generator(device=DEV).manual_seed(seed),
+                    device=DEV)
+    args = (cfg.flow, tok, T, spk, pfeat, T_prompt)
+    with torch.inference_mode():
+        flow_inference_like_training(flow.p, *args, n_timesteps=nfe, z=z)
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mel = flow_inference_like_training(flow.p, *args, n_timesteps=nfe, z=z)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        cpu_p = P({k: v.detach().cpu() for k, v in flow.p.d.items()})
+        t0 = time.time()
+        want = flow_inference_like_training(cpu_p, cfg.flow, tok.cpu(), T, spk.cpu(),
+                                            pfeat.cpu(), T_prompt, n_timesteps=nfe, z=z.cpu())
+        cpu_s = time.time() - t0
+    err = (mel.cpu() - want).abs().max().item()
+    tol = 2e-4 * max(1.0, want.abs().max().item())
+    log(f"  (b) flow_inference_like_training: {n_tok} tokens regulated to {T} frames (odd: "
+        f"padded, masked), the first {T_prompt} (3 s) conditioned on a prompt mel, NFE {nfe}, "
+        f"z injected: mel {tuple(mel.shape)} in {secs:.3f} s on the card ({cpu_s:.1f} s on the "
+        f"CPU); max gap to the CPU {err:.3e} (tol 2e-4 x max(1, max|mel|) = {tol:.3e}); "
+        f"launches {counts}")
+    expect_blocks(counts, nfe, "[18]b flow_inference_like_training")
+    if mel.shape != (1, 80, T) or not torch.isfinite(mel).all() or err > tol:
+        raise SystemExit("chip_smoke: train-style flow inference disagrees with the CPU")
+    return counts
+
+
+def cnn_encoder_and_mas_phase(cfg, seed=114):
+    """Phase 18 (c): a conformer with the CNN module at the 300M text
+    encoder's widths against the CPU, then monotonic alignment search on
+    the host (native against numpy)."""
+    ecfg = dataclasses.replace(cfg.llm.text_encoder, use_cnn_module=True, cnn_module_kernel=15)
+    spec = Spec()
+    init_encoder(spec, "", ecfg, conformer=True)
+    params = spec_tensors(spec, DEV, torch.Generator(device=DEV).manual_seed(seed))
+    gen = torch.Generator(device=DEV).manual_seed(seed + 1)
+    x = torch.randn((2, 80, ecfg.input_size), generator=gen, device=DEV)
+    lens = torch.tensor([80, 53], device=DEV)
+    with torch.inference_mode():
+        y, _ = encoder_forward(P(params), ecfg, x, lens)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y, _ = encoder_forward(P(params), ecfg, x, lens)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        want, _ = encoder_forward(P({k: v.cpu() for k, v in params.items()}), ecfg, x.cpu(),
+                                  lens.cpu())
+    y = y.cpu()
+    err = max((y[0] - want[0]).abs().max().item(), (y[1, :53] - want[1, :53]).abs().max().item())
+    tol = 2e-4 * max(1.0, want.abs().max().item())
+    log(f"  (c) conformer with the CNN module (kernel 15, LayerNorm) at the text encoder's "
+        f"widths ({ecfg.input_size} -> {ecfg.output_size}, {ecfg.num_blocks} blocks), B = 2 of "
+        f"80 / 53 frames: {ms:.2f} ms on the card, max gap to the CPU over the valid rows "
+        f"{err:.3e} (tol 2e-4 x max(1, max|y|) = {tol:.3e})")
+    if not (torch.isfinite(y).all() and err <= tol):
+        raise SystemExit("chip_smoke: the CNN conformer disagrees with the CPU")
+    rng = np.random.default_rng(seed + 2)
+    value = rng.standard_normal((4, 200, 1000)).astype(np.float32)
+    t_xs, t_ys = np.array([200, 180, 150, 120]), np.array([1000, 900, 800, 700])
+    maximum_path(value[:1, :4, :8], t_xs[:1] * 0 + 4, t_ys[:1] * 0 + 8)  # the g++ build
+    t0 = time.perf_counter()
+    path = maximum_path(value, t_xs, t_ys)
+    native_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    plain = maximum_path(value, t_xs, t_ys, native=False)
+    numpy_ms = (time.perf_counter() - t0) * 1e3
+    ok = np.array_equal(path, plain) and all(
+        (path[b, :, :t_ys[b]].sum(0) == 1).all() for b in range(4))
+    log(f"  maximum_path (4, 200, 1000) on the host: native {native_ms:.1f} ms, numpy "
+        f"{numpy_ms:.1f} ms ({numpy_ms / native_ms:.0f}x), paths equal {ok}")
+    if not ok:
+        raise SystemExit("chip_smoke: the native MAS disagrees with the numpy DP")
+
+
+def new_modules_phase(cfg, seed=110):
+    """Phase 18 on one set of seeded full-width weights.  Returns the
+    launch counts of (b)."""
+    t0 = time.time()
+    llm = init_llm_params(cfg.llm, DEV, seed=seed)
+    flow = init_flow_params(cfg.flow, DEV, seed=seed + 1)
+    hift = init_hift_params(cfg.hift, DEV, seed=seed + 2)
+    int8_decode_phase(cfg, llm, flow, hift, seed)
+    counts = train_style_flow_phase(cfg, flow, seed + 2)
+    del llm, flow, hift
+    torch.cuda.empty_cache()
+    cnn_encoder_and_mas_phase(cfg, seed + 4)
+    log(f"  phase 18 took {time.time() - t0:.1f} s")
+    return counts
+
+
 def report(name, r):
     def dev(key):
         return "" if r.get(key) is None else f" ({r[key]:.4f} on the card)"
@@ -3125,6 +3337,7 @@ def main():
         gan_phase(cfg)
         log(f"  phase 16 took {time.time() - t:.1f} s")
         scale_out_phase(root, cfg)
+    counts_lt = new_modules_phase(cfg)
 
     def entry(name, source, replaces, r, launches=None):
         # times on the card (torch.profiler) where the profiler gave them,
@@ -3200,6 +3413,11 @@ def main():
         entry("fused_transformer_block_distill_teacher", "cosy_tpu_torch/csrc/fused_block.cu",
               "cosy_tpu/ops/fused_block.py:34", teacher_b,
               launches=counts_teacher["fused_transformer_block"]),
+        # phase 18 (b): the train-style flow inference's blocks (64 x NFE 4),
+        # times at the main path's T/2 level
+        entry("fused_transformer_block_like_training", "cosy_tpu_torch/csrc/fused_block.cu",
+              "cosy_tpu/ops/fused_block.py:34", main_b,
+              launches=counts_lt["fused_transformer_block"]),
     ]
     log(f"  run took {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

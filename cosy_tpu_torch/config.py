@@ -347,9 +347,10 @@ class InferenceConfig:
     sampling_top_k: int = 25
     ras_win_size: int = 10
     ras_tau_r: float = 0.1
-    # int8 decode is not ported (kept for config parity); the bucketed
-    # final streaming chunk and the short first hop are
+    # weight-only int8 decode (quant.py): the 300M decode step's block
+    # matrices, or every Qwen2 projection
     int8_decode: bool = False
+    # the bucketed final streaming chunk and the short first hop
     bucket_final: bool = True
     first_chunk_tokens: int = 0
 

@@ -194,10 +194,11 @@ class ContinuousBatchEngine:
             pl = self.pl
             with self.lock:
                 if self._state is None:
-                    idle, cfg = ((Q.qwen2lm_decode_idle, pl.lcfg) if self.is_cv2
-                                 else (L.llm_decode_idle, pl.cfg.llm))
+                    idle, cfg, kw = ((Q.qwen2lm_decode_idle, pl.lcfg, {}) if self.is_cv2
+                                     else (L.llm_decode_idle, pl.cfg.llm,
+                                           dict(step_p=pl.llm_step_p)))
                     self._state = idle(pl.llm_p, cfg, self.B, self.L0, self.max_len,
-                                       req.prefix.dtype, pl.device, **pl._sampling())
+                                       req.prefix.dtype, pl.device, **pl._sampling(), **kw)
                 b = self._slots.index(None)
                 admit = Q.qwen2lm_admit_slot if self.is_cv2 else L.llm_admit_slot
                 admit(self._state, req.prefix, req.valid, req.min_len, req.cap,

@@ -118,6 +118,10 @@ class TTSPipeline:
         self.icfg = infer_cfg
         self.finetuned_norm = finetuned_norm
         self.llm_p, self.flow_p, self.hift_p = llm.p, flow.p, hift.p
+        # the weights every decode route's per-token step reads: int8 under
+        # int8_decode (the prefill and the head keep llm_p)
+        self.llm_step_p = (L.quantize_decode_step(self.llm_p, model_cfg.llm)
+                           if infer_cfg.int8_decode else self.llm_p)
         # wall seconds of the last synthesize() / token2wav() per stage
         # (decode, flow, hift), each ending in a device synchronize
         self.stage_seconds: Dict[str, float] = {}
@@ -346,7 +350,7 @@ class TTSPipeline:
             text_tokens, prompt_text, prompt_speech_token, spk_embedding, max_len_cap, voice)
         state = L.llm_decode_start(self.llm_p, self.cfg.llm, prefix, [prefix.shape[1]],
                                    [min_len], [max_len], [generator], **self._sampling(),
-                                   **self._decode_lora(voice))
+                                   **self._decode_lora(voice), step_p=self.llm_step_p)
         target = min(self.first_hop + self.token_overlap_len, max_len) if stream else None
         while True:
             toks = state.run(target).tokens[0]
@@ -642,7 +646,7 @@ class TTSPipeline:
                                             lora_scale=self._llm_lora_scale)
         return L.llm_decode_start(self.llm_p, self.cfg.llm, prefix, valid, min_lens, max_lens,
                                   [self._decode_generator(seed, b) for b in range(len(built))],
-                                  **self._sampling(), **lora)
+                                  **self._sampling(), **lora, step_p=self.llm_step_p)
 
     @torch.inference_mode()
     def synthesize_batch(self, text_tokens_list: Sequence[np.ndarray], spk_embeddings=None,

@@ -19,8 +19,10 @@ Streaming has one window planner, :meth:`TTS2Pipeline.stream_chunks` over a
 batched streaming (``synthesize_stream_batch``) and the serving engine
 (``infer/engine.py``) all cut their token streams with it.
 
-Left out here: int8 decode (the bistream decoder has no pipeline entry
-point, as in the JAX package: ``models.qwen2lm.qwen2lm_inference_bistream``).
+``InferenceConfig.int8_decode`` quantizes every Qwen2 projection
+(``quant.QWEN2_PROJ_SUFFIXES``) once, in the constructor, for every route,
+as the JAX package does.  The bistream decoder has no pipeline entry point,
+as in the JAX package (``models.qwen2lm.qwen2lm_inference_bistream``).
 """
 
 from __future__ import annotations
@@ -39,6 +41,8 @@ from ..models.flow import interpolate_linear
 from ..models.flow import check_sampler_weights
 from ..models.flow2 import Flow2, Flow2Config, flow2_inference
 from ..ops.fused_block import require_kernel_widths
+from ..params import P
+from ..quant import quantize_int8
 from .pipeline import _batch_prefixes, fade_in_out, stream_seed
 
 
@@ -88,11 +92,11 @@ class TTS2Pipeline:
                  infer_cfg: InferenceConfig = InferenceConfig(), hop_samples: int = 480):
         self.device = next(flow.parameters()).device
         require_kernel_widths(flow_cfg.estimator, self.device)
-        if infer_cfg.int8_decode:
-            raise NotImplementedError("int8 weight-only decode is not ported (queue A16)")
         check_sampler_weights(infer_cfg.sampler, infer_cfg.meanflow_steps, flow)
         self.lcfg, self.fcfg, self.hcfg, self.icfg = llm_cfg, flow_cfg, hift_cfg, infer_cfg
         self.llm_p, self.flow_p, self.hift_p = llm.p, flow.p, hift.p
+        if infer_cfg.int8_decode:
+            self.llm_p = P(quantize_int8(self.llm_p.d))
         self.token_hop_len = 25  # model.py:307, the training chunk
         self.mel_cache_len = 8
         self.hop_samples = hop_samples

@@ -56,16 +56,26 @@ def _lora_delta(ctx: Ctx, full_name: str, x: torch.Tensor, conv: bool):
 def dense(p: P, name: str, x: torch.Tensor, ctx: Ctx = EVAL) -> torch.Tensor:
     """torch nn.Linear: weight (out, in), y = x @ W^T + b, plus the LoRA delta.
     Under ``parallel.tp.tensor_parallel`` a weight split over the model axis
-    runs the split product (``parallel.tp.split_dense``)."""
+    runs the split product (``parallel.tp.split_dense``).
+
+    An int8 weight with a ``.weight@scale`` sibling (``quant.quantize_int8``)
+    is weight-only quantized: the product runs on the weight cast to x's
+    dtype and is scaled per output channel, then the bias and the LoRA
+    delta are added."""
     b = p.get(name + ".bias")
+    w = p[name + ".weight"]
     axis = split_axis(p.full(name + ".weight"))
     if axis is not None:
-        if ctx.lora is not None:
-            raise NotImplementedError("LoRA adapters on a tensor-parallel weight")
-        return split_dense(x, p[name + ".weight"].to(x.dtype),
-                           None if b is None else b.to(x.dtype), axis)
-    y = F.linear(x, p[name + ".weight"].to(x.dtype),
-                 None if b is None else b.to(x.dtype))
+        if ctx.lora is not None or w.dtype == torch.int8:
+            raise NotImplementedError("LoRA adapters or int8 weights on a tensor-parallel "
+                                      "weight")
+        return split_dense(x, w.to(x.dtype), None if b is None else b.to(x.dtype), axis)
+    if w.dtype == torch.int8:
+        y = F.linear(x, w.to(x.dtype)) * p[name + ".weight@scale"].to(x.dtype)
+        if b is not None:
+            y = y + b.to(x.dtype)
+    else:
+        y = F.linear(x, w.to(x.dtype), None if b is None else b.to(x.dtype))
     if ctx.lora is not None:
         delta = _lora_delta(ctx, p.full(name), x, conv=False)
         if delta is not None:
@@ -194,6 +204,13 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 
 def gelu(x: torch.Tensor, approximate: bool = False) -> torch.Tensor:
     return F.gelu(x, approximate="tanh" if approximate else "none")
+
+
+def glu(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Gated linear unit: the first half of ``dim`` times the sigmoid of the
+    second."""
+    a, b = torch.chunk(x, 2, dim=dim)
+    return a * torch.sigmoid(b)
 
 
 def leaky_relu(x: torch.Tensor, slope: float = 0.01) -> torch.Tensor:

@@ -1,10 +1,12 @@
 """Conformer / Transformer encoder stack (the port of the JAX package's
-``layers/conformer.py``, without the CNN module): the flow
-token encoder (6-block conformer), the LLM text encoder (6-block causal
-conformer) and the LLM backbone (14-block causal transformer with the
-``linear_legacy`` input).  The ``Ctx`` carries LoRA adapters and, in training,
-the dropout points of the reference (embedding, positional table, attention
-weights, feed-forward hidden and every residual branch).
+``layers/conformer.py``): the flow token encoder (6-block conformer), the
+LLM text encoder (6-block causal conformer) and the LLM backbone (14-block
+causal transformer with the ``linear_legacy`` input).  A conformer block
+takes the CNN module (``EncoderConfig.use_cnn_module``) where a
+configuration asks for it; none of CosyVoice's does.  The ``Ctx`` carries
+LoRA adapters and, in training, the dropout points of the reference
+(embedding, positional table, attention weights, feed-forward hidden and
+every residual branch).
 
 ``EncoderConfig.gradient_checkpointing`` recomputes each layer's
 activations in the backward pass (``torch.utils.checkpoint``, non-reentrant)
@@ -27,7 +29,7 @@ from ..parallel import comm
 from ..parallel.tp import model_group, split_axis
 from ..params import P, Spec
 from .attention import mha, rel_pos_mha
-from .basic import ACT, dense, layer_norm
+from .basic import ACT, conv1d, dense, glu, layer_norm
 from .posenc import rel_pos_table
 
 
@@ -86,11 +88,38 @@ def moe_ffn(p: P, name: str, x: torch.Tensor, n_expert: int, n_expert_per_token:
     return out.reshape(B, L, D)
 
 
+def convolution_module(p: P, name: str, x: torch.Tensor, pad_mask: torch.Tensor, act,
+                       kernel_size: int, causal: bool, norm: str,
+                       ctx: Ctx = EVAL) -> torch.Tensor:
+    """Conformer conv module on (B, T, C) (reference: convolution.py /
+    modules.py:454-530): pointwise conv -> GLU -> depthwise conv (causal:
+    left-padded by kernel - 1; else centred) -> LayerNorm, or BatchNorm in
+    eval from its running statistics -> activation -> pointwise conv.  Pad
+    frames (``pad_mask`` (B, 1, T), True = valid) are zeroed on the way in
+    and out."""
+    sp = p.sub(name)
+    xc = (x * pad_mask.transpose(1, 2).to(x.dtype)).transpose(1, 2)  # (B, C, T)
+    C = xc.shape[1]
+    xc = glu(conv1d(sp, "pointwise_conv1", xc, ctx=ctx), dim=1)
+    if causal:
+        xc = conv1d(sp, "depthwise_conv", F.pad(xc, (kernel_size - 1, 0)), groups=C, ctx=ctx)
+    else:
+        xc = conv1d(sp, "depthwise_conv", xc, padding=(kernel_size - 1) // 2, groups=C, ctx=ctx)
+    if norm == "layer_norm":
+        xc = layer_norm(sp, "norm", xc.transpose(1, 2), eps=1e-5).transpose(1, 2)
+    else:
+        mean, var, w, b = (sp["norm." + k].float()[None, :, None]
+                           for k in ("running_mean", "running_var", "weight", "bias"))
+        xc = ((xc.float() - mean) * torch.rsqrt(var + 1e-5) * w + b).to(xc.dtype)
+    xc = conv1d(sp, "pointwise_conv2", act(xc), ctx=ctx)
+    return (xc * pad_mask.to(xc.dtype)).transpose(1, 2)
+
+
 def conformer_layer(p: P, name: str, cfg: EncoderConfig, x, attn_bias, pos_emb,
-                    ctx: Ctx = EVAL):
-    """Pre-norm conformer block (macaron FF optional, no CNN module)."""
-    if cfg.use_cnn_module:
-        raise NotImplementedError("the conformer CNN module is not ported yet")
+                    pad_mask, ctx: Ctx = EVAL):
+    """Pre-norm conformer block: macaron FF and the CNN module (between
+    attention and the FF, with a final LayerNorm) as ``cfg`` asks;
+    ``pad_mask`` (B, 1, T) masks the CNN module's pad frames."""
     sp = p.sub(name)
     act = ACT[cfg.activation_type]
     eps = cfg.layer_norm_eps
@@ -104,10 +133,18 @@ def conformer_layer(p: P, name: str, cfg: EncoderConfig, x, attn_bias, pos_emb,
     h = rel_pos_mha(sp, "self_attn", h, pos_emb, attn_bias, cfg.attention_heads, ctx,
                     dropout_rate=cfg.attention_dropout_rate)
     x = x + ctx.dropout(h, cfg.dropout_rate)
+    if cfg.use_cnn_module:
+        h = convolution_module(sp, "conv_module", layer_norm(sp, "norm_conv", x, eps=eps),
+                               pad_mask, act, cfg.cnn_module_kernel, cfg.causal,
+                               cfg.cnn_module_norm, ctx)
+        x = x + ctx.dropout(h, cfg.dropout_rate)
     h = layer_norm(sp, "norm_ff", x, eps=eps)
-    return x + ff_scale * ctx.dropout(
+    x = x + ff_scale * ctx.dropout(
         positionwise_ff(sp, "feed_forward", h, act, cfg.dropout_rate, ctx),
         cfg.dropout_rate)
+    if cfg.use_cnn_module:
+        x = layer_norm(sp, "norm_final", x, eps=eps)
+    return x
 
 
 def transformer_layer(p: P, name: str, cfg: EncoderConfig, x, attn_bias, pos_emb,
@@ -207,21 +244,22 @@ def encoder_forward(
         T, pad_mask, cfg.use_dynamic_chunk, cfg.use_dynamic_left_chunk,
         decoding_chunk_size, cfg.static_chunk_size, num_decoding_left_chunks)
     attn_bias = M.mask_to_bias(chunk_masks, xs.dtype)
-    layer = conformer_layer if conformer else transformer_layer
+    layer, masks = ((conformer_layer, (attn_bias, pos_emb, pad_mask)) if conformer
+                    else (transformer_layer, (attn_bias, pos_emb)))
     for i in range(cfg.num_blocks):
         if cfg.gradient_checkpointing and ctx.train:
-            xs = _checkpointed(layer, ctx, p, f"encoders.{i}", cfg, xs, attn_bias, pos_emb)
+            xs = _checkpointed(layer, ctx, p, f"encoders.{i}", cfg, xs, *masks)
         else:
-            xs = layer(p, f"encoders.{i}", cfg, xs, attn_bias, pos_emb, ctx)
+            xs = layer(p, f"encoders.{i}", cfg, xs, *masks, ctx)
     if cfg.normalize_before:
         xs = layer_norm(p, "after_norm", xs, eps=1e-5)
     return xs, pad_mask
 
 
 def init_encoder(spec: Spec, prefix: str, cfg: EncoderConfig, conformer: bool = True):
-    """Names and shapes of the JAX package's ``init_encoder``."""
-    if cfg.use_cnn_module:
-        raise NotImplementedError("the conformer CNN module is not ported yet")
+    """Names and shapes of the JAX package's ``init_encoder``; a BatchNorm
+    CNN module also holds the running statistics it reads
+    (``running_mean`` / ``running_var``, as a torch BatchNorm1d does)."""
     pre = prefix + "." if prefix else ""
     D, H = cfg.output_size, cfg.attention_heads
     spec.linear(pre + "embed.out.0", cfg.input_size, D)
@@ -246,6 +284,17 @@ def init_encoder(spec: Spec, prefix: str, cfg: EncoderConfig, conformer: bool = 
                 spec.linear(f"{lp}.feed_forward_macaron.w_1", D, cfg.linear_units)
                 spec.linear(f"{lp}.feed_forward_macaron.w_2", cfg.linear_units, D)
                 spec.norm(f"{lp}.norm_ff_macaron", D)
+            if cfg.use_cnn_module:
+                cm = f"{lp}.conv_module"
+                spec.conv1d(f"{cm}.pointwise_conv1", D, 2 * D, 1)
+                spec.conv1d(f"{cm}.depthwise_conv", D, D, cfg.cnn_module_kernel, groups=D)
+                spec.conv1d(f"{cm}.pointwise_conv2", D, D, 1)
+                spec.norm(f"{cm}.norm", D)
+                if cfg.cnn_module_norm == "batch_norm":
+                    spec.zeros(f"{cm}.norm.running_mean", (D,))
+                    spec.add(f"{cm}.norm.running_var", (D,), lambda t, g: t.fill_(1.0))
+                spec.norm(f"{lp}.norm_conv", D)
+                spec.norm(f"{lp}.norm_final", D)
         else:
             spec.norm(f"{lp}.norm1", D)
             spec.norm(f"{lp}.norm2", D)

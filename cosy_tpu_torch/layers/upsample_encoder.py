@@ -83,7 +83,7 @@ def upsample_encoder_forward(
     if mask_pads_exact:
         xs = xs * pad_mask.transpose(1, 2).to(xs.dtype)
     for i in range(cfg.num_blocks):
-        xs = conformer_layer(p, f"encoders.{i}", cfg, xs, attn_bias, pos_emb, ctx)
+        xs = conformer_layer(p, f"encoders.{i}", cfg, xs, attn_bias, pos_emb, pad_mask, ctx)
 
     xs = upsample1d(p.sub("up_layer"), xs.transpose(1, 2), up_stride, ctx).transpose(1, 2)
     T2 = xs.shape[1]
@@ -96,7 +96,8 @@ def upsample_encoder_forward(
     attn_bias2 = M.mask_to_bias(
         M.add_optional_chunk_mask(T2, pad_mask2, False, False, 0, chunk2, -1), xs.dtype)
     for i in range(num_up_blocks):
-        xs = conformer_layer(p, f"up_encoders.{i}", cfg, xs, attn_bias2, pos_emb2, ctx)
+        xs = conformer_layer(p, f"up_encoders.{i}", cfg, xs, attn_bias2, pos_emb2, pad_mask2,
+                             ctx)
     if cfg.normalize_before:
         xs = layer_norm(p, "after_norm", xs, eps=1e-5)
     return xs, pad_mask2

@@ -605,6 +605,60 @@ def flow_inference(
     return (feat, new_cache) if return_cache else feat
 
 
+def flow_inference_like_training(
+    p: P,
+    cfg: FlowConfig,
+    token: torch.Tensor,  # (1, T_tok) the whole speech-token sequence
+    feat_len: int,  # target mel frames
+    spk_embedding: torch.Tensor,  # (1, 192)
+    prompt_feat: Optional[torch.Tensor] = None,  # (1, T_pmel, 80), conditioning only
+    prompt_len: int = 0,
+    n_timesteps: Optional[int] = None,
+    generator: Optional[torch.Generator] = None,
+    z: Optional[torch.Tensor] = None,  # (1, 80, T_pad) injected initial noise
+) -> torch.Tensor:
+    """Inference the way training runs the flow (flow_model.py:553-638
+    inference_like_training) -> the whole mel (1, 80, feat_len), prompt
+    region included.
+
+    The whole token sequence goes through the training regulator (one
+    interpolation to ``feat_len``, no prompt / target seam), and the first
+    ``prompt_len`` frames of ``prompt_feat`` enter only as conditioning.  A
+    model whose training loss is healthy gives a clean mel here, so a gap
+    to :func:`flow_inference` points at the seam and trim machinery.  NFE
+    as :func:`flow_inference` picks it (an explicit 10 too); ``z`` is drawn
+    at the padded length from ``generator`` unless given.  The estimator's
+    blocks run fused at ``EVAL``, as in :func:`flow_inference`."""
+    T = int(feat_len)
+    dev = token.device
+    spk = dense(p, "spk_embed_affine_layer", _l2_normalize(spk_embedding, dim=1))
+    h = flow_encode(p, cfg, token, torch.tensor([token.shape[1]], dtype=torch.int32, device=dev))
+    h = length_regulator(p.sub("length_regulator"), h,
+                         torch.tensor([T], dtype=torch.int32, device=dev), T,
+                         cfg.regulator_stages)
+    conds = torch.zeros((1, T, cfg.output_size), dtype=h.dtype, device=dev)
+    if prompt_feat is not None and prompt_len > 0:
+        n = min(prompt_len, prompt_feat.shape[1], T)
+        conds[:, :n] = prompt_feat[:, :n].to(h.dtype)
+    if n_timesteps is None or n_timesteps == 10:
+        n_timesteps = 20 if T > 500 else (15 if T > 300 else 10)
+    T_pad = T + (T % 2)
+    mask = None
+    if T_pad != T:
+        mask = torch.zeros((1, 1, T_pad), dtype=h.dtype, device=dev)
+        mask[:, :, :T] = 1.0
+    mu = torch.nn.functional.pad(h.transpose(1, 2), (0, T_pad - T))
+    conds = torch.nn.functional.pad(conds.transpose(1, 2), (0, T_pad - T))
+    if z is None:
+        z = torch.randn((1, cfg.output_size, T_pad), generator=generator, device=dev,
+                        dtype=torch.float32)
+    elif z.shape != (1, cfg.output_size, T_pad):
+        raise ValueError(f"z must be (1, {cfg.output_size}, {T_pad}), got {tuple(z.shape)}")
+    feat = cfm_solve_euler(p.sub("decoder.estimator"), cfg, z.to(h.dtype), mask, mu, spk, conds,
+                           n_timesteps)
+    return feat[:, :, :T]
+
+
 class Flow(MeanFlowLoadable, ParamTree):
     """MaskedDiffWithXvec weights (flow.pt names); a MeanFlow-distilled
     state dict adds the ``time_mlp_s`` branch on load."""

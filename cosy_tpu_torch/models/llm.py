@@ -18,6 +18,12 @@ row's voice index (``vids``).  Prefill routes them through the ``Ctx``; the
 per-token step adds each row's own deltas to ``linear_q/k/v/out`` and
 ``w_1/w_2`` of every block (``_DECODE_LORA_MODS``), and an adapter on any
 other module of the backbone is refused rather than dropped.
+
+Weight-only int8 decode: the per-token step reads its own view of the
+weights, ``step_p`` (:func:`quantize_decode_step`: those six matrices of
+every block in int8), while the prefill, the positional keys and the head
+read the full-precision ``p``; voice adapters add their deltas on top of
+the int8 products.
 """
 
 from __future__ import annotations
@@ -305,6 +311,19 @@ def _stack_decode_loras(lora: Dict[str, torch.Tensor], nl: int,
     return ensure_voice_stacked(out)
 
 
+def quantize_decode_step(p: P, cfg: LLMConfig) -> P:
+    """The weights the int8 decode step reads: ``p`` with ``linear_q/k/v/
+    out``, ``w_1`` and ``w_2`` of every backbone block (``llm.encoders.*``)
+    weight-only int8 with per-output-row scales (``quant.quantize_int8``).
+    The JAX package quantizes the same matrices with q, k and v fused into
+    one, whose per-row scales are theirs taken apart, so the int8 values
+    are the same."""
+    from ..quant import quantize_int8
+
+    return P(quantize_int8(p.d, tuple(f"{m}.weight" for m in _DECODE_LORA_MODS),
+                           prefix=p.prefix + "llm.encoders."), p.prefix)
+
+
 def _decode_ctx(lora: Optional[Dict[str, torch.Tensor]], vids: Optional[Sequence[int]],
                 scale: float, device) -> Ctx:
     """The ``Ctx`` that routes row b through voice ``vids[b]`` of ``lora``."""
@@ -370,11 +389,13 @@ def llm_teacher_forced_logits(p: P, cfg: LLMConfig, prefix_emb: torch.Tensor,
                               valid: Sequence[int], tokens: Sequence[Sequence[int]],
                               lora: Optional[Dict[str, torch.Tensor]] = None,
                               vids: Optional[Sequence[int]] = None,
-                              lora_scale: float = 1.0) -> torch.Tensor:
+                              lora_scale: float = 1.0,
+                              step_p: Optional[P] = None) -> torch.Tensor:
     """(B, n + 1, V+1) next-token logits of B LEFT-padded prefixes fed the
     given tokens (B rows of n) through the batched prefill and steps: the
     logits each step of a batched decode samples from, for those tokens
-    (with ``lora`` / ``vids`` as :func:`llm_decode_start` takes them)."""
+    (with ``lora`` / ``vids`` / ``step_p`` as :func:`llm_decode_start`
+    takes them)."""
     B, L0 = prefix_emb.shape[:2]
     n = len(tokens[0])
     lora, vids = _voice_rows(cfg, lora, vids, B)
@@ -382,8 +403,8 @@ def llm_teacher_forced_logits(p: P, cfg: LLMConfig, prefix_emb: torch.Tensor,
     logits, cache = _prefilled_cache(p, cfg, prefix_emb, valid, L0 + n, ctx)
     out = [logits]
     for j in range(n):
-        out.append(llm_decode_step_batch(p, cfg, cache, [row[j] for row in tokens],
-                                         [L0 + j] * B, ctx))
+        out.append(llm_decode_step_batch(p if step_p is None else step_p, cfg, cache,
+                                         [row[j] for row in tokens], [L0 + j] * B, ctx))
     return torch.stack(out, 1)
 
 
@@ -428,7 +449,9 @@ class DecodeState:
     columns are slot-local (:class:`KVCache`): a request admitted into a
     free row (:func:`llm_admit_slot`) starts at its own column L0 whatever
     the other rows have decoded.  With adapters, ``lora`` is the
-    voice-stacked bank and ``vids[b]`` row b's voice in it."""
+    voice-stacked bank and ``vids[b]`` row b's voice in it.  ``step_p``
+    is the weights the per-token step reads (the int8 view of
+    :func:`quantize_decode_step`; None: ``p``)."""
     p: P
     cfg: LLMConfig
     cache: KVCache
@@ -444,6 +467,7 @@ class DecodeState:
     lora: Optional[Dict[str, torch.Tensor]] = None  # voice-stacked decode adapters
     vids: Optional[List[int]] = None  # each row's voice in ``lora``
     lora_scale: float = 1.0
+    step_p: Optional[P] = None
 
     @property
     def max_len(self) -> int:
@@ -470,8 +494,9 @@ class DecodeState:
             cols = [self.L0 - 1 if d else self.L0 + len(t) - 1
                     for t, d in zip(self.tokens, self.done)]
             live = [b for b, d in enumerate(self.done) if not d]
-            logits = llm_decode_step_batch(self.p, self.cfg, self.cache, self.last,
-                                           cols, ctx).float().cpu()
+            logits = llm_decode_step_batch(self.p if self.step_p is None else self.step_p,
+                                           self.cfg, self.cache, self.last, cols,
+                                           ctx).float().cpu()
             for b in live:
                 self._sample(b, logits[b])
             self.i += 1
@@ -484,12 +509,14 @@ def llm_decode_start(p: P, cfg: LLMConfig, prefix_emb: torch.Tensor,
                      top_p: float = 0.8, top_k: int = 25, win_size: int = 10,
                      tau_r: float = 0.1, lora: Optional[Dict[str, torch.Tensor]] = None,
                      vids: Optional[Sequence[int]] = None,
-                     lora_scale: float = 1.0) -> DecodeState:
+                     lora_scale: float = 1.0, step_p: Optional[P] = None) -> DecodeState:
     """Prefill B LEFT-padded prefixes (B, L0, D) with ``valid[b]`` real
     rows each and sample every row's first token: a :class:`DecodeState` of
     capacity ``max(caps)`` tokens a row, paused after step 0.  ``lora``: a
     voice-stacked adapter bank (or one voice's dict) served un-merged, row
-    b through voice ``vids[b]`` (all 0 when None) at ``lora_scale``."""
+    b through voice ``vids[b]`` (all 0 when None) at ``lora_scale``.
+    ``step_p``: the per-token step's weights (:func:`quantize_decode_step`
+    for the int8 decode); the prefill reads ``p``."""
     B, L0 = prefix_emb.shape[:2]
     if min(caps) < 1:
         raise ValueError(f"every cap must be >= 1, got {list(caps)}")
@@ -499,7 +526,7 @@ def llm_decode_start(p: P, cfg: LLMConfig, prefix_emb: torch.Tensor,
     state = DecodeState(p, cfg, cache, L0, [[] for _ in range(B)], [0] * B, [False] * B,
                         list(min_lens), list(caps), list(generators),
                         (top_p, top_k, win_size, tau_r), lora=lora, vids=vids,
-                        lora_scale=lora_scale)
+                        lora_scale=lora_scale, step_p=step_p)
     logits = logits.float().cpu()
     for b in range(B):
         state._sample(b, logits[b])
@@ -509,16 +536,17 @@ def llm_decode_start(p: P, cfg: LLMConfig, prefix_emb: torch.Tensor,
 def llm_decode_idle(p: P, cfg: LLMConfig, slots: int, L0: int, max_len: int, dtype, device,
                     top_p: float = 0.8, top_k: int = 25, win_size: int = 10,
                     tau_r: float = 0.1, lora: Optional[Dict[str, torch.Tensor]] = None,
-                    lora_scale: float = 1.0) -> DecodeState:
+                    lora_scale: float = 1.0, step_p: Optional[P] = None) -> DecodeState:
     """A :class:`DecodeState` of ``slots`` free rows (all done), prefix width
     L0 and ``max_len`` tokens a row, for :func:`llm_admit_slot` to fill;
-    with ``lora`` (a voice-stacked bank) every admission names its voice."""
+    with ``lora`` (a voice-stacked bank) every admission names its voice.
+    ``step_p`` as :func:`llm_decode_start` takes it."""
     cache = _empty_cache(p, cfg, slots, L0 + max_len, dtype, device)
     lora, vids = _voice_rows(cfg, lora, None, slots)
     return DecodeState(p, cfg, cache, L0, [[] for _ in range(slots)], [0] * slots,
                        [True] * slots, [0] * slots, [0] * slots, [None] * slots,
                        (top_p, top_k, win_size, tau_r), lora=lora, vids=vids,
-                       lora_scale=lora_scale)
+                       lora_scale=lora_scale, step_p=step_p)
 
 
 def llm_admit_slot(state: DecodeState, prefix_emb: torch.Tensor, valid: int, min_len: int,
@@ -566,15 +594,17 @@ def llm_decode(
     lora: Optional[Dict[str, torch.Tensor]] = None,
     vid: Optional[int] = None,
     lora_scale: float = 1.0,
+    step_p: Optional[P] = None,
 ) -> List[int]:
     """AR decode of up to ``max_len`` speech tokens with RAS sampling: one
     uninterrupted run of a solo :class:`DecodeState`.  ``generator`` is a
     CPU generator: sampling runs on the host.  ``lora`` / ``vid``: serve
-    voice ``vid`` of a voice-stacked bank (or one voice's dict) un-merged."""
+    voice ``vid`` of a voice-stacked bank (or one voice's dict) un-merged.
+    ``step_p``: the int8 step weights of :func:`quantize_decode_step`."""
     state = llm_decode_start(p, cfg, prefix_emb, [prefix_emb.shape[1]], [min_len],
                              [max_len], [generator], top_p, top_k, win_size, tau_r,
                              lora=lora, vids=None if vid is None else [vid],
-                             lora_scale=lora_scale)
+                             lora_scale=lora_scale, step_p=step_p)
     return state.run().tokens[0]
 
 

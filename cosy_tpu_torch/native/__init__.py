@@ -2,13 +2,15 @@
 
 ``f0.cpp`` is the autocorrelation pitch tracker (the port's copy of the JAX
 package's ``native/f0.cpp``; reference: pyworld, a C++ library, via
-cosyvoice/dataset/processor.py compute_f0).  It is compiled with the system
-``g++`` (OpenMP, ``-march=native -ffast-math``: the hot loop is a dot
-product that vectorizes only under reassociation) into the git-ignored
-``build/cosy_tpu_torch/`` beside the package, named by a hash of the source
-and flags, and loaded with ``ctypes`` through a plain C entry point.  A
-failed build raises: nothing falls back to the numpy tracker behind the
-caller's back.
+cosyvoice/dataset/processor.py compute_f0); ``mas.cpp`` is monotonic
+alignment search (the copy of ``native/mas.cpp``; reference: the Cython
+matcha/utils/monotonic_align).  Each is compiled with the system ``g++``
+(OpenMP; f0 adds ``-march=native -ffast-math``: its hot loop is a dot
+product that vectorizes only under reassociation, while MAS keeps exact
+float arithmetic) into the git-ignored ``build/cosy_tpu_torch/`` beside
+the package, named by a hash of the source and flags, and loaded with
+``ctypes`` through a plain C entry point.  A failed build raises: nothing
+falls back to the numpy versions behind the caller's back.
 """
 
 from __future__ import annotations
@@ -21,7 +23,8 @@ from pathlib import Path
 
 SRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cosy_tpu_torch"
-FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-fopenmp", "-march=native", "-ffast-math")
+FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-fopenmp")
+EXTRA_FLAGS = {"f0": ("-march=native", "-ffast-math")}
 
 _lock = threading.Lock()
 _libs = {}
@@ -31,13 +34,14 @@ def build(name: str) -> Path:
     """Compile ``<name>.cpp`` unless a library of the same source and flags
     exists; returns its path.  Raises with g++'s output on failure."""
     src = SRC_DIR / f"{name}.cpp"
-    h = hashlib.sha1(src.read_bytes() + " ".join(FLAGS).encode()).hexdigest()[:12]
+    flags = FLAGS + EXTRA_FLAGS.get(name, ())
+    h = hashlib.sha1(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:12]
     out = BUILD_DIR / f"lib{name}_{h}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{threading.get_ident()}.tmp")
-    res = subprocess.run(["g++", *FLAGS, str(src), "-o", str(tmp)], capture_output=True,
+    res = subprocess.run(["g++", *flags, str(src), "-o", str(tmp)], capture_output=True,
                          text=True, timeout=300)
     if res.returncode != 0:
         raise RuntimeError(f"g++ failed to build {src}:\n{res.stdout}{res.stderr}")
@@ -56,3 +60,16 @@ def f0_library() -> ctypes.CDLL:
             lib.cosy_extract_f0.restype = None
             _libs["f0"] = lib
         return _libs["f0"]
+
+
+def mas_library() -> ctypes.CDLL:
+    """The loaded monotonic alignment search (built on first use)."""
+    with _lock:
+        if "mas" not in _libs:
+            lib = ctypes.CDLL(str(build("mas")))
+            lib.cosy_maximum_path.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int]
+            lib.cosy_maximum_path.restype = None
+            _libs["mas"] = lib
+        return _libs["mas"]

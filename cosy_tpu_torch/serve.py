@@ -600,7 +600,6 @@ def warmup(server: TTSServer, text: str = "warmup.") -> float:
 # each with its default, which is the only value accepted
 _QUEUED = {"tp": (1, "A16 (serve --tp: one process per GPU needs a server design of its "
                     "own; the training scale-out is ported)"),
-           "int8": (False, "A16 (quant.py)"),
            "aot_cache": (None, "A16 (utils/aot.py)"),
            "engine_prefetch": (False, "A9 (prefetch is left out by design: the port syncs "
                                       "every token for host sampling)")}
@@ -652,9 +651,13 @@ def build_parser() -> argparse.ArgumentParser:
                          "(--flow-weights from python -m cosy_tpu_torch.train.distill)")
     ap.add_argument("--meanflow-steps", type=int, default=None,
                     help="estimator calls a flow solve under --sampler meanflow (default 2)")
+    ap.add_argument("--int8", action="store_true",
+                    help="weight-only int8 decode: per-row int8 weights in the decode step "
+                         "(CosyVoice-300M) or every Qwen2 projection (--cosyvoice2); the "
+                         "rounding can change the sampled tokens, so check a voice first "
+                         "with quant.validate_int8_voice")
     # flags of the JAX server whose modules are still queued: refused
     ap.add_argument("--tp", type=int, default=1)
-    ap.add_argument("--int8", action="store_true")
     ap.add_argument("--aot-cache", default=None)
     ap.add_argument("--engine-prefetch", action="store_true")
     return ap
@@ -674,15 +677,17 @@ def build_server(args) -> TTSServer:
     fnorm = resolve_finetuned_norm(args.flow_weights, override_flow, args.finetuned_norm,
                                    args.cosyvoice2)
     icfg = None
-    if args.sampler == "meanflow":
-        # the model dir's yaml knobs survive the sampler override
+    if args.sampler == "meanflow" or args.int8:
+        # the model dir's yaml knobs survive the sampler and int8 overrides
         yaml_path = os.path.join(args.model_dir, "cosyvoice.yaml")
         if not args.cosyvoice2 and os.path.exists(yaml_path):
             from .compat.yaml_config import inference_config_from_yaml
 
             icfg = inference_config_from_yaml(yaml_path)
-        icfg = replace(icfg or InferenceConfig(), sampler="meanflow",
-                       meanflow_steps=2 if args.meanflow_steps is None else args.meanflow_steps)
+        icfg = replace(icfg or InferenceConfig(), int8_decode=args.int8)
+        if args.sampler == "meanflow":
+            icfg = replace(icfg, sampler="meanflow", meanflow_steps=2 if args.meanflow_steps
+                           is None else args.meanflow_steps)
     kw = dict(infer_cfg=icfg, device=args.device, flow_state=override_flow)
     try:  # the pipeline holds the sampler against the flow weights
         api = (CosyVoice2(args.model_dir, **kw) if args.cosyvoice2
@@ -692,8 +697,10 @@ def build_server(args) -> TTSServer:
     model = api.model
     if override_flow is not None:
         print(f"flow weights <- {args.flow_weights}")
-    if icfg is not None:
+    if args.sampler == "meanflow":
         print(f"flow sampler: meanflow, {icfg.meanflow_steps} steps")
+    if args.int8:
+        print("decode: weight-only int8")
     if args.attn_window:
         if args.cosyvoice2:
             model.fcfg = replace(model.fcfg, estimator=replace(

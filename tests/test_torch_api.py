@@ -30,21 +30,11 @@ from cosy_tpu_torch.infer.pipeline import StreamCursor, TTSPipeline, stream_seed
 from cosy_tpu_torch.params import save_torch_checkpoint
 from test_torch_common import assert_close, port_config, port_modules, tiny_flats
 from test_torch_stream import _draws
+from test_torch_common import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 TOL = dict(atol=2e-4, rtol=2e-4)
 SPK = np.random.default_rng(11).standard_normal((1, 192)).astype(np.float32)
 SHORT = InferenceConfig(max_token_text_ratio=3.0)  # short decodes keep the API tests cheap
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread for this module's tiny CPU models: many small
-    ops, for which a thread pool only adds contention beside other test
-    processes; the count is restored afterwards."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -26,6 +26,7 @@ from cosy_tpu_torch.layers.unet import conditional_decoder as t_decoder
 from cosy_tpu_torch.models import flow as TF
 from cosy_tpu_torch.ops import flash_attention as tfa
 from test_torch_common import assert_close, port_config, port_init, t, torch_params
+from test_torch_common import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 MODULE_TOL = dict(atol=2e-4, rtol=2e-4)

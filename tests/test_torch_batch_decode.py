@@ -14,6 +14,7 @@ from cosy_tpu.config import tiny_model_config as j_tiny
 from cosy_tpu_torch.models import llm as TL
 from test_torch_common import assert_close, port_config, port_init, t, torch_params
 from test_torch_llm import _jax_causal_logits
+from test_torch_common import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 TOL = dict(atol=2e-4, rtol=2e-4)
 LENS = (5, 9, 7)  # prefix lengths of the three rows

@@ -35,6 +35,7 @@ from cosy_tpu_torch.ops import fused_block as tfb
 from cosy_tpu_torch.ops.flash_attention import flash_attention_ref
 from test_torch_common import assert_close, t
 from test_torch_kernel_plans import _matmul_tf32, _within
+from test_torch_common import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 CSRC = Path(tfb.__file__).resolve().parent.parent / "csrc"

@@ -16,6 +16,7 @@ from cosy_tpu.params import P as JP
 from cosy_tpu_torch.models import flow as TF, hift as TH
 from test_torch_common import assert_close, port_config, port_init, t, torch_params
 from test_torch_hift import _jax_draws
+from test_torch_common import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 TOL = dict(atol=2e-4, rtol=2e-4)
 UP = 256  # tiny HiFT: 8 x 8 upsampling x hop 4

@@ -9,12 +9,25 @@ import dataclasses
 import os
 
 import numpy as np
+import pytest
 import torch
 
 from cosy_tpu_torch import config as TC
 from cosy_tpu_torch.params import P as TP, from_numpy
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for a module's tiny CPU models: many small ops,
+    for which a thread pool only adds contention beside the other test
+    workers; the count is restored afterwards.  Every port test module
+    imports it by name, which makes it autouse there."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def torch_params(flat) -> TP:

@@ -39,6 +39,7 @@ from cosy_tpu_torch.params import P as TP, from_numpy
 from golden_seed import seeded_param
 from test_torch_common import GOLDEN_DIR, assert_close, t
 from test_torch_hift import _jax_draws
+from test_torch_common import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 TOL = dict(atol=2e-4, rtol=2e-4)
 
@@ -203,7 +204,9 @@ def test_flow2_inference_matches_jax(cv2, case):
 def test_sampler_and_int8_options_that_are_not_ported_raise(cv2):
     """An unknown sampler and a step count below 1 raise; the MeanFlow
     sampler (ported, tests/test_torch_distill.py) is refused on weights
-    without the distilled branch; int8 decode is not ported (A16)."""
+    without the distilled branch.  int8 decode is ported (A16): it is
+    taken, and quantizes the seven projections of every Qwen2 block
+    (tests/test_torch_quant.py holds the values to JAX's)."""
     _, tpipe, _ = cv2
     args = (tpipe.flow_p, FCFG, torch.zeros((1, 4), dtype=torch.long),
             torch.zeros((1, 0), dtype=torch.long), torch.zeros((1, 0, 80)), torch.zeros((1, 12)))
@@ -214,8 +217,8 @@ def test_sampler_and_int8_options_that_are_not_ported_raise(cv2):
     mods = (Qwen2LM(LCFG, "meta"), TF2.Flow2(FCFG, "meta"), HiFT(HCFG, "meta"))
     with pytest.raises(ValueError, match="MeanFlow-distilled"):
         TP2.TTS2Pipeline(LCFG, FCFG, HCFG, *mods, TC.InferenceConfig(sampler="meanflow"))
-    with pytest.raises(NotImplementedError, match="int8"):
-        TP2.TTS2Pipeline(LCFG, FCFG, HCFG, *mods, TC.InferenceConfig(int8_decode=True))
+    q = TP2.TTS2Pipeline(LCFG, FCFG, HCFG, *mods, TC.InferenceConfig(int8_decode=True))
+    assert sum(v.dtype == torch.int8 for v in q.llm_p.d.values()) == 7 * LCFG.qwen.num_hidden_layers
 
 
 def _state_np(st):

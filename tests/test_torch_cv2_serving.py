@@ -31,6 +31,7 @@ from cosy_tpu_torch.models.hift import init_hift_params
 from test_torch_common import assert_close, t
 from test_torch_cv2 import FCFG, HCFG, HOP, LCFG, jax_config
 from test_torch_hift import _jax_draws
+from test_torch_common import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 TOL = dict(atol=2e-4, rtol=2e-4)
 WAIT = 120  # seconds any single engine wait may take

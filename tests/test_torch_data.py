@@ -18,6 +18,7 @@ from cosy_tpu.data import dataset as JD
 from cosy_tpu_torch.config import TrainConfig as TTrainConfig
 from cosy_tpu_torch.data import dataset as TD
 from cosy_tpu_torch.data.prefetch import prefetch
+from test_torch_common import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 WAIT = 20.0  # seconds any wait in this file may take
 

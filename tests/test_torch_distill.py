@@ -44,20 +44,13 @@ from cosy_tpu_torch.params import P as TP, from_numpy, save_torch_checkpoint
 from cosy_tpu_torch.train import distill as TD
 from test_torch_common import assert_close, grad_agreement, port_config, port_init, t
 from test_torch_cv2 import jax_config
+from test_torch_common import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 TOL = dict(atol=2e-4, rtol=2e-4)
 JCFG = j_tiny()
 TCFG = port_config(JCFG)
 EST = "decoder.estimator."
 WAIT = 120
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -19,6 +19,7 @@ from cosy_tpu_torch.infer.pipeline import TTSPipeline, stream_seed
 from cosy_tpu_torch.models.flow import init_flow_params
 from cosy_tpu_torch.models.hift import init_hift_params
 from cosy_tpu_torch.models.llm import init_llm_params
+from test_torch_common import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 WAIT = 120  # seconds any single wait may take
 

@@ -12,6 +12,7 @@ import torch
 from cosy_tpu.ops import flash_attention as jfa
 from cosy_tpu_torch.ops import flash_attention as tfa
 from test_torch_common import assert_close, t
+from test_torch_common import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 

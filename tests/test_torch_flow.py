@@ -18,6 +18,7 @@ from cosy_tpu_torch import config as TC
 from cosy_tpu_torch.layers.unet import conditional_decoder as t_decoder
 from cosy_tpu_torch.models import flow as TF
 from test_torch_common import assert_close, golden_np, port_config, port_init, t, torch_params
+from test_torch_common import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 TOL = dict(atol=2e-4, rtol=2e-4)
 
@@ -135,5 +136,30 @@ def test_flow_inference_matches_jax(tiny_flow, n_tok):
     got = TF.flow_inference(tp, port_config(jcfg), t(tok, torch.long), torch.zeros((1, 0), dtype=torch.long),
                             torch.zeros((1, 0, 80)), t(spk), n_timesteps=3,
                             finetuned_norm=True, z=t(z))
+    assert got.shape == (1, 80, T)
+    assert_close(got, np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("prompt", [False, True], ids=["no_prompt", "prompt"])
+def test_flow_inference_like_training_matches_jax(tiny_flow, prompt):
+    """Train-style inference (one regulation of all 23 tokens to the frame
+    count, the prompt mel as conditioning only, the whole mel returned)
+    with JAX's z injected: 39 frames (odd: padded, masked) without a
+    prompt; 40 frames whose first 12 take a 15-frame prompt mel's."""
+    jcfg, jp, tp = tiny_flow
+    rng = np.random.default_rng(11 + prompt)
+    tok = rng.integers(0, jcfg.vocab_size, (1, 23)).astype(np.int32)
+    spk = rng.standard_normal((1, 192)).astype(np.float32)
+    T = 40 if prompt else 39
+    pfeat = (rng.standard_normal((1, 15, 80)) * 2 - 6).astype(np.float32) if prompt else None
+    plen = 12 if prompt else 0
+    key = jax.random.PRNGKey(7)
+    want = jax.jit(lambda p, k, tk, s, pf: JF.flow_inference_like_training(
+        JP(p), jcfg, k, tk, T, s, pf, plen, n_timesteps=3))(
+        jp, key, jnp.asarray(tok), jnp.asarray(spk), None if pfeat is None else jnp.asarray(pfeat))
+    z = np.asarray(jax.random.normal(key, (1, 80, T + T % 2)))
+    got = TF.flow_inference_like_training(tp, port_config(jcfg), t(tok, torch.long), T, t(spk),
+                                          None if pfeat is None else t(pfeat), plen,
+                                          n_timesteps=3, z=t(z))
     assert got.shape == (1, 80, T)
     assert_close(got, np.asarray(want), **TOL)

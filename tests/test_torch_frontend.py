@@ -33,6 +33,7 @@ from cosy_tpu_torch.data import textnorm as TTN
 from cosy_tpu_torch.data import tokenizer as TTK
 from cosy_tpu_torch.ops import audio as TA
 from test_torch_common import GOLDEN_DIR, assert_close
+from test_torch_common import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 TOL = dict(atol=2e-4, rtol=2e-4)
 

@@ -45,6 +45,7 @@ from cosy_tpu_torch.train.distill import tiny_flow2_config
 from cosy_tpu_torch.train.full_trainer import FullTrainer, adamw
 from test_torch_common import assert_close, golden_np, grad_agreement, t
 from test_torch_cv2 import LCFG, jax_config
+from test_torch_common import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 TOL = dict(atol=2e-4, rtol=2e-4)
 J_LCFG = jax_config(LCFG)
@@ -52,14 +53,6 @@ J_LCFG = jax_config(LCFG)
 FCFG2 = dataclasses.replace(tiny_flow2_config(), encoder=dataclasses.replace(
     tiny_flow2_config().encoder, dropout_rate=0.0, positional_dropout_rate=0.0,
     attention_dropout_rate=0.0))
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -19,6 +19,7 @@ from cosy_tpu.params import P as JP, KeyGen, init_linear
 from cosy_tpu_torch.layers.unet import basic_transformer_block as t_block
 from cosy_tpu_torch.ops import fused_block as tfb
 from test_torch_common import assert_close, t, torch_params
+from test_torch_common import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 NAMES = ("norm1.weight", "norm1.bias", "attn1.to_q.weight", "attn1.to_k.weight",

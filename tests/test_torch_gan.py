@@ -31,19 +31,12 @@ from cosy_tpu_torch.ops import f0 as TF0
 from cosy_tpu_torch.params import P as TP, from_numpy
 from cosy_tpu_torch.train.gan_trainer import HiFiGanTrainer
 from test_torch_common import assert_close, port_config, t
+from test_torch_common import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 TOL = dict(atol=2e-4, rtol=2e-4)
 JCFG = j_tiny().hift
 TCFG = port_config(JCFG)
 N = 2048  # samples: above the widest STFT's half window (MRD n_fft 2048)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

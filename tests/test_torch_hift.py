@@ -17,6 +17,7 @@ from cosy_tpu_torch.config import HiFTConfig
 from cosy_tpu_torch.models import hift as TH
 from cosy_tpu_torch.params import fold_weight_norm
 from test_torch_common import assert_close, golden_np, port_config, port_init, t, torch_params
+from test_torch_common import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 TOL = dict(atol=2e-4, rtol=2e-4)
 

@@ -114,9 +114,10 @@ def test_training_regime_modules_load_no_jax():
     """The distiller, the full-parameter and GAN trainers, their checkpoints,
     the GAN models, the pitch tracker and its native build, the DPO loss,
     the TensorBoard writer, the scale-out modules (the mesh, the
-    collectives, tensor / sequence / pipeline parallelism, the agreement)
-    in a fresh interpreter, and the two command lines (``train.full``,
-    ``train.distill``) run to their --help."""
+    collectives, tensor / sequence / pipeline parallelism, the agreement),
+    weight-only int8 with its MCD metric, monotonic alignment search and
+    the Lightning checkpoint reader in a fresh interpreter, and the two
+    command lines (``train.full``, ``train.distill``) run to their --help."""
     code = ("import sys, runpy\nbefore = set(sys.modules)\n"
             "import cosy_tpu_torch.train.distill, cosy_tpu_torch.train.full_trainer, "
             "cosy_tpu_torch.train.checkpoint, cosy_tpu_torch.train.gan_trainer, "
@@ -124,7 +125,9 @@ def test_training_regime_modules_load_no_jax():
             "cosy_tpu_torch.native, cosy_tpu_torch.utils.tb, cosy_tpu_torch.train.full, "
             "cosy_tpu_torch.parallel.mesh, cosy_tpu_torch.parallel.comm, "
             "cosy_tpu_torch.parallel.tp, cosy_tpu_torch.parallel.sp, "
-            "cosy_tpu_torch.parallel.pp, cosy_tpu_torch.utils.distributed\n"
+            "cosy_tpu_torch.parallel.pp, cosy_tpu_torch.utils.distributed, "
+            "cosy_tpu_torch.quant, cosy_tpu_torch.ops.mcd, cosy_tpu_torch.ops.mas, "
+            "cosy_tpu_torch.compat\n"
             "for mod in ('cosy_tpu_torch.train.full', 'cosy_tpu_torch.train.distill'):\n"
             "    sys.argv = [mod, '--help']\n"
             "    try:\n"

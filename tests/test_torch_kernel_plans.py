@@ -24,6 +24,7 @@ from cosy_tpu_torch.ops import _cuda
 from cosy_tpu_torch.ops import flash_attention as tfa
 from cosy_tpu_torch.ops import fused_block as tfb
 from test_torch_common import assert_close, t
+from test_torch_common import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 SPLITS = [1, 2, 3, 7]

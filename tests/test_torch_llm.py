@@ -21,6 +21,7 @@ from cosy_tpu.params import P as JP
 from cosy_tpu_torch.models import llm as TL
 from cosy_tpu_torch.ops import sampling as TS
 from test_torch_common import assert_close, port_config, port_init, t, torch_params
+from test_torch_common import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 TOL = dict(atol=2e-4, rtol=2e-4)
 

@@ -26,6 +26,7 @@ from cosy_tpu_torch.layers import basic as TB
 from cosy_tpu_torch.models import flow as TF, llm as TLLM
 from cosy_tpu_torch.params import P as TP
 from test_torch_common import assert_close, golden_np, port_config, t
+from test_torch_common import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 

@@ -20,6 +20,7 @@ from cosy_tpu_torch.layers.basic import ACT
 from cosy_tpu_torch.layers.conformer import moe_ffn
 from cosy_tpu_torch.params import P
 from cosy_tpu_torch.parallel.tp import stack_experts
+from test_torch_common import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 D, H, E = 8, 16, 4
 

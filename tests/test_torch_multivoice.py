@@ -32,6 +32,7 @@ from cosy_tpu_torch.models.flow import Flow
 from cosy_tpu_torch.models.llm import TransformerLM
 from cosy_tpu_torch.params import P
 from test_torch_common import assert_close, port_config, port_modules, t, tiny_flats
+from test_torch_common import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 KTOL = dict(atol=2e-5, rtol=2e-5)
 TOL = dict(atol=2e-4, rtol=2e-4)
@@ -44,17 +45,6 @@ SHORT = InferenceConfig(max_token_text_ratio=3.0)  # whole requests: 12-18 token
 # streamed requests: EOS held off, 130 tokens capped -> a 120-token window, then
 # the bucketed final
 LONG = InferenceConfig(min_token_text_ratio=25.0, max_token_text_ratio=25.0)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread for this module's tiny CPU models: many small
-    ops, for which a thread pool only adds contention beside other test
-    processes; the count is restored afterwards."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _adapters(params, cfg, seed, amp=8.0):

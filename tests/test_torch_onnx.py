@@ -15,6 +15,7 @@ from cosy_tpu.compat import onnx as JO
 from cosy_tpu.compat import replicas as JR
 from cosy_tpu_torch.compat import onnx as TO
 from cosy_tpu_torch.compat import replicas as TR
+from test_torch_common import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 # small replica widths (the real graphs' op inventories at a fraction of

@@ -45,6 +45,7 @@ from cosy_tpu_torch.models import flow as TF  # noqa: E402
 from cosy_tpu_torch.models import llm as TLLM  # noqa: E402
 from cosy_tpu_torch.params import P  # noqa: E402
 from cosy_tpu_torch.train.full_trainer import FullTrainer, adamw  # noqa: E402
+from test_torch_common import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 LAUNCH_TIMEOUT = 240  # seconds a launch may take before its ranks are killed
 CFG = tiny_model_config()
@@ -165,15 +166,18 @@ def llm_loss(p, g, b):
     return out["loss"], {"acc": out["acc"]}
 
 
-def run_llm_pp(mesh, micro: int):
-    """One FullTrainer step of the LLM whose backbone may pipeline."""
+def run_llm_pp(mesh, micro: int, **kw):
+    """One FullTrainer step of the LLM whose backbone may pipeline: (loss,
+    whole parameters, the number of tp-split leaves)."""
+    from cosy_tpu_torch.parallel import tp as TP
+
     params = {k: v.detach() for k, v in TLLM.init_llm_params(llm_pp_cfg(), "cpu", seed=1)
               .named_parameters()}
     tr = FullTrainer(llm_loss, params, adamw(LR), mesh=mesh,
-                     pipeline_parallel_microbatches=micro)
+                     pipeline_parallel_microbatches=micro, **kw)
     sb = {k: v[:1] for k, v in joint_super(5).items() if not k.startswith("speech_feat")}
     m = tr.step(sb, step_gen(0))
-    return m["loss"], tr.whole_params()
+    return m["loss"], tr.whole_params(), TP.count_sharded(tr.param_specs)
 
 
 def pp_inputs():
@@ -289,6 +293,13 @@ def _worker_two(res, rank, out_dir, M, all_hosts_agree, joined_loader) -> None:
     model2 = M.make_mesh(dp=1, model=2, device="cpu")
     _pipeline_two(res, model2)
     res["pp_step"] = run_llm_pp(model2, 2)
+    # tensor and pipeline parallelism together: the pipeline stacks the
+    # blocks' tp-split weights gathered whole (parallel/pp.py)
+    from cosy_tpu_torch.parallel import pp as PP
+
+    before = PP.engaged()
+    res["tp_pp_step"] = run_llm_pp(model2, 2, tensor_parallel=True)
+    res["tp_pp_engaged"] = PP.engaged() - before
     _moe_two(res, model2)
     ck_tp = os.path.join(out_dir, "ckpt_tp")
     tr, losses = run_full(model2, 2, tensor_parallel=True)
@@ -495,14 +506,6 @@ def two(tmp_path_factory):
 @pytest.fixture(scope="module")
 def four(tmp_path_factory):
     return _run_worker(4, str(tmp_path_factory.mktemp("four")))
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -733,11 +736,29 @@ def test_expert_parallel_equals_replicated(two):
             np.testing.assert_allclose(g1[k], g0[k], atol=1e-5, rtol=1e-5, err_msg=k)
 
 
-def test_full_trainer_pipeline_step_equals_world_one(two):
-    loss, params = run_llm_pp(None, 2)
+@pytest.fixture(scope="module")
+def llm_pp_world1():
+    return run_llm_pp(None, 2)
+
+
+def test_full_trainer_pipeline_step_equals_world_one(two, llm_pp_world1):
+    loss, params, _ = llm_pp_world1
     for r in two:
         np.testing.assert_allclose(r["pp_step"][0], loss, rtol=1e-5, atol=1e-6)
         assert params_close(r["pp_step"][1], params) < 1e-4
+
+
+def test_tensor_and_pipeline_parallel_step_equals_world_one(two, llm_pp_world1):
+    """Model 2 with tensor parallelism and a 2-microbatch pipeline: the
+    blocks' weights are split over the model axis and the pipeline runs
+    over them gathered whole; loss and parameters equal the world-one
+    step's."""
+    loss, params, _ = llm_pp_world1
+    for r in two:
+        got_loss, got_params, n_split = r["tp_pp_step"]
+        assert r["tp_pp_engaged"] > 0 and n_split > 0
+        np.testing.assert_allclose(got_loss, loss, rtol=1e-5, atol=1e-6)
+        assert params_close(got_params, params) < 1e-4
 
 
 def test_full_cli_refuses_a_batch_dp_does_not_divide(two):

@@ -20,6 +20,7 @@ from cosy_tpu_torch.models.hift import HiFT
 from cosy_tpu_torch.models.llm import TransformerLM
 from cosy_tpu_torch.params import from_numpy
 from test_torch_common import assert_close, port_config, t
+from test_torch_common import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 TOL = dict(atol=2e-4, rtol=2e-4)
 

@@ -17,6 +17,7 @@ import torch
 from cosy_tpu_torch.config import LoRAConfig, TrainConfig, tiny_model_config
 from cosy_tpu_torch.models import flow as TF
 from cosy_tpu_torch.train.trainer import JointTrainer
+from test_torch_common import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 CFG = tiny_model_config()
 TCFG = TrainConfig(training_mode="flow_only", accumulate_grad_batches=2, max_feat_len=16,
@@ -24,14 +25,6 @@ TCFG = TrainConfig(training_mode="flow_only", accumulate_grad_batches=2, max_fea
                    warmup_steps=1,
                    flow_lora=LoRAConfig(r=2, alpha=4, dropout=0.0,
                                         target_modules=("to_q", "to_k", "to_v")))
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

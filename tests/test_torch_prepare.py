@@ -23,6 +23,7 @@ from cosy_tpu_torch.config import TrainConfig
 from cosy_tpu_torch.data import dataset as TD
 from cosy_tpu_torch.data import prepare as TPR
 from cosy_tpu_torch.data import processor as TPS
+from test_torch_common import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = dict(atol=2e-4, rtol=2e-4)
@@ -166,7 +167,8 @@ def test_prepare_cli_writes_shards_the_dataset_reads(tmp_path):
     res = subprocess.run(
         [sys.executable, "-m", "cosy_tpu_torch.data.prepare", "--input", src, "--output", out,
          "--speech-tokenizer-onnx", st, "--campplus-onnx", cp, "--samples-per-shard", "2",
-         "--device", "cpu"], cwd=ROOT, capture_output=True, text=True, timeout=300)
+         "--device", "cpu"], cwd=ROOT, env=dict(os.environ, OMP_NUM_THREADS="1"),
+        capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "prepared 5 samples" in res.stdout
     assert len(open(os.path.join(out, "data.list")).read().split()) == 3

@@ -20,6 +20,7 @@ from cosy_tpu.params import P as JP
 from cosy_tpu_torch.layers import qwen2 as TQ
 from cosy_tpu_torch.models import qwen2lm as TLM
 from test_torch_common import assert_close, golden_np, t, torch_params
+from test_torch_common import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 TOL = dict(atol=2e-4, rtol=2e-4)
 TINY_QWEN = TQ.Qwen2Config(hidden_size=32, intermediate_size=64, num_hidden_layers=2,

@@ -7,7 +7,8 @@ speaker embedding; keep-alive framing and bad bodies; the device lock
 released between chunks; voice routing with its 400s; /stats, /metrics and
 TTFA records; ``resolve_finetuned_norm`` on weight-meta sidecars (the cases
 of tests/test_weight_meta.py); the client round trip and a server that is
-down; the flags whose modules are queued, refused."""
+down; the flags whose modules are queued, refused; ``--int8`` with and
+without ``--voices`` over a socket."""
 
 import http.client
 import json
@@ -33,20 +34,10 @@ from cosy_tpu_torch.params import load_weight_meta, save_torch_checkpoint, save_
 from cosy_tpu_torch.serve import (TTSServer, build_parser, build_server, make_handler,
                                   resolve_finetuned_norm, wav_bytes)
 from test_torch_common import port_config, port_modules, tiny_flats
+from test_torch_common import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 SR = 22050
 WAIT = 120  # seconds: the bound of every wait here
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread for this module's tiny CPU models: many small
-    ops, for which a thread pool only adds contention beside other test
-    processes; the count is restored afterwards."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _voice(params, seed):
@@ -441,12 +432,53 @@ def test_export_merged_writes_the_flow_sidecar(tmp_path):
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--tp", "2"], "A16"), (["--int8"], "A16"), (["--aot-cache", "d"], "A16"),
+    (["--tp", "2"], "A16"), (["--int8", "--tp", "2"], "A16"), (["--aot-cache", "d"], "A16"),
     (["--sampler", "euler", "--meanflow-steps", "1"], "A14"), (["--meanflow-steps", "2"], "A14"),
     (["--engine-prefetch"], "A9"), (["--voices", "a=b.pt", "--cosyvoice2"], "CosyVoice")])
 def test_refused_flags(flags, item):
     with pytest.raises(SystemExit, match=item):
         build_server(build_parser().parse_args(["--model-dir", "nowhere"] + flags))
+
+
+def test_int8_server_answers_over_a_socket(tmp_path, monkeypatch):
+    """``--int8``, and ``--int8 --voices``, on a model dir over 127.0.0.1:
+    every decode step reads the pipeline's int8 view (six int8 matrices a
+    block), and a voiced request's steps carry its adapters."""
+    import cosy_tpu_torch.api as TAPI
+    import cosy_tpu_torch.models.llm as TL
+
+    jcfg = j_tiny()
+    tcfg = port_config(jcfg)
+    flats = tiny_flats(jcfg, seed=41)
+    for part, flat in flats.items():
+        save_torch_checkpoint(flat, str(tmp_path / f"{part}.pt"))
+    voice = _voice(port_modules(tcfg, flats)[0].p.d, 7)
+    adapters = str(tmp_path / "adapters_a.pt")
+    save_torch_checkpoint({**{"llm." + k: v.numpy() for k, v in voice.items()},
+                           "llm._scaling": np.array(2.0, np.float32)}, adapters)
+    real = TAPI.CosyVoice
+    # the tiny topology: the model dir has no cosyvoice.yaml
+    monkeypatch.setattr(TAPI, "CosyVoice", lambda d, **kw: real(d, model_cfg=tcfg, **kw))
+    seen = []
+    step = TL.llm_decode_step_batch
+
+    def spy(p, *a):
+        seen.append((p.d, a[-1].lora is not None))
+        return step(p, *a)
+
+    monkeypatch.setattr(TL, "llm_decode_step_batch", spy)
+    common = ["--model-dir", str(tmp_path), "--device", "cpu", "--finetuned-norm", "1", "--int8"]
+    for extra, body in (([], {"text": "hi."}),
+                        (["--voices", f"a={adapters}"], {"text": "hi.", "voice": "a"})):
+        server = build_server(build_parser().parse_args(common + extra))
+        model = server.api.model
+        assert model.icfg.int8_decode
+        assert sum(v.dtype == torch.int8 for v in model.llm_step_p.d.values()) \
+            == 6 * tcfg.llm.llm.num_blocks
+        seen.clear()
+        with _Live(server) as live:
+            _pcm_ok(live.post(body)[1])
+        assert seen and all(d is model.llm_step_p.d and lora == bool(extra) for d, lora in seen)
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the refusal without a card")

@@ -25,6 +25,7 @@ from cosy_tpu_torch.models.llm import TransformerLM, init_llm_params
 from cosy_tpu_torch.params import from_numpy
 from test_torch_common import assert_close, port_config, port_init, t
 from test_torch_hift import _jax_draws
+from test_torch_common import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 TOL = dict(atol=2e-4, rtol=2e-4)
 FIELDS = ("mel_overlap", "hift_mel", "hift_source", "hift_speech", "flow_cache")

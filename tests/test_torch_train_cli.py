@@ -20,6 +20,7 @@ from cosy_tpu_torch.models.hift import init_hift_params
 from cosy_tpu_torch.models.llm import TransformerLM, init_llm_params
 from cosy_tpu_torch.train import __main__ as cli
 from test_torch_data import write_records
+from test_torch_common import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 
 def _flags(**kw):

@@ -27,6 +27,7 @@ from cosy_tpu_torch.ctx import Ctx as TCtx
 from cosy_tpu_torch.models import flow as TF
 from test_torch_common import (assert_close, grad_agreement, port_config, port_init, t,
                                torch_params)
+from test_torch_common import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 TOL = dict(atol=2e-4, rtol=2e-4)
 B, T, TTOK = 4, 24, 14

@@ -19,14 +19,7 @@ from cosy_tpu_torch.params import load_torch_checkpoint, load_weight_meta
 from cosy_tpu_torch.train import distill as TD
 from cosy_tpu_torch.train import full as TFULL
 from cosy_tpu_torch.train.checkpoint import TrainCheckpointer
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from test_torch_common import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 
 class _Summaries:

@@ -33,6 +33,7 @@ from cosy_tpu_torch.ops import flash_attention as tfa, fused_block as tfb
 from cosy_tpu_torch.train import schedules as TS
 from cosy_tpu_torch.train.trainer import JointTrainer
 from test_torch_common import assert_close, port_config
+from test_torch_common import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 
 def _no_dropout(cfg):
