@@ -155,7 +155,25 @@ Phases, each fatal on failure (nothing is caught and passed over):
      max|mel|) of the CPU; (c) a conformer with the CNN module (kernel 15)
      at the 300M text encoder's widths against the CPU (2e-4 x max(1,
      max|y|)), and maximum_path at (4, 200, 1000) on the host, native
-     against numpy.
+     against numpy;
+ 19. the exporters, the tools and the registry variants at full width on
+     seeded weights: (a) export_flow_estimator_onnx at B = 2, T = 256,
+     whose own check runs the graph through compat.onnx on the card against
+     the estimator's kernels (exactly 64 fused blocks; the gap within 5e-3,
+     printed with the file's size); (b) profiling.trace around one
+     estimator call at phase 6's shape (B = 2, T = 312): the trace names
+     kernels A, B1 and B2 and the annotated scope; (c) --aot-cache's build
+     cache in a fresh 0700 directory: a child process that builds every
+     nvcc and g++ library (misses only), a second that loads them all (hits
+     only; starting a compiler fails it), each timed and each running one
+     estimator call, the two outputs equal; (d) the ASR decoder and
+     bi-decoder at DecoderConfig's defaults (encoder 512, vocab 4096), B = 2
+     of 200 source frames and 50 target tokens, and the four conv
+     subsamplings (80 -> 512) on 1000 mel frames, each within 1e-4 x max(1,
+     max|y|) of the CPU; (e) 200 dynamic-chunk draws on the card at T =
+     250, each a reference mask; (f) costs.estimator_call_flops of (b)'s
+     call over its device busy time, as TFLOP/s beside the f32 peak named
+     in ops/costs.py.
 Phase 3 also holds B2 and the GEMM epilogue with exact (erf) GELU beside
 tanh, refuses a GELU code the kernels lack, and runs A, the block, B1 and
 B2 at CosyVoice2's streaming shapes with the chunk bias; phase 4 repeats
@@ -212,6 +230,15 @@ from cosy_tpu_torch.models.llm import (TransformerLM, init_llm_params,  # noqa: 
                                        llm_teacher_forced_logits, quantize_decode_step)
 from cosy_tpu_torch.layers.conformer import encoder_forward, init_encoder  # noqa: E402
 from cosy_tpu_torch.ops.mas import maximum_path  # noqa: E402
+from cosy_tpu_torch.export import export_flow_estimator_onnx, verify_estimator_onnx  # noqa: E402
+from cosy_tpu_torch.layers.decoder import (DecoderConfig,  # noqa: E402
+                                           bi_transformer_decoder_forward,
+                                           init_bi_transformer_decoder,
+                                           transformer_decoder_forward)
+from cosy_tpu_torch.layers.subsampling import SUBSAMPLE_RATES, init_conv_subsampling  # noqa: E402
+from cosy_tpu_torch.ops import costs  # noqa: E402
+from cosy_tpu_torch.ops.masks import add_optional_chunk_mask  # noqa: E402
+from cosy_tpu_torch.utils import profiling  # noqa: E402
 from cosy_tpu_torch.quant import count_quantized, validate_int8_voice  # noqa: E402
 from cosy_tpu_torch.ops import _cuda  # noqa: E402
 from cosy_tpu_torch.ops.flash_attention import (_attention_plan,  # noqa: E402
@@ -245,10 +272,10 @@ from cosy_tpu_torch.models.qwen2lm import (Qwen2LMConfig, init_qwen2lm_params,  
                                            qwen2lm_teacher_forced_logits)
 
 DEV = torch.device("cuda")
-# H100 SXM data-sheet peaks (dense): f32 on the CUDA cores, bf16 on the
-# tensor cores, HBM3 bandwidth
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
-PEAK_BYTES = 3.35e12
+# H100 SXM data-sheet peaks (dense, ops/costs.py): f32 on the CUDA cores,
+# bf16 on the tensor cores, HBM3 bandwidth
+PEAK_FLOPS = {torch.float32: costs.H100_F32_FLOPS, torch.bfloat16: costs.H100_BF16_FLOPS}
+PEAK_BYTES = costs.H100_HBM_BYTES_PER_S
 # (atol, rtol) of each kernel against its plain version: f32 sums taken in
 # another order; bf16 intermediates that round to a neighbouring value
 TOL = {
@@ -2991,6 +3018,264 @@ def new_modules_phase(cfg, seed=110):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the estimator's ONNX export, a profiler trace, the library
+# cache, the ASR decoders and conv subsamplings, dynamic chunks, the cost
+# model's share of the peak
+# ---------------------------------------------------------------------------
+
+# a child of phase 19 (c): builds or loads every library in the cache
+# directory argv[1] and runs one estimator call, saved to argv[2]; argv[3]
+# "warm" makes any compiler start fail
+AOT_CHILD = r"""
+import json, subprocess, sys, time
+t_start = time.time()
+cache, out, warm = sys.argv[1], sys.argv[2], sys.argv[3] == "warm"
+import torch
+from cosy_tpu_torch import native
+from cosy_tpu_torch.config import ModelConfig
+from cosy_tpu_torch.layers.unet import conditional_decoder
+from cosy_tpu_torch.models.flow import init_flow_params
+from cosy_tpu_torch.ops import _cuda, launch_counts
+from cosy_tpu_torch.utils import aot
+
+if warm:
+    def no_compiler(*a, **k):
+        raise AssertionError(f"a compiler started on a warm start: {a[:1]}")
+    subprocess.Popen = subprocess.run = no_compiler
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+aot.set_cache_dir(cache)
+t0 = time.time()
+libs = _cuda.build() + [native.build("mas"), native.build("f0")]
+build_s = time.time() - t0
+cfg = ModelConfig()
+est = init_flow_params(cfg.flow, "cuda", seed=int(sys.argv[4])).p.sub("decoder.estimator")
+g = torch.Generator(device="cuda").manual_seed(5)
+x, mu, cond = (torch.randn(2, 80, 312, device="cuda", generator=g) for _ in range(3))
+mask = torch.ones(2, 1, 312, device="cuda")
+mask[:, :, 311:] = 0.0
+with torch.inference_mode():
+    y = conditional_decoder(est, cfg.flow.estimator, x, mask, mu,
+                            torch.rand(2, device="cuda", generator=g),
+                            torch.randn(2, 80, device="cuda", generator=g), cond)
+torch.cuda.synchronize()
+torch.save(y.cpu(), out)
+print(json.dumps({"build_s": build_s, "stats": dict(aot.AOT_STATS), "wall_s": time.time() - t_start,
+                  "libs": [p.name for p in libs],
+                  "blocks": launch_counts()["fused_transformer_block"]}))
+"""
+
+
+def onnx_export_phase(cfg, flow, root, B=2, T=256):
+    """[19] (a): export_flow_estimator_onnx with its own check on the card
+    (the graph through the port's executor against the estimator's kernels).
+    Returns the launch counts of the export call."""
+    path = os.path.join(root, "estimator.onnx")
+    params = dict(flow.named_parameters())
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    export_flow_estimator_onnx(params, cfg, path, B=B, T=T)
+    secs = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    with open(path, "rb") as f:
+        data = f.read()
+    est = {k[len("decoder.estimator."):]: v for k, v in params.items()
+           if k.startswith("decoder.estimator.")}
+    gap = verify_estimator_onnx(data, est, cfg.flow.estimator, B, T, DEV)
+    log(f"  (a) export_flow_estimator_onnx at B = {B}, T = {T}: {len(data) / 2 ** 20:.1f} MiB, "
+        f"{secs:.2f} s with its check on the card (the graph through compat.onnx against the "
+        f"estimator's kernels); max |graph - estimator| {gap:.3e} (tol 5e-3); launches {counts}")
+    expect_blocks(counts, 1, "[19]a the export's check")
+    if gap > 5e-3:
+        raise SystemExit("chip_smoke: the exported estimator graph disagrees with the estimator")
+    return counts
+
+
+def trace_phase(est, ecfg, root, T=312):
+    """[19] (b): profiling.trace around one estimator call at phase 6's
+    shape; the trace must name kernels A, B1 and B2 and the annotated
+    scope.  Then (f): the cost model's flops over the call's device busy
+    time."""
+    args = estimator_args(T, True)
+    log_dir = os.path.join(root, "trace")
+    with torch.inference_mode():
+        conditional_decoder(est, ecfg, *args)
+        ops.reset_launch_counts()
+        with profiling.trace(log_dir) as path:
+            with profiling.annotate("cosy_estimator_call"):
+                conditional_decoder(est, ecfg, *args)
+        counts = ops.launch_counts()
+    with open(path) as f:
+        names = [e.get("name", "") for e in json.load(f)["traceEvents"]]
+    found = {what: sum(key in n for n in names) for what, key in (
+        ("A flash_attention_kernel", "flash_attention_kernel"),
+        ("B1 gemm_kernel (LN prologue)", "gemm_kernel"),
+        ("B2 block_tail_kernel", "block_tail_kernel"),
+        ("scope cosy_estimator_call", "cosy_estimator_call"))}
+    log(f"  (b) profiling.trace of one estimator call (B = 2, T = {T}, valid {T - 1}): "
+        f"{os.path.getsize(path) / 2 ** 20:.2f} MiB, {len(names)} events; events naming "
+        + ", ".join(f"{k} {v}" for k, v in found.items()) + f"; launches {counts}")
+    expect_blocks(counts, 1, "[19]b the traced call")
+    if min(found.values()) == 0:
+        raise SystemExit("chip_smoke: the trace does not name kernels A, B1, B2 and the scope")
+    with torch.inference_mode():
+        _, busy, _ = profile_device(lambda: conditional_decoder(est, ecfg, *args))
+    flops = costs.estimator_call_flops(ecfg, 2, T).total
+    if busy is None:
+        log(f"  (f) {flops / 1e9:.2f} GFLOP a call (costs.estimator_call_flops); device busy "
+            "not measured (the profiler recorded no device events)")
+        return
+    log(f"  (f) costs.estimator_call_flops(B = 2, T = {T}) = {flops / 1e9:.3f} GFLOP over "
+        f"{busy:.3f} ms of device busy time: {flops / busy / 1e9:.2f} TFLOP/s achieved, "
+        f"{100 * flops / busy / 1e-3 / costs.H100_F32_FLOPS:.1f}% of the H100's f32 peak "
+        f"{costs.H100_F32_FLOPS / 1e12:.0f} TFLOP/s (published, not measured; TF32 tensor "
+        f"cores {costs.H100_TF32_FLOPS / 1e12:.0f})")
+
+
+def aot_cache_phase(root, seed=120):
+    """[19] (c): serve --aot-cache's build cache in a fresh 0700 directory:
+    a child that builds every library (cold), a second that loads them all
+    (warm, no compiler), each running one estimator call; the two outputs
+    equal."""
+    cache = os.path.join(root, "aot")
+    os.makedirs(cache, mode=0o700)
+    runs = {}
+    for kind in ("cold", "warm"):
+        out = os.path.join(root, f"aot_{kind}.pt")
+        t0 = time.time()
+        res = subprocess.run([sys.executable, "-c", AOT_CHILD, cache, out, kind, str(seed)],
+                             cwd=os.path.dirname(os.path.abspath(__file__)),
+                             capture_output=True, text=True, timeout=300)
+        if res.returncode != 0:
+            raise SystemExit(f"chip_smoke: the {kind} --aot-cache child failed:\n"
+                             f"{res.stdout[-4000:]}{res.stderr[-4000:]}")
+        info = json.loads(res.stdout.strip().splitlines()[-1])
+        info["seconds"] = time.time() - t0
+        runs[kind] = (info, torch.load(out))
+        log(f"  (c) {kind} start with --aot-cache: {info['seconds']:.1f} s in all (process start "
+            f"to exit), libraries ready in {info['build_s']:.2f} s, {info['stats']}, "
+            f"{info['blocks']} fused blocks in its estimator call; {info['libs']}")
+    (cold, y_cold), (warm, y_warm) = runs["cold"], runs["warm"]
+    same = torch.equal(y_cold, y_warm)
+    log(f"  (c) the two estimator outputs are equal: {same}")
+    n = len(cold["libs"])
+    if not (cold["stats"] == {"hits": 0, "misses": n} and warm["stats"] == {"hits": n, "misses": 0}
+            and same and cold["blocks"] == warm["blocks"] == 64):
+        raise SystemExit("chip_smoke: --aot-cache did not build cold and load warm")
+
+
+def asr_and_subsampling_phase(seed=122):
+    """[19] (d): the ASR decoder and bi-decoder at DecoderConfig's defaults
+    (encoder 512, vocab 4096), B = 2 of 200 source frames and 50 target
+    tokens, and the four conv subsamplings (80 -> 512) on 1000 mel frames,
+    each against the CPU within 1e-4 x max(1, max|y|)."""
+    dcfg = DecoderConfig(vocab_size=4096, encoder_output_size=512)
+    spec = init_bi_transformer_decoder(Spec(), dcfg, r_num_blocks=3)
+    params = spec_tensors(spec, DEV, torch.Generator(device=DEV).manual_seed(seed))
+    gen = torch.Generator(device=DEV).manual_seed(seed + 1)
+    memory = torch.randn(2, 200, 512, device=DEV, generator=gen)
+    mlen = torch.tensor([200, 151], device=DEV)
+    ys = torch.randint(0, 4096, (2, 50), device=DEV, generator=gen)
+    ylen = torch.tensor([50, 37], device=DEV)
+    rys = ys.flip(1)
+    cpu = P({k: v.cpu() for k, v in params.items()})
+
+    def valid(y):  # the logits of the valid targets
+        return torch.cat([y[0], y[1, :37]])
+
+    checks = []
+    with torch.inference_mode():
+        for what, fn in (
+                ("TransformerDecoder (6 blocks), valid rows", lambda p, *a: valid(
+                    transformer_decoder_forward(p.sub("left_decoder"), dcfg, *a[:4])[0])),
+                ("BiTransformerDecoder (6 + 3 blocks, reverse 0.3), left and right valid rows",
+                 lambda p, *a: torch.cat([valid(y) for y in bi_transformer_decoder_forward(
+                     p, dcfg, *a, reverse_weight=0.3, r_num_blocks=3)[:2]]))):
+            args = (memory, mlen, ys, ylen, rys)
+            y = fn(P(params), *args)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = fn(P(params), *args)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            want = fn(cpu, *(a.cpu() for a in args))
+            checks.append((what, y.cpu(), want, ms, tuple(y.shape)))
+        x = torch.randn(2, 1000, 80, device=DEV, generator=gen)
+        mask = torch.ones(2, 1, 1000, dtype=torch.bool, device=DEV)
+        mask[1, :, 811:] = False
+        for kind, (fn, rate, _) in SUBSAMPLE_RATES.items():
+            sp = spec_tensors(init_conv_subsampling(Spec(), "", kind, 80, 512), DEV,
+                              torch.Generator(device=DEV).manual_seed(seed + 2))
+            y, m = fn(P(sp), x, mask)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y, m = fn(P(sp), x, mask)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            want, want_m = fn(P({k: v.cpu() for k, v in sp.items()}), x.cpu(), mask.cpu())
+            if not torch.equal(m.cpu(), want_m):
+                raise SystemExit(f"chip_smoke: the {kind} subsampling's mask differs from the CPU")
+            checks.append((f"subsampling {kind} (rate {rate})", y.cpu(), want, ms, tuple(y.shape)))
+    for what, got, want, ms, shape in checks:
+        err = (got - want).abs().max().item()
+        tol = 1e-4 * max(1.0, want.abs().max().item())
+        log(f"  (d) {what}: {shape} in {ms:.2f} ms on the card; max gap to the CPU {err:.3e} "
+            f"(tol 1e-4 x max(1, max|y|) = {tol:.3e})")
+        if not (torch.isfinite(got).all() and err <= tol):
+            raise SystemExit(f"chip_smoke: {what} disagrees with the CPU")
+
+
+def dynamic_chunk_phase(T=250, n=200, seed=124):
+    """[19] (e): ``n`` dynamic-chunk draws on the card (T = 250, the
+    training crop), each a valid reference mask for its recovered (chunk,
+    num_left); the draws visit full context, small chunks and left limits."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    pos = np.arange(T)
+    seen = {"full context": 0, "chunk <= 25": 0, "left-limited": 0}
+    for _ in range(n):
+        m = add_optional_chunk_mask(T, torch.ones(1, 1, T, dtype=torch.bool, device=DEV), True,
+                                    True, 0, 0, -1, generator=gen)[0].cpu().numpy()
+        if m.all():
+            chunk, nleft = T, -1
+        else:
+            chunk = int(m[0].sum())
+            first = int(np.argmax(m[T - 1]))
+            nleft = -1 if first == 0 else (T - 1) // chunk - first // chunk
+        want = pos[None, :] < ((pos // chunk + 1) * chunk)[:, None]
+        if nleft >= 0:
+            want &= pos[None, :] >= np.maximum((pos // chunk - nleft) * chunk, 0)[:, None]
+        if not np.array_equal(m, want) or (chunk != T and not 1 <= chunk <= 25):
+            raise SystemExit(f"chip_smoke: a dynamic-chunk draw ({chunk}, {nleft}) on the card "
+                             "is not a reference mask")
+        seen["full context" if chunk == T else "chunk <= 25"] += 1
+        seen["left-limited"] += nleft >= 0
+    log(f"  (e) {n} dynamic-chunk draws on the card at T = {T}: every one a reference mask; "
+        f"{seen}")
+    if min(seen.values()) == 0:
+        raise SystemExit("chip_smoke: the dynamic-chunk draws missed full context, small chunks "
+                         "or left limits")
+
+
+def export_and_tools_phase(cfg, seed=120):
+    """Phase 19.  Returns the launch counts of (a)'s export."""
+    t0 = time.time()
+    log(f"[19] the estimator's ONNX export, a profiler trace, --aot-cache, the ASR decoders and "
+        f"conv subsamplings, dynamic chunks, the cost model ({_smi_line()})")
+    flow = init_flow_params(cfg.flow, DEV, seed=seed)
+    est = P(dict(flow.named_parameters())).sub("decoder.estimator")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_export_") as root:
+        counts = onnx_export_phase(cfg, flow, root)
+        trace_phase(est, cfg.flow.estimator, root)
+        del flow, est
+        torch.cuda.empty_cache()
+        aot_cache_phase(root, seed)
+    asr_and_subsampling_phase(seed + 2)
+    dynamic_chunk_phase(seed=seed + 4)
+    log(f"  phase 19 took {time.time() - t0:.1f} s")
+    return counts
+
+
 def report(name, r):
     def dev(key):
         return "" if r.get(key) is None else f" ({r[key]:.4f} on the card)"
@@ -3338,6 +3623,7 @@ def main():
         log(f"  phase 16 took {time.time() - t:.1f} s")
         scale_out_phase(root, cfg)
     counts_lt = new_modules_phase(cfg)
+    counts_x = export_and_tools_phase(cfg)
 
     def entry(name, source, replaces, r, launches=None):
         # times on the card (torch.profiler) where the profiler gave them,
@@ -3418,6 +3704,11 @@ def main():
         entry("fused_transformer_block_like_training", "cosy_tpu_torch/csrc/fused_block.cu",
               "cosy_tpu/ops/fused_block.py:34", main_b,
               launches=counts_lt["fused_transformer_block"]),
+        # phase 19 (a): the estimator call of the ONNX export's own check
+        # (B = 2, T = 256), times at the main path's T/2 level
+        entry("fused_transformer_block_onnx_check", "cosy_tpu_torch/csrc/fused_block.cu",
+              "cosy_tpu/ops/fused_block.py:34", main_b,
+              launches=counts_x["fused_transformer_block"]),
     ]
     log(f"  run took {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -242,7 +242,8 @@ def encoder_forward(
     xs, pos_emb = embed_input(p, cfg, xs, ctx, xscale=xscale)
     chunk_masks = M.add_optional_chunk_mask(
         T, pad_mask, cfg.use_dynamic_chunk, cfg.use_dynamic_left_chunk,
-        decoding_chunk_size, cfg.static_chunk_size, num_decoding_left_chunks)
+        decoding_chunk_size, cfg.static_chunk_size, num_decoding_left_chunks,
+        generator=ctx.generator if (cfg.use_dynamic_chunk and ctx.train) else None)
     attn_bias = M.mask_to_bias(chunk_masks, xs.dtype)
     layer, masks = ((conformer_layer, (attn_bias, pos_emb, pad_mask)) if conformer
                     else (transformer_layer, (attn_bias, pos_emb)))

@@ -4,9 +4,10 @@ The CUDA C++ sources under ``cosy_tpu_torch/csrc/`` are compiled at first use
 with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into one shared library
 per source (all ``nvcc`` processes started together) and loaded with
 ``ctypes``: a plain C interface builds in seconds, where a PyTorch extension
-takes minutes.  The libraries go to the git-ignored ``build/cosy_tpu_torch/``
-beside the package, named by a hash of the sources and flags, so an edited
-source rebuilds and an unchanged one is reused.
+takes minutes.  The libraries go to ``utils.aot.cache_dir()`` (the
+git-ignored ``build/cosy_tpu_torch/`` beside the package unless ``serve
+--aot-cache DIR`` set another), named by a hash of the sources and flags,
+so an edited source rebuilds and an unchanged one is loaded without nvcc.
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine class has no ``nvcc``.
@@ -21,12 +22,13 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import torch
 
+from ..utils import aot
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cosy_tpu_torch"
 SOURCES = ("flash_attention.cu", "fused_block.cu", "block_tail.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -63,7 +65,8 @@ SIGNATURES = {
 }
 
 _lock = threading.Lock()
-_functions: Dict[str, object] = {}
+# (library directory, entry point) -> the ctypes function
+_functions: Dict[Tuple[str, str], object] = {}
 
 
 def _nvcc() -> str:
@@ -74,27 +77,28 @@ def _nvcc() -> str:
     return path
 
 
-def _library_path(source: str) -> Path:
+def _library_path(source: str, directory: Path) -> Path:
     h = hashlib.sha1()
     for f in sorted(CSRC.glob("*.cuh")) + [CSRC / source]:
         h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:12]}.so"
+    return directory / f"{Path(source).stem}-{h.hexdigest()[:12]}.so"
 
 
 def build() -> List[Path]:
-    """Compile every source whose library is missing, one ``nvcc`` per
-    source, all started together.  Returns the library paths; raises with
-    nvcc's output if a build fails."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
+    """Compile every source whose library is missing from the cache
+    directory, one ``nvcc`` per source, all started together (each counted
+    in ``aot.AOT_STATS``).  Returns the library paths; raises with nvcc's
+    output if a build fails."""
+    directory = aot.library_dir()
     jobs = []
     for source in SOURCES:
-        out = _library_path(source)
+        out = _library_path(source, directory)
         if out.exists():
+            aot.record(out, built=False)
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
         jobs.append((source, out, tmp,
                      subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                       stderr=subprocess.STDOUT, text=True)))
@@ -107,28 +111,32 @@ def build() -> List[Path]:
         # ptxas -v: each kernel's registers, shared memory and spills
         out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+        aot.record(out, built=True)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
-    return [_library_path(s) for s in SOURCES]
+    return [_library_path(s, directory) for s in SOURCES]
 
 
 def function(name: str):
     """The ctypes function ``name`` with its argtypes set, building and
-    loading its library on first use."""
-    fn = _functions.get(name)
+    loading its library from the cache directory on first use."""
+    key = (str(aot.cache_dir()), name)
+    fn = _functions.get(key)
     if fn is not None:
         return fn
     with _lock:
-        if name not in _functions:
+        if key not in _functions:
             source, argtypes = SIGNATURES[name]
-            path = _library_path(source)
-            if not path.exists():
+            path = _library_path(source, aot.library_dir())
+            if path.exists():
+                aot.record(path, built=False)
+            else:
                 build()
             fn = getattr(ctypes.CDLL(str(path)), name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            _functions[name] = fn
-    return _functions[name]
+            _functions[key] = fn
+    return _functions[key]
 
 
 def check(err: int, what: str):

@@ -7,6 +7,8 @@ turns softmax into NaN, where -1e10 gives a finite uniform row.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 NEG_BIAS = -1.0e10
@@ -51,13 +53,22 @@ def add_optional_chunk_mask(
     decoding_chunk_size: int,
     static_chunk_size: int,
     num_decoding_left_chunks: int,
+    generator: Optional[torch.Generator] = None,
+    enable_full_context: bool = True,
 ) -> torch.Tensor:
     """(B, T, T) bool attention mask: padding plus chunk structure, with
     fully masked rows opened up (they would otherwise be all-bias).
 
-    The random dynamic-chunk draw of training (``decoding_chunk_size == 0``
-    with ``use_dynamic_chunk``) is not ported and raises: no CosyVoice-300M
-    encoder config sets ``use_dynamic_chunk``."""
+    Dynamic chunks in training (``use_dynamic_chunk`` with
+    ``decoding_chunk_size == 0``) draw from ``generator``, once a call for
+    the whole batch, the reference's distribution (mask.py:161-238): chunk
+    ~ U[1, max(T, 2)); a draw above T // 2 with ``enable_full_context``
+    means full context, else ``draw % 25 + 1``; with
+    ``use_dynamic_left_chunk`` a small chunk also draws its left-context
+    limit num_left ~ U[0, max((T - 1) // chunk, 1)), and full context keeps
+    all history.  The draws stay on the device (no host sync).  Data-parallel
+    ranks seeded alike draw the same chunk: the draw is one scalar, taken
+    after the same whole-batch draws on every rank."""
     dev = masks.device
     if use_dynamic_chunk:
         if decoding_chunk_size < 0:
@@ -66,7 +77,8 @@ def add_optional_chunk_mask(
             chunk_masks = subsequent_chunk_mask(T, decoding_chunk_size,
                                                 num_decoding_left_chunks, dev)
         else:
-            raise NotImplementedError("dynamic-chunk training masks are not ported yet")
+            chunk_masks = _dynamic_chunk_mask(T, use_dynamic_left_chunk, generator,
+                                              enable_full_context).to(dev)
         chunk_masks = masks & chunk_masks[None]
     elif static_chunk_size > 0:
         chunk_masks = subsequent_chunk_mask(T, static_chunk_size,
@@ -76,6 +88,27 @@ def add_optional_chunk_mask(
         chunk_masks = masks.expand(masks.shape[0], T, T)
     dead = chunk_masks.sum(dim=-1, keepdim=True) == 0
     return chunk_masks | dead
+
+
+def _dynamic_chunk_mask(T: int, use_left: bool, generator: Optional[torch.Generator],
+                        enable_full_context: bool) -> torch.Tensor:
+    """(T, T) bool mask of one random chunk size (and left limit), drawn
+    on ``generator``'s device."""
+    if generator is None:
+        raise ValueError("dynamic-chunk training masks draw from a generator and none was given")
+    dev = generator.device
+    draw = torch.randint(1, max(T, 2), (), generator=generator, device=dev)
+    full = (draw > T // 2) & enable_full_context
+    chunk = torch.where(full, torch.full_like(draw, T), draw % 25 + 1)
+    pos = torch.arange(T, device=dev)
+    allowed = pos[None, :] < ((pos // chunk + 1) * chunk)[:, None]
+    if use_left:
+        max_left = torch.clamp((T - 1) // chunk, min=1)
+        nleft = torch.randint(0, 1 << 30, (), generator=generator, device=dev) % max_left
+        start = torch.clamp((pos // chunk - nleft) * chunk, min=0)
+        limited = allowed & (pos[None, :] >= start[:, None])
+        allowed = torch.where(full, allowed, limited)
+    return allowed
 
 
 def mask_to_bias(mask: torch.Tensor, dtype=torch.float32) -> torch.Tensor:

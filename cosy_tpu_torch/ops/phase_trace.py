@@ -24,6 +24,7 @@ import subprocess
 
 import torch
 
+from ..utils import aot
 from . import _cuda
 from .fused_block import _ln_gemm_plan, _tail_plan
 
@@ -33,7 +34,7 @@ B2_PHASES = tuple(range(9))
 
 
 def _trace_libraries():
-    out = _cuda.BUILD_DIR / "trace"
+    out = aot.library_dir() / "trace"
     out.mkdir(parents=True, exist_ok=True)
     nvcc = _cuda._nvcc()
     jobs = {src: subprocess.Popen([nvcc, *_cuda.NVCC_FLAGS, "-DCOSY_TRACE", "-o",

@@ -600,7 +600,6 @@ def warmup(server: TTSServer, text: str = "warmup.") -> float:
 # each with its default, which is the only value accepted
 _QUEUED = {"tp": (1, "A16 (serve --tp: one process per GPU needs a server design of its "
                     "own; the training scale-out is ported)"),
-           "aot_cache": (None, "A16 (utils/aot.py)"),
            "engine_prefetch": (False, "A9 (prefetch is left out by design: the port syncs "
                                       "every token for host sampling)")}
 
@@ -658,7 +657,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "with quant.validate_int8_voice")
     # flags of the JAX server whose modules are still queued: refused
     ap.add_argument("--tp", type=int, default=1)
-    ap.add_argument("--aot-cache", default=None)
+    ap.add_argument("--aot-cache", default=None, metavar="DIR",
+                    help="build and load the compiled kernel libraries in DIR (created 0700; "
+                         "refused if another user could write to it): a later start with "
+                         "the same DIR loads them without running nvcc or g++")
     ap.add_argument("--engine-prefetch", action="store_true")
     return ap
 
@@ -667,6 +669,13 @@ def build_server(args) -> TTSServer:
     """The API, the weights' options and the voices of ``args`` in a
     server (nothing listens yet)."""
     refuse_queued_flags(args)
+    if args.aot_cache is not None:
+        from .utils import aot
+
+        try:
+            print(f"library cache: {aot.set_cache_dir(args.aot_cache)}")
+        except aot.UntrustedCacheDir as e:
+            raise SystemExit(f"--aot-cache refused: {e}") from None
     from .api import CosyVoice, CosyVoice2
     from .config import InferenceConfig, replace
     from .params import load_torch_checkpoint

@@ -143,3 +143,24 @@ def test_training_regime_modules_load_no_jax():
     assert res.returncode == 0, res.stdout + res.stderr
     assert "--dpo_beta" in res.stdout and "--teacher-substeps" in res.stdout
 
+
+
+def test_registry_export_profiling_aot_and_cost_modules_load_no_jax():
+    """The ASR decoders, the conv subsamplings, the positional encodings,
+    the masks, the exporters, profiling, the library cache and the cost
+    model in a fresh interpreter; the library cache loads without torch
+    (the server imports it before the model)."""
+    code = ("import sys\nbefore = set(sys.modules)\n"
+            "import cosy_tpu_torch.utils.aot\n"
+            "light = 'torch' not in sys.modules\n"
+            "import cosy_tpu_torch.layers.decoder, cosy_tpu_torch.layers.subsampling, "
+            "cosy_tpu_torch.layers.posenc, cosy_tpu_torch.ops.masks, cosy_tpu_torch.export, "
+            "cosy_tpu_torch.compat.onnx_export, cosy_tpu_torch.utils.profiling, "
+            "cosy_tpu_torch.ops.costs, cosy_tpu_torch.ops._cuda, cosy_tpu_torch.native\n"
+            "bad = sorted(m for m in set(sys.modules) - before if m == 'jax' or "
+            "m.startswith('jax.') or m == 'cosy_tpu' or m.startswith('cosy_tpu.'))\n"
+            "print(bad, light)\nsys.exit(1 if bad or not light else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr

@@ -195,6 +195,34 @@ def pp_inputs():
     return cfg, params, xs, lens
 
 
+def dynamic_chunk_rows(mesh, steps: int = 6):
+    """A conformer's training forward with dynamic chunks (and dropout) on
+    this rank's rows of a ragged batch, ``steps`` times on the trainers'
+    per-step generators: (lo, hi, the outputs).  Every rank seeds its
+    generator alike and draws the whole batch's dropout masks
+    (``draw_rows``), so every rank draws the same chunk after them."""
+    from cosy_tpu_torch.config import EncoderConfig
+    from cosy_tpu_torch.layers.conformer import encoder_forward, init_encoder
+    from cosy_tpu_torch.parallel import mesh as M
+    from cosy_tpu_torch.params import Spec, spec_tensors
+
+    cfg = EncoderConfig(input_size=12, output_size=16, attention_heads=2, linear_units=24,
+                        num_blocks=2, use_dynamic_chunk=True, use_dynamic_left_chunk=True)
+    spec = Spec()
+    init_encoder(spec, "", cfg, conformer=True)
+    params = P(spec_tensors(spec, "cpu", torch.Generator().manual_seed(6)))
+    xs = torch.randn(4, 40, 12, generator=torch.Generator().manual_seed(7))
+    lens = torch.tensor([40, 33, 27, 40])
+    lo, hi = (0, 4) if mesh is None else M.dp_rows(mesh, 4)
+    outs = []
+    for k in range(steps):
+        with M.batch_rows(mesh, lo, hi, 4):
+            y, _ = encoder_forward(params, cfg, xs[lo:hi], lens[lo:hi],
+                                   Ctx(generator=step_gen(k), train=True))
+        outs.append(y)
+    return lo, hi, outs
+
+
 def moe_inputs(E: int = 4):
     from cosy_tpu_torch.parallel.tp import stack_experts
 
@@ -274,6 +302,7 @@ def _worker_two(res, rank, out_dir, M, all_hosts_agree, joined_loader) -> None:
 
     dp2 = M.make_mesh(device="cpu")
     res["dp2_shape"] = dict(dp2.shape)
+    res["dynamic_chunk"] = dynamic_chunk_rows(dp2)
     ck_z2 = os.path.join(out_dir, "ckpt_zero2")
     tr, losses = run_full(dp2, 2, zero2=True)
     res["zero2_split"] = sum(a is not None for a in tr._zaxis.values())
@@ -655,6 +684,19 @@ def test_agreement_stops_every_rank_together(two):
     for r in two:
         assert r["joined"] == [0, 1, 2]
         assert r["agree_dissent"] is False and r["agree_all"] is True
+
+
+def test_dynamic_chunks_agree_across_dp_ranks(two):
+    """Each dp rank's rows of a dynamic-chunk training forward equal the
+    world-one forward's: both ranks drew the chunk of the single process."""
+    _, _, want = dynamic_chunk_rows(None)
+    covered = []
+    for r in two:
+        lo, hi, outs = r["dynamic_chunk"]
+        covered += list(range(lo, hi))
+        for got, full in zip(outs, want):
+            assert close(got, full[lo:hi])
+    assert sorted(covered) == [0, 1, 2, 3]
 
 
 @pytest.mark.parametrize("zero2", [True, False], ids=["zero2", "no_zero2"])

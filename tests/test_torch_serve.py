@@ -219,15 +219,37 @@ def test_cohort_error_isolation_and_worker_respawn(api, monkeypatch):
 
 def test_cohorts_interleave_at_segment_boundaries(api, monkeypatch):
     """A stream arriving mid-cohort gets its audio while the first cohort
-    still decodes: cohorts hold the device lock per segment."""
-    server = TTSServer(api, batch_window_ms=50.0)
+    still decodes: cohorts hold the device lock per segment.  Events order
+    the threads: the second request starts once the first cohort has made
+    its first segment, and the first cohort's thread waits for the second
+    stream's end before it takes the device lock for its next segment."""
+    first_made, second_ended = threading.Event(), threading.Event()
+    first_thread = []
+
+    class HoldingLock:
+        """The device lock; the first cohort's thread waits, outside it,
+        for the second stream's end before each later segment."""
+
+        def __init__(self):
+            self.lock = threading.Lock()
+
+        def __enter__(self):
+            if first_thread and threading.current_thread() is first_thread[0]:
+                assert second_ended.wait(timeout=WAIT), "the second stream never ended"
+            return self.lock.__enter__()
+
+        def __exit__(self, *exc):
+            return self.lock.__exit__(*exc)
+
+    server = TTSServer(api, lock=HoldingLock(), batch_window_ms=50.0)
 
     def slow_or_fast(ids_list, spks, seed=0):
         tag = int(ids_list[0][0, 0])
         n = 10 if tag == 0 else 1
         for seg in range(n):
-            if tag == 0:
-                time.sleep(0.2)  # inside next(): under the device lock
+            if tag == 0 and seg == 0:  # inside next(): under the device lock
+                first_thread.append(threading.current_thread())
+                first_made.set()
             for b in range(len(ids_list)):
                 yield b, np.zeros((1, 640), np.float32), seg == n - 1
 
@@ -237,11 +259,12 @@ def test_cohorts_interleave_at_segment_boundaries(api, monkeypatch):
                         lambda text: np.asarray([[int(text), 5]], np.int32))
     t0 = threading.Thread(target=lambda: list(server.synthesize_stream_batched("0")))
     t0.start()
-    time.sleep(0.5)
+    assert first_made.wait(timeout=WAIT), "the first cohort made no segment"
     t1 = threading.Thread(target=lambda: list(server.synthesize_stream_batched("1")))
     t1.start()
     _join([t1])
     assert t0.is_alive(), "the first cohort ended before the second: no interleaving"
+    second_ended.set()
     _join([t0])
     assert server.batches_run == 2
 
@@ -432,10 +455,15 @@ def test_export_merged_writes_the_flow_sidecar(tmp_path):
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--tp", "2"], "A16"), (["--int8", "--tp", "2"], "A16"), (["--aot-cache", "d"], "A16"),
+    (["--tp", "2"], "A16"), (["--int8", "--tp", "2"], "A16"), (["--aot-cache", None], "writable"),
     (["--sampler", "euler", "--meanflow-steps", "1"], "A14"), (["--meanflow-steps", "2"], "A14"),
     (["--engine-prefetch"], "A9"), (["--voices", "a=b.pt", "--cosyvoice2"], "CosyVoice")])
-def test_refused_flags(flags, item):
+def test_refused_flags(flags, item, tmp_path):
+    if None in flags:  # a library cache any user could write a library into
+        open_dir = tmp_path / "open"
+        open_dir.mkdir()
+        open_dir.chmod(0o777)
+        flags = [str(open_dir) if f is None else f for f in flags]
     with pytest.raises(SystemExit, match=item):
         build_server(build_parser().parse_args(["--model-dir", "nowhere"] + flags))
 
