@@ -173,7 +173,23 @@ Phases, each fatal on failure (nothing is caught and passed over):
      max|y|) of the CPU; (e) 200 dynamic-chunk draws on the card at T =
      250, each a reference mask; (f) costs.estimator_call_flops of (b)'s
      call over its device busy time, as TFLOP/s beside the f32 peak named
-     in ops/costs.py.
+     in ops/costs.py;
+ 20. serve --tp 2 at full width on phase 15's seeded model dir: two child
+     processes, ranks 0 and 1 on the one card over a gloo group with CUDA
+     tensors (NCCL refuses two ranks on one device), each splitting the
+     LLM and the flow (TTSPipeline.shard): (a) a solo decode to 60 tokens
+     against the world-one decode (equal, or the logit gap at the first
+     diverging step within 1e-4 x max(1, max|logit|)); (b) a flow call at
+     phase 5's shape (T = 311, NFE 15) with z injected: kernel A alone
+     exactly 64 x 15 times a rank (no B1 or B2: a split block runs
+     unfused), the mel within 1e-4 x max(1, max|y|) of the world-one
+     unfused flow; (c) python -m cosy_tpu_torch.serve --tp 2's main() in
+     both children (--engine-slots 2, --sampler meanflow on the model
+     dir's flow with its time branch: 2 estimator calls a flow), rank 0
+     serving over 127.0.0.1 through TTSClient (a whole request, a stream,
+     a stream dropped after its first piece), then SIGTERM: both exit 0
+     and rank 1 replayed every device section rank 0 sent; (d) each
+     rank's weight bytes against the whole model's and the split leaves.
 Phase 3 also holds B2 and the GEMM epilogue with exact (erf) GELU beside
 tanh, refuses a GELU code the kernels lack, and runs A, the block, B1 and
 B2 at CosyVoice2's streaming shapes with the chunk bias; phase 4 repeats
@@ -186,6 +202,7 @@ the nvidia-smi line, and last
 repository, it exits non-zero before printing any result.
 """
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -260,7 +277,7 @@ from cosy_tpu_torch.data.prepare import main as prepare_main  # noqa: E402
 from cosy_tpu_torch.params import (P, Spec, load_torch_checkpoint,  # noqa: E402
                                    save_torch_checkpoint, spec_tensors)
 from cosy_tpu_torch.train.trainer import JointTrainer  # noqa: E402
-from cosy_tpu_torch.train.distill import FlowDistiller  # noqa: E402
+from cosy_tpu_torch.train.distill import FlowDistiller, add_meanflow_time_branch  # noqa: E402
 from cosy_tpu_torch.ctx import Ctx  # noqa: E402
 from cosy_tpu_torch.infer.pipeline2 import (Stream2Cursor, TTS2Pipeline,  # noqa: E402
                                             hift24k_config)
@@ -1874,24 +1891,31 @@ def voiced_against_merged(vpipe, mpipe, ids, spk, voice, cap, seed):
     return counts, nfes[0]
 
 
-def api_and_serving(cfg, seed=80):
-    """Phase 15.  Returns the launch counts of (a)'s API calls and of (b)'s
-    voiced calls."""
+def write_model_dir(d, cfg, seed):
+    """Seeded llm/flow/hift.pt at ``cfg``'s widths beside the replica ONNX
+    graphs: a model dir ``CosyVoice(d)`` loads."""
+    for name, init, s in (("llm", init_llm_params, seed), ("flow", init_flow_params, seed + 1),
+                          ("hift", init_hift_params, seed + 2)):
+        m = init(getattr(cfg, name), DEV, seed=s)
+        save_torch_checkpoint(m.state_dict(), os.path.join(d, f"{name}.pt"))
+        del m
+    for fname, (_, data) in (("campplus.onnx", make_campplus_replica(seed=seed)),
+                             ("speech_tokenizer_v1.onnx", make_s3_replica(seed=seed + 1))):
+        with open(os.path.join(d, fname), "wb") as f:
+            f.write(data)
+
+
+def api_and_serving(cfg, model_dir, seed=80):
+    """Phase 15 on a seeded model dir it writes into ``model_dir`` (phase 20
+    reads it again).  Returns the launch counts of (a)'s API calls and of
+    (b)'s voiced calls."""
     log("[15] the user API, multi-voice LoRA serving and the HTTP server, full width")
     counts_api = {k: 0 for k in ops.launch_counts()}
     counts_voiced = dict(counts_api)
     rng = np.random.default_rng(seed)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_api_") as tmp:
+    with contextlib.nullcontext(model_dir) as tmp:
         t0 = time.perf_counter()
-        for name, init, s in (("llm", init_llm_params, seed), ("flow", init_flow_params, seed + 1),
-                              ("hift", init_hift_params, seed + 2)):
-            m = init(getattr(cfg, name), DEV, seed=s)
-            save_torch_checkpoint(m.state_dict(), os.path.join(tmp, f"{name}.pt"))
-            del m
-        for fname, (_, data) in (("campplus.onnx", make_campplus_replica(seed=seed)),
-                                 ("speech_tokenizer_v1.onnx", make_s3_replica(seed=seed + 1))):
-            with open(os.path.join(tmp, fname), "wb") as f:
-                f.write(data)
+        write_model_dir(tmp, cfg, seed)
         t_write = time.perf_counter() - t0
         t0 = time.perf_counter()
         # the decode cap at 5 tokens a text id keeps the phase short
@@ -3276,6 +3300,258 @@ def export_and_tools_phase(cfg, seed=120):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 20: serve --tp over two ranks on the one card
+# ---------------------------------------------------------------------------
+
+TP_CHILD = r"""
+import json, os, sys, time
+t_start = time.time()
+root, model_dir, rank, port, http_port = sys.argv[1], sys.argv[2], int(sys.argv[3]), *sys.argv[4:6]
+os.environ.update(RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                  MASTER_PORT=port)
+import numpy as np
+import torch
+import torch.distributed as dist
+from cosy_tpu_torch import ops, serve
+from cosy_tpu_torch.config import ModelConfig
+from cosy_tpu_torch.models.flow import flow_inference
+from cosy_tpu_torch.models.llm import llm_teacher_forced_logits
+from cosy_tpu_torch.parallel import tp as TP
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.cuda.set_device(0)
+# two ranks on one card: NCCL refuses that, so this script makes a gloo group
+# (CUDA tensors) before it calls into the port, which joins it
+dist.init_process_group("gloo", rank=rank, world_size=2)
+inp = torch.load(os.path.join(root, "inputs.pt"), weights_only=False)
+cfg = ModelConfig()
+# serve.main's steps, with (a), (b) and (d) on the built server's split
+# pipeline before it serves.  The MeanFlow sampler (the model dir's flow with
+# its time branch: 2 estimator calls a request) keeps each request's flow to
+# 2 x 384 split products
+args = serve.build_parser().parse_args([
+    "--model-dir", model_dir, "--tp", "2", "--port", http_port, "--engine-slots", "2",
+    "--sampler", "meanflow", "--flow-weights", os.path.join(root, "flow_meanflow.pt")])
+serve.refuse_queued_flags(args)
+tp = serve.start_tp(args)
+server = serve.build_server(args, tp)
+pipe, dev = server.api.model, tp.mesh.device
+views = (pipe.llm_p, pipe.flow_p)  # each carries its layout (P.split)
+nbytes = lambda p, whole: sum(v.numel() * v.element_size() * (2 if whole and k in p.split.layout
+                                                             else 1) for k, v in p.d.items())
+res = {"rank": rank, "device": str(dev), "backend": dist.get_backend(),
+       "whole_bytes": [nbytes(p, True) for p in views],
+       "local_bytes": [nbytes(p, False) for p in views],
+       "split": [sum(k in p.split.layout for k in p.d) for p in views],
+       "layout_split": sum(TP.count_sharded(p.split.layout) for p in views)}
+spk = np.zeros((1, 192), np.float32)
+# (a) the solo decode (after a 4-token one that warms up), and the logits
+# along the world-one tokens where the two diverge
+for cap in (4, inp["cap"]):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    toks = pipe.generate_tokens(inp["ids"], spk, cap, torch.Generator().manual_seed(inp["seed"]))
+    torch.cuda.synchronize()
+    res["decode_s"] = time.perf_counter() - t
+res["tokens"] = [int(x) for x in toks[0]]
+if res["tokens"] != inp["want"]:
+    with torch.inference_mode():
+        prefix, _, _ = pipe._build_prefix(inp["ids"], None, None, spk, inp["cap"])
+        res["logits"] = llm_teacher_forced_logits(pipe.llm_p, cfg.llm, prefix, [prefix.shape[1]],
+                                                  [inp["want"]])[0].float().cpu()
+# (b) one flow call at phase 5's shape with the Euler sampler (the time
+# branch unused), z injected, counted: each block gathers its split weights
+# and runs the kernel chain
+kw = dict(n_timesteps=inp["nfe"], z=inp["z"].to(dev), finetuned_norm=True,
+          mel_norm=(cfg.mel_mean, cfg.mel_std))
+with torch.inference_mode():
+    args_f = (pipe.flow_p, cfg.flow, inp["flow_tokens"].to(dev),
+              torch.zeros((1, 0), dtype=torch.long, device=dev),
+              torch.zeros((1, 0, 80), device=dev), torch.zeros((1, 192), device=dev))
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    mel = flow_inference(*args_f, **kw)
+    torch.cuda.synchronize()
+    res["flow_s"] = time.perf_counter() - t
+    res["flow_counts"] = ops.launch_counts()
+res["mel"] = mel.cpu()
+torch.save(res, os.path.join(root, f"rank{rank}.pt"))
+del mel
+# (c) the server: rank 0 serves on http_port until SIGTERM, rank 1 follows
+t = time.time()
+res_main = serve.serve(server, args, tp)
+dist.destroy_process_group()
+print(json.dumps({"main": res_main, "serve_s": time.time() - t, "wall_s": time.time() - t_start}))
+"""
+
+
+def tp_serving_phase(cfg, model_dir, seed=80, cap=60, n_ids=16):
+    """[20]: serve --tp 2 at full width over two ranks on the one card, one
+    child process each over a gloo group with CUDA tensors (the port's
+    collectives as NCCL would run them across cards, by way of the host):
+    (a) a solo decode to ``cap`` tokens against the world-one decode, (b) a
+    flow call at phase 5's shape with z injected (the kernel chain B1 -> A
+    -> B2 64 x NFE times, on each block's all-gathered weights) against the
+    world-one flow, (c) the server through
+    TTSClient (its flows MeanFlow's two calls: gloo's copies through the
+    host make each split product ~2.6 ms on the card), then SIGTERM, (d)
+    each rank's weight bytes.  Returns rank 0's launches of (b)."""
+    log("[20] serve --tp 2 at full width: two ranks on the one card over gloo (CUDA tensors)")
+    t0 = time.time()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as root:
+        d = model_dir  # phase 15's seeded model dir
+        rng = np.random.default_rng(seed + 40)
+        ids = rng.integers(0, 256, (1, n_ids)).astype(np.int64)
+        T_mel, nfe = 311, 15
+        inp = {"ids": ids, "cap": cap, "seed": seed + 41, "nfe": nfe,
+               "flow_tokens": torch.from_numpy(rng.integers(0, cfg.flow.vocab_size, (1, 181))),
+               "z": torch.randn((1, 80, T_mel + 1), generator=torch.Generator().manual_seed(seed))}
+        api = CosyVoice(d, model_cfg=cfg, device=DEV)
+        pipe = api.model
+        spk = np.zeros((1, 192), np.float32)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        want = pipe.generate_tokens(ids, spk, cap, torch.Generator().manual_seed(inp["seed"]))
+        torch.cuda.synchronize()
+        one_decode_s = time.perf_counter() - t
+        inp["want"] = want = [int(x) for x in want[0]]
+        with torch.inference_mode():
+            prefix, _, _ = pipe._build_prefix(ids, None, None, spk, cap)
+            one_logits = llm_teacher_forced_logits(pipe.llm_p, cfg.llm, prefix, [prefix.shape[1]],
+                                                   [want])[0].float().cpu()
+            args = (pipe.flow_p, cfg.flow, inp["flow_tokens"].to(DEV),
+                    torch.zeros((1, 0), dtype=torch.long, device=DEV),
+                    torch.zeros((1, 0, 80), device=DEV), torch.zeros((1, 192), device=DEV))
+            kw = dict(n_timesteps=nfe, z=inp["z"].to(DEV), finetuned_norm=True,
+                      mel_norm=(cfg.mel_mean, cfg.mel_std))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            mel_one = flow_inference(*args, **kw).cpu()
+            one_flow_s = time.perf_counter() - t
+        del api, pipe
+        torch.cuda.empty_cache()
+        torch.save(inp, os.path.join(root, "inputs.pt"))
+        flow = load_torch_checkpoint(os.path.join(d, "flow.pt"))
+        save_torch_checkpoint(add_meanflow_time_branch(flow, cfg.flow.estimator),
+                              os.path.join(root, "flow_meanflow.pt"))
+        del flow
+        log(f"  world one (first calls): decode of {len(want)} tokens in {one_decode_s:.3f} s "
+            f"({len(want) / one_decode_s:.1f} tokens/s); flow at T = {T_mel}, NFE {nfe} "
+            f"{one_flow_s:.3f} s")
+
+        port = http_port = _free_port()
+        while http_port == port:
+            http_port = _free_port()
+        here = os.path.dirname(os.path.abspath(__file__))
+        logs = [open(os.path.join(root, f"child{r}.log"), "w+") for r in range(2)]
+        procs = [subprocess.Popen([sys.executable, "-c", TP_CHILD, root, d, str(r), str(port),
+                                   str(http_port)], cwd=here, stdout=logs[r],
+                                  stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        url = f"http://127.0.0.1:{http_port}"
+
+        def tail(r):
+            logs[r].flush()
+            logs[r].seek(0)
+            return logs[r].read()[-4000:]
+
+        try:
+            c = TTSClient(url, timeout=300)
+            deadline = time.time() + 400
+            while not c.healthz():
+                if time.time() > deadline or any(p.poll() is not None for p in procs):
+                    raise SystemExit("chip_smoke: the --tp 2 server did not come up:\n"
+                                     + tail(0) + tail(1))
+                time.sleep(0.5)
+            t_up = time.time() - t0
+            t = time.perf_counter()
+            wav, sr = c.tts("A")  # one text id: at most 20 tokens
+            whole_s = time.perf_counter() - t
+            t = time.perf_counter()
+            first, chunks = None, []
+            for chunk in c.tts_stream("A"):
+                first = first or time.perf_counter() - t
+                chunks.append(chunk)
+            stream_s = time.perf_counter() - t
+            dropped = c.tts_stream("B")
+            got_one = next(dropped)
+            dropped.close()
+            stats = c.stats()  # the server goes on after a dropped stream
+            procs[0].send_signal(15)
+            procs[1].send_signal(15)  # a follower ignores it: rank 0's drain stops it
+            rcs = [p.wait(timeout=300) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        outs = [tail(r) for r in range(2)]
+        for f in logs:
+            f.close()
+        if rcs != [0, 0]:
+            raise SystemExit(f"chip_smoke: the --tp 2 children exited {rcs}:\n{outs[0]}{outs[1]}")
+        ends = [json.loads(next(ln for ln in reversed(o.splitlines()) if ln.startswith('{"main"')))
+                for o in outs]
+        ranks = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+    # (d) the split
+    for r in ranks:
+        log(f"  (d) rank {r['rank']} on {r['device']} over {r['backend']}: {r['split'][0]} llm + "
+            f"{r['split'][1]} flow split params; weight bytes llm {r['local_bytes'][0]} of "
+            f"{r['whole_bytes'][0]} ({r['local_bytes'][0] / r['whole_bytes'][0]:.3f}), flow "
+            f"{r['local_bytes'][1]} of {r['whole_bytes'][1]} "
+            f"({r['local_bytes'][1] / r['whole_bytes'][1]:.3f})")
+    if not all(r["split"][0] > 0 and r["split"][1] > 0 and r["layout_split"] == sum(r["split"])
+               and r["local_bytes"][0] < r["whole_bytes"][0]
+               and r["local_bytes"][1] < r["whole_bytes"][1] for r in ranks):
+        raise SystemExit("chip_smoke: the --tp 2 weights did not split")
+    # (a) the decode
+    for r in ranks:
+        got = r["tokens"]
+        log(f"  (a) rank {r['rank']}: {len(got)} tokens in {r['decode_s']:.3f} s "
+            f"({len(got) / r['decode_s']:.1f} tokens/s); equal to the world-one decode: "
+            f"{got == want}")
+        if got != want:
+            j = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                     min(len(got), len(want)))
+            gap = (r["logits"][j] - one_logits[j]).abs().max().item()
+            tol = 1e-4 * max(1.0, one_logits[j].abs().max().item())
+            log(f"  (a) tokens diverge at step {j}: logit gap {gap:.3e} (tol {tol:.3e})")
+            if not gap <= tol:
+                raise SystemExit("chip_smoke: the --tp 2 decode diverges beyond rounding")
+    # (b) the flow
+    tol = 1e-4 * max(1.0, mel_one.abs().max().item())
+    for r in ranks:
+        err = (r["mel"] - mel_one).abs().max().item()
+        counts = r["flow_counts"]
+        log(f"  (b) rank {r['rank']}: flow at T = {T_mel}, NFE {nfe} in {r['flow_s']:.3f} s, "
+            f"max_abs_err against the world-one flow {err:.3e} (tol {tol:.3e}); "
+            f"launches {counts}")
+        if r["mel"].shape != mel_one.shape or not err <= tol:
+            raise SystemExit("chip_smoke: the --tp 2 flow disagrees with the world-one flow")
+        chain = ("fused_transformer_block", "ln_gemm", "flash_attention", "block_tail")
+        if any(counts[k] != 64 * nfe for k in chain) or any(
+                counts[k] for k in ("gemm", "layer_norm_rows", "banded_attention")):
+            raise SystemExit(f"chip_smoke: the --tp 2 flow's launches {counts} are not the "
+                             f"chain B1 -> A -> B2 64 x {nfe} times")
+    # (c) the server
+    log(f"  (c) server up {t_up:.1f} s after the phase began; whole request {wav.size / sr:.2f} s "
+        f"of audio in {whole_s:.3f} s (RTF {whole_s / (wav.size / sr):.3f}); stream: first "
+        f"piece after {first:.3f} s, {len(chunks)} pieces, {sum(x.size for x in chunks) / sr:.2f} "
+        f"s of audio in {stream_s:.3f} s; a stream dropped after {got_one.size} samples; "
+        f"/stats requests {stats['requests']} errors {stats['errors']}")
+    log(f"  (c) rank 0: {ends[0]['main']}, rank 1: {ends[1]['main']}; the children took "
+        f"{ends[0]['wall_s']:.1f} / {ends[1]['wall_s']:.1f} s; exit codes {rcs}")
+    audio = [wav] + chunks + [got_one]
+    if not (sr == 22050 and all(a.size and np.isfinite(a).all() for a in audio)
+            and ends[1]["main"] == {"replayed": ends[0]["main"]["sent"], "errors": []}):
+        raise SystemExit("chip_smoke: the --tp 2 server's answers or replay counts are off")
+    log(f"  phase 20 took {time.time() - t0:.1f} s")
+    return ranks[0]["flow_counts"]
+
+
 def report(name, r):
     def dev(key):
         return "" if r.get(key) is None else f" ({r[key]:.4f} on the card)"
@@ -3601,7 +3877,8 @@ def main():
             counts_cv2[k] += v
     del cv2_models
     torch.cuda.empty_cache()
-    counts_api, counts_voiced = api_and_serving(cfg)
+    model_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_api_")  # [15]'s, read by [20]
+    counts_api, counts_voiced = api_and_serving(cfg, model_dir.name)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_regimes_") as root:
         t = time.time()
         counts_mf, counts_teacher = meanflow_phase(cfg, root)
@@ -3624,6 +3901,8 @@ def main():
         scale_out_phase(root, cfg)
     counts_lt = new_modules_phase(cfg)
     counts_x = export_and_tools_phase(cfg)
+    counts_tp = tp_serving_phase(cfg, model_dir.name)
+    model_dir.cleanup()
 
     def entry(name, source, replaces, r, launches=None):
         # times on the card (torch.profiler) where the profiler gave them,
@@ -3709,6 +3988,20 @@ def main():
         entry("fused_transformer_block_onnx_check", "cosy_tpu_torch/csrc/fused_block.cu",
               "cosy_tpu/ops/fused_block.py:34", main_b,
               launches=counts_x["fused_transformer_block"]),
+    ] + [
+        # phase 20 (b): one rank's flow call under serve --tp 2, each block
+        # the chain on its all-gathered weights (64 x NFE 15); times at the
+        # main path's T/2 level
+        entry(f"{name}_tp", src, rep, r, launches=counts_tp[name])
+        for name, src, rep, r in (
+            ("flash_attention", "cosy_tpu_torch/csrc/flash_attention.cu",
+             "cosy_tpu/ops/flash_attention.py:76", main_a),
+            ("fused_transformer_block", "cosy_tpu_torch/csrc/fused_block.cu",
+             "cosy_tpu/ops/fused_block.py:34", main_b),
+            ("ln_gemm", "cosy_tpu_torch/csrc/fused_block.cu", "cosy_tpu/ops/fused_block.py:49",
+             main_b1),
+            ("block_tail", "cosy_tpu_torch/csrc/block_tail.cu", "cosy_tpu/ops/fused_block.py:74",
+             main_b2))
     ]
     log(f"  run took {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

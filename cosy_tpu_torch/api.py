@@ -32,10 +32,11 @@ counter into one PRNG key instead (``jax.random.fold_in``).
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import time
-from typing import Iterator, Optional
+from typing import Callable, Iterator, Optional
 
 import numpy as np
 import torch
@@ -122,21 +123,27 @@ class CosyVoice:
             source_speech_token=model_input.get("source_speech_token"),
         )
 
-    def _run(self, model_input: dict, stream: bool, speed: float) -> Iterator[dict]:
-        """Synthesize one frontend dict, logging each chunk's RTF."""
+    def _run(self, model_input: dict, stream: bool, speed: float,
+             run: Optional[Callable[..., Iterator[dict]]] = None) -> Iterator[dict]:
+        """Synthesize one frontend dict, logging each chunk's RTF.  ``run``
+        takes ``model.synthesize``'s keywords in its place (a server's
+        device sections)."""
         start = time.time()
-        for out in self.model.synthesize(stream=stream, speed=speed, seed=self._next_seed(),
-                                         **self._model_kwargs(model_input)):
-            n = out["tts_speech"].shape[1] / self.sample_rate
-            logging.info("yield speech len %.2f, rtf %.3f", n,
-                         (time.time() - start) / max(n, 1e-6))
-            yield out
-            start = time.time()
+        with contextlib.closing((run or self.model.synthesize)(
+                stream=stream, speed=speed, seed=self._next_seed(),
+                **self._model_kwargs(model_input))) as chunks:
+            for out in chunks:
+                n = out["tts_speech"].shape[1] / self.sample_rate
+                logging.info("yield speech len %.2f, rtf %.3f", n,
+                             (time.time() - start) / max(n, 1e-6))
+                yield out
+                start = time.time()
 
     def inference_sft(self, tts_text: str, spk_id: str, stream: bool = False,
-                      speed: float = 1.0, text_frontend: bool = True):
+                      speed: float = 1.0, text_frontend: bool = True,
+                      run: Optional[Callable[..., Iterator[dict]]] = None):
         for seg in self.frontend.normalize(tts_text, split=True, text_frontend=text_frontend):
-            yield from self._run(self.frontend.frontend_sft(seg, spk_id), stream, speed)
+            yield from self._run(self.frontend.frontend_sft(seg, spk_id), stream, speed, run)
 
     def inference_zero_shot(self, tts_text: str, prompt_text: str,
                             prompt_speech_16k: np.ndarray, zero_shot_spk_id: str = "",

@@ -29,6 +29,14 @@ server that shares the device with direct calls interleaves them there.  A failu
 failure of the loop itself fails every request and the engine starts
 afresh on the next submission.
 
+Those locked sections are the engine's whole device work, and each is a
+method of its own (``_admit``, ``_run``, ``_window``, ``_reset``) whose
+arguments determine it.  Under a tensor-parallel server rank 0's engine
+sends each section to the followers before it runs it (``replay``, a
+``parallel.replay.Leader``), and a follower's engine, which never starts
+its thread, runs the same section through :meth:`apply`, so every rank
+enters the same collectives in the same order.
+
 Usage::
 
     eng = ContinuousBatchEngine(pipeline, slots=4)
@@ -43,7 +51,7 @@ from __future__ import annotations
 import contextlib
 import queue
 import threading
-from typing import List, Optional, Union
+from typing import Iterator, List, Optional, Union
 
 import numpy as np
 import torch
@@ -91,8 +99,9 @@ class ContinuousBatchEngine:
 
     def __init__(self, pipeline: Union[TTSPipeline, TTS2Pipeline], slots: int = 4,
                  prefix_len: int = 128, max_len: int = 512, seg_tokens: Optional[int] = None,
-                 device_lock: Optional[threading.Lock] = None):
+                 device_lock: Optional[threading.Lock] = None, replay=None):
         self.pl = pipeline
+        self.replay = replay
         self.lock = device_lock if device_lock is not None else contextlib.nullcontext()
         self.is_cv2 = isinstance(pipeline, TTS2Pipeline)
         self.B = slots
@@ -108,6 +117,7 @@ class ContinuousBatchEngine:
             self.hop = pipeline.token_min_hop_len
             self.seg = seg_tokens or self.hop
         self._slots: List[Optional[EngineRequest]] = [None] * slots
+        self._windows: List[Optional[Iterator[np.ndarray]]] = [None] * slots
         self._state: Optional[Union[L.DecodeState, Q.Qwen2DecodeState]] = None
         self._pending: List[EngineRequest] = []
         self._cv = threading.Condition()
@@ -156,26 +166,79 @@ class ContinuousBatchEngine:
     def _active(self) -> bool:
         return any(r is not None for r in self._slots)
 
-    def _build(self, req: EngineRequest) -> bool:
-        """Build and left-pad the request's prefix to the engine's width;
-        fails the request (only it) and returns False when it cannot fit."""
-        spk = self.pl._spk(req.spk_embedding)
+    def _locked(self, name: str, args: tuple, wire: Optional[tuple] = None):
+        """Run the section ``_<name>(*args)`` under the device lock; under a
+        tensor-parallel server first send it (``wire``: its picklable
+        arguments, default ``args``) to the followers."""
+        with self.lock:
+            if self.replay is not None:
+                self.replay.send(("engine", name, args if wire is None else wire))
+            return getattr(self, "_" + name)(*args)
+
+    def apply(self, name: str, args: tuple):
+        """A follower's run of a section rank 0 sent (never on rank 0)."""
+        if name == "admit":
+            text_tokens, spk_embedding, seed, slot = args
+            return self._admit(EngineRequest(text_tokens, spk_embedding, seed), slot)
+        return getattr(self, "_" + name)(*args)
+
+    # -- the sections (device work) -----------------------------------------
+
+    def _admit(self, req: EngineRequest, slot: int) -> None:
+        """Build and left-pad the request's prefix to the engine's width and
+        admit it into row ``slot`` (the state made at the first admission);
+        a prefix that does not fit fails the request alone."""
+        pl = self.pl
+        spk = pl._spk(req.spk_embedding)
         if self.is_cv2:  # no speaker row on CosyVoice2's LLM side
-            prefix, min_len, max_len = self.pl._build_prefix(req.text_tokens, None, None,
-                                                             self.max_len)
+            prefix, min_len, max_len = pl._build_prefix(req.text_tokens, None, None,
+                                                        self.max_len)
         else:
-            prefix, min_len, max_len = self.pl._build_prefix(req.text_tokens, None, None, spk,
-                                                             self.max_len)
+            prefix, min_len, max_len = pl._build_prefix(req.text_tokens, None, None, spk,
+                                                        self.max_len)
         if prefix.shape[1] > self.L0:
             req.err = ValueError(f"prefix length {prefix.shape[1]} exceeds the engine's "
                                  f"prefix width {self.L0}")
             req.q.put(None)
-            return False
+            return
         req.valid = prefix.shape[1]
         req.prefix = torch.nn.functional.pad(prefix, (0, 0, self.L0 - req.valid, 0))
         req.min_len, req.cap = min_len, max_len
         req.cursor = (Stream2Cursor if self.is_cv2 else StreamCursor)(spk, req.seed, 0, self.hop)
-        return True
+        if self._state is None:
+            idle, cfg, kw = ((Q.qwen2lm_decode_idle, pl.lcfg, {}) if self.is_cv2
+                             else (L.llm_decode_idle, pl.cfg.llm, dict(step_p=pl.llm_step_p)))
+            self._state = idle(pl.llm_p, cfg, self.B, self.L0, self.max_len, req.prefix.dtype,
+                               pl.device, **pl._sampling(), **kw)
+        admit = Q.qwen2lm_admit_slot if self.is_cv2 else L.llm_admit_slot
+        admit(self._state, req.prefix, req.valid, req.min_len, req.cap,
+              pl._decode_generator(req.seed, 0), slot)
+        req.admitted_segment = self.segments_run
+        self._slots[slot] = req
+
+    def _run(self, done: List[bool], stop_at: int) -> None:
+        """One decode segment from the rows' ``done`` flags (rank 0's, with
+        its cancelled and failed rows frozen)."""
+        self._state.done[:] = done
+        self._state.run(stop_at)
+
+    def _window(self, slot: int, tokens: Optional[np.ndarray], done: bool):
+        """The next ready window of row ``slot``'s stream, or None; a new
+        segment's first call passes the row's ``tokens`` so far."""
+        if tokens is not None:
+            self._windows[slot] = self.pl.stream_chunks(self._slots[slot].cursor, tokens, done)
+        wav = next(self._windows[slot], None)
+        if wav is None:
+            self._windows[slot] = None
+        return wav
+
+    def _reset(self) -> None:
+        """A fresh state on the next admission (after a failed loop)."""
+        self._state = None
+        self._slots = [None] * self.B
+        self._windows = [None] * self.B
+
+    # -- internals (loop thread) ------------------------------------------
 
     def _try_admit(self):
         """Admit pending requests into free rows, in submission order."""
@@ -187,24 +250,8 @@ class ContinuousBatchEngine:
             if req.cancelled:  # cancelled after leaving the pending list
                 req.q.put(None)
                 continue
-            with self.lock:  # the prefix runs the text encoder on the device
-                built = self._build(req)
-            if not built:
-                continue
-            pl = self.pl
-            with self.lock:
-                if self._state is None:
-                    idle, cfg, kw = ((Q.qwen2lm_decode_idle, pl.lcfg, {}) if self.is_cv2
-                                     else (L.llm_decode_idle, pl.cfg.llm,
-                                           dict(step_p=pl.llm_step_p)))
-                    self._state = idle(pl.llm_p, cfg, self.B, self.L0, self.max_len,
-                                       req.prefix.dtype, pl.device, **pl._sampling(), **kw)
-                b = self._slots.index(None)
-                admit = Q.qwen2lm_admit_slot if self.is_cv2 else L.llm_admit_slot
-                admit(self._state, req.prefix, req.valid, req.min_len, req.cap,
-                      pl._decode_generator(req.seed, 0), b)
-            req.admitted_segment = self.segments_run
-            self._slots[b] = req
+            b = self._slots.index(None)
+            self._locked("admit", (req, b), (req.text_tokens, req.spk_embedding, req.seed, b))
 
     def _segment(self):
         """Run one decode segment and emit every row's ready audio."""
@@ -212,8 +259,7 @@ class ContinuousBatchEngine:
         for b, r in enumerate(self._slots):
             if r is not None and r.cancelled:
                 st.done[b] = True  # stops at this boundary
-        with self.lock:
-            st.run(st.i + self.seg)
+        self._locked("run", (list(st.done), st.i + self.seg))
         self.segments_run += 1
         for b, req in enumerate(self._slots):
             if req is None:
@@ -221,13 +267,9 @@ class ContinuousBatchEngine:
             done = st.done[b]
             if not req.cancelled:
                 try:
-                    windows = self.pl.stream_chunks(
-                        req.cursor, np.asarray(st.tokens[b], np.int64)[None], done)
-                    while True:
-                        with self.lock:  # one window at a time
-                            wav = next(windows, None)
-                        if wav is None:
-                            break
+                    tokens = np.asarray(st.tokens[b], np.int64)[None]
+                    while (wav := self._locked("window", (b, tokens, done))) is not None:
+                        tokens = None  # one window a section
                         req.q.put(wav)
                 except Exception as e:  # noqa: BLE001 - fail only this request
                     req.err, done = e, True
@@ -242,13 +284,12 @@ class ContinuousBatchEngine:
             if req is not None:
                 req.err = e
                 req.q.put(None)
-                self._slots[b] = None
         with self._cv:
             for req in self._pending:
                 req.err = e
                 req.q.put(None)
             self._pending.clear()
-        self._state = None  # a fresh state on the next admission
+        self._locked("reset", ())
 
     def _loop(self):
         while True:

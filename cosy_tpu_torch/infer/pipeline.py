@@ -40,6 +40,8 @@ from ..models import flow as F
 from ..models import hift as H
 from ..models import llm as L
 from ..ops.fused_block import require_kernel_widths
+from ..parallel import tp as TP
+from ..params import P
 
 
 def stream_seed(seed: int, row: int, stage: int) -> int:
@@ -153,6 +155,19 @@ class TTSPipeline:
         self._voice_flow: List[Optional[Dict[str, torch.Tensor]]] = []
         self._llm_lora_scale = 1.0
         self._flow_lora_scale = 1.0
+
+    def shard(self, mesh) -> Tuple[int, int]:
+        """Split the LLM's and the flow's weights over ``mesh``'s model axis
+        (``parallel.tp.shard_params``): this rank keeps its block of each
+        split leaf and the rest whole, and the views carry the layout
+        (``P.split``), so every call runs the split products whatever thread
+        makes it.  HiFT and the voice banks stay whole, as in the JAX
+        package's server.  The int8 step view is split by the same rule from
+        its whole int8 matrices (per-row scales of a column split need whole
+        rows).  Returns the (LLM, flow) leaves split."""
+        self.llm_p, self.llm_step_p, self.flow_p, counts = shard_pipeline(
+            mesh, self.llm_p, self.llm_step_p, self.flow_p)
+        return counts
 
     def _hamming(self, n: int) -> torch.Tensor:
         return torch.as_tensor(np.hamming(n), dtype=torch.float32, device=self.device)
@@ -698,3 +713,24 @@ class TTSPipeline:
                 for i, wav in enumerate(wavs):
                     yield b, wav, finished[b] and i == len(wavs) - 1
             target += hop
+
+
+def shard_pipeline(mesh, llm_p: P, llm_step_p: P, flow_p: P):
+    """A pipeline's split views, each carrying its layout (``P.split``):
+    (LLM, its step view, flow, (LLM leaves split, flow leaves split)).  The
+    step view's own leaves (int8 matrices and their scales) split by the
+    LLM's rule; the leaves it shares with the LLM stay shared."""
+    llm, llm_layout = TP.shard_params(mesh, llm_p.d)
+    step, step_layout = llm, llm_layout
+    if llm_step_p is not llm_p:
+        own = {k: v for k, v in llm_step_p.d.items() if llm_p.d.get(k) is not v}
+        own, own_layout = TP.shard_params(mesh, own)
+        step, step_layout = {**llm, **own}, {**llm_layout, **own_layout}
+    flow, flow_layout = TP.shard_params(mesh, flow_p.d)
+
+    def view(d, prefix, layout):
+        return P(d, prefix, TP.make_split(mesh, layout))
+
+    return (view(llm, llm_p.prefix, llm_layout), view(step, llm_step_p.prefix, step_layout),
+            view(flow, flow_p.prefix, flow_layout),
+            (TP.count_sharded(llm_layout), TP.count_sharded(flow_layout)))

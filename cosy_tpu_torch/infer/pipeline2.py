@@ -43,7 +43,7 @@ from ..models.flow2 import Flow2, Flow2Config, flow2_inference
 from ..ops.fused_block import require_kernel_widths
 from ..params import P
 from ..quant import quantize_int8
-from .pipeline import _batch_prefixes, fade_in_out, stream_seed
+from .pipeline import _batch_prefixes, fade_in_out, shard_pipeline, stream_seed
 
 
 def hift24k_config() -> HiFTConfig:
@@ -109,6 +109,14 @@ class TTS2Pipeline:
         # hift), each ending in a device synchronize
         self.stage_seconds: Dict[str, float] = {}
         self._t_mark = 0.0
+
+    def shard(self, mesh) -> Tuple[int, int]:
+        """Split the Qwen2 LM's weights (int8 ones under ``int8_decode``, by
+        the same rule) and the flow's over ``mesh``'s model axis; HiFT stays
+        whole.  Returns the (LLM, flow) leaves split."""
+        self.llm_p, _, self.flow_p, counts = shard_pipeline(
+            mesh, self.llm_p, self.llm_p, self.flow_p)
+        return counts
 
     def _mark(self, stage: Optional[str]):
         if self.device.type == "cuda":

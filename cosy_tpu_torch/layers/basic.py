@@ -55,8 +55,10 @@ def _lora_delta(ctx: Ctx, full_name: str, x: torch.Tensor, conv: bool):
 
 def dense(p: P, name: str, x: torch.Tensor, ctx: Ctx = EVAL) -> torch.Tensor:
     """torch nn.Linear: weight (out, in), y = x @ W^T + b, plus the LoRA delta.
-    Under ``parallel.tp.tensor_parallel`` a weight split over the model axis
-    runs the split product (``parallel.tp.split_dense``).
+    A weight that ``p`` holds split over the model axis (``p.split``) runs
+    the split product (``parallel.tp.split_dense``), which returns the
+    whole output; the LoRA delta (whole adapters on the whole ``x``) adds
+    after it.
 
     An int8 weight with a ``.weight@scale`` sibling (``quant.quantize_int8``)
     is weight-only quantized: the product runs on the weight cast to x's
@@ -64,13 +66,12 @@ def dense(p: P, name: str, x: torch.Tensor, ctx: Ctx = EVAL) -> torch.Tensor:
     delta are added."""
     b = p.get(name + ".bias")
     w = p[name + ".weight"]
-    axis = split_axis(p.full(name + ".weight"))
+    axis = split_axis(p, name + ".weight")
     if axis is not None:
-        if ctx.lora is not None or w.dtype == torch.int8:
-            raise NotImplementedError("LoRA adapters or int8 weights on a tensor-parallel "
-                                      "weight")
-        return split_dense(x, w.to(x.dtype), None if b is None else b.to(x.dtype), axis)
-    if w.dtype == torch.int8:
+        scale = p[name + ".weight@scale"].to(x.dtype) if w.dtype == torch.int8 else None
+        y = split_dense(x, w.to(x.dtype), None if b is None else b.to(x.dtype), axis,
+                        p.split.group, scale)
+    elif w.dtype == torch.int8:
         y = F.linear(x, w.to(x.dtype)) * p[name + ".weight@scale"].to(x.dtype)
         if b is not None:
             y = y + b.to(x.dtype)

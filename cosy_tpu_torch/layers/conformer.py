@@ -26,7 +26,7 @@ from ..config import EncoderConfig
 from ..ctx import EVAL, Ctx
 from ..ops import masks as M
 from ..parallel import comm
-from ..parallel.tp import model_group, split_axis
+from ..parallel.tp import split_axis
 from ..params import P, Spec
 from .attention import mha, rel_pos_mha
 from .basic import ACT, conv1d, dense, glu, layer_norm
@@ -68,9 +68,9 @@ def moe_ffn(p: P, name: str, x: torch.Tensor, n_expert: int, n_expert_per_token:
         w1, b1 = se["w_1.weight"].to(x.dtype), se["w_1.bias"].to(x.dtype)
         w2, b2 = se["w_2.weight"].to(x.dtype), se["w_2.bias"].to(x.dtype)
         group = None
-        if split_axis(se.full("w_1.weight")) == 0:
+        if split_axis(se, "w_1.weight") == 0:
             # this rank's experts: its columns of the routing weights
-            group = model_group()
+            group = se.split.group
             E_l = w1.shape[0]
             xs = comm.grad_sum(xs, group)
             w_full = comm.grad_sum(w_full, group).narrow(1, comm.group_rank(group) * E_l, E_l)

@@ -31,6 +31,7 @@ from ..ctx import EVAL, Ctx
 from ..ops import masks as M
 from ..ops.fused_block import fused_transformer_block, use_fused_block
 from ..parallel import sp as SP
+from ..parallel.tp import gather_weights
 from ..params import P, Spec
 from .attention import diffusers_attention
 from .basic import (conv1d_nwc, conv_transpose1d_nwc, dense, gelu, group_norm_nwc,
@@ -92,6 +93,13 @@ def feed_forward(p: P, name: str, x: torch.Tensor, act_fn: str, ctx: Ctx = EVAL,
     return dense(sp, "net.2", ctx.dropout(h, dropout), ctx)
 
 
+# the weights the kernel chain reads, in fused_transformer_block's order
+_FUSED_WEIGHTS = ("norm1.weight", "norm1.bias", "attn1.to_q.weight", "attn1.to_k.weight",
+                  "attn1.to_v.weight", "attn1.to_out.0.weight", "attn1.to_out.0.bias",
+                  "norm3.weight", "norm3.bias", "ff.net.0.proj.weight", "ff.net.0.proj.bias",
+                  "ff.net.2.weight", "ff.net.2.bias")
+
+
 def basic_transformer_block(
     p: P,
     name: str,
@@ -106,20 +114,16 @@ def basic_transformer_block(
 ) -> torch.Tensor:
     """attn1 + ff with norm1/norm3.  CUDA tensors take the fused-block kernel
     chain whenever ``use_fused_block`` allows (inference without LoRA,
-    dropout or a window); everything else runs the unfused layer sequence."""
+    dropout or a window); everything else runs the unfused layer sequence.
+    The chain takes whole weights: a block split over the model axis
+    gathers its split ones first (one all-gather), as GSPMD gathers the
+    JAX package's fused kernel's operands."""
     sp = p.sub(name)
     if dropout == 0.0 and use_fused_block(
             x, act_fn, None if attn_bias is None else attn_bias.ndim, window, ctx):
-        wq = sp["attn1.to_q.weight"]
+        w = gather_weights(sp, _FUSED_WEIGHTS)
         return fused_transformer_block(
-            x.contiguous(), attn_bias,
-            sp["norm1.weight"], sp["norm1.bias"],
-            wq, sp["attn1.to_k.weight"], sp["attn1.to_v.weight"],
-            sp["attn1.to_out.0.weight"], sp["attn1.to_out.0.bias"],
-            sp["norm3.weight"], sp["norm3.bias"],
-            sp["ff.net.0.proj.weight"], sp["ff.net.0.proj.bias"],
-            sp["ff.net.2.weight"], sp["ff.net.2.bias"],
-            heads=heads, scale=(wq.shape[0] // heads) ** -0.5,
+            x.contiguous(), attn_bias, *w, heads=heads, scale=(w[2].shape[0] // heads) ** -0.5,
             gelu_approximate=gelu_approximate or act_fn == "gelu-approximate")
 
     h = layer_norm(sp, "norm1", x)

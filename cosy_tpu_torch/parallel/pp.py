@@ -186,8 +186,8 @@ def pipeline_encoder_forward(p: P, cfg, xs: torch.Tensor, xs_lens: torch.Tensor,
     whole = {}
     for k in layer_keys:
         w = p.d[k]
-        a = TP.split_axis(k)
-        whole[k] = w if a is None else comm.gather(w, a, TP.model_group())
+        a = None if p.split is None else p.split.layout.get(k)
+        whole[k] = w if a is None else comm.gather(w, a, p.split.group)
     stacked = stack_layer_params(whole, prefix, cfg.num_blocks)
     h = pipeline_blocks(stacked, cfg, h, attn_bias, pos_emb, mesh, n_micro, ctx, axis)
     if cfg.normalize_before:

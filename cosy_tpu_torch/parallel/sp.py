@@ -137,7 +137,7 @@ def region():
 
 def region_params(p: P) -> P:
     """``p`` over a view whose tensors sum their gradients over seq."""
-    return P(_Region(p.d, _group()), p.prefix)
+    return P(_Region(p.d, _group()), p.prefix, p.split)
 
 
 def bias_rows(bias: Optional[torch.Tensor], T: int) -> Optional[torch.Tensor]:

@@ -33,7 +33,7 @@ from __future__ import annotations
 import re
 import threading
 from contextlib import contextmanager
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -116,9 +116,29 @@ def tp_param_shardings(mesh, params: Dict[str, torch.Tensor]) -> Dict[str, Spec]
     return out
 
 
-def count_sharded(shardings: Dict[str, Spec]) -> int:
-    """How many leaves split over the model axis."""
-    return sum(1 for s in shardings.values() if "model" in s)
+def count_sharded(layout: Dict[str, object]) -> int:
+    """How many leaves split over the model axis: of a :func:`shard_params`
+    layout (name -> axis or None) or of :func:`tp_param_shardings`' specs."""
+    return sum(1 for s in layout.values()
+               if ("model" in s if isinstance(s, tuple) else s is not None))
+
+
+def shard_params(mesh, params: Dict[str, torch.Tensor]
+                 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Optional[int]]]:
+    """(this rank's params, the layout): a leaf that :func:`tp_spec` splits
+    at the mesh's ``model`` size becomes this rank's block of it (a copy, so
+    the whole tensor can be freed), every other leaf stays whole.  The
+    layout maps each name to its split axis or None, as
+    :func:`tensor_parallel` takes it.  An int8 weight's ``.weight@scale``
+    sibling is whole, as in the JAX package's layout: a row-split product
+    takes this rank's rows of it (:func:`split_dense`)."""
+    tp, rank = mesh.size("model"), mesh.coord("model")
+    local, layout = {}, {}
+    for name, x in params.items():
+        axis = tp_spec(name, tuple(x.shape), tp)
+        layout[name] = axis
+        local[name] = x if axis is None else comm.local_slice(x, axis, rank, tp).clone()
+    return local, layout
 
 
 def compose_zero2(mesh, params: Dict[str, torch.Tensor],
@@ -182,20 +202,42 @@ def gather_whole(x: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# the split products, active inside tensor_parallel()
+# the split products: a P that carries a Split runs them
 # ---------------------------------------------------------------------------
+
+
+class Split(NamedTuple):
+    """What a :class:`~cosy_tpu_torch.params.P` over split weights carries:
+    the model axis' group and each split leaf's flat name -> its axis."""
+    group: object
+    layout: Dict[str, int]
+
+
+def make_split(mesh, layout: Dict[str, Optional[int]]) -> Optional[Split]:
+    """The Split of ``layout`` (name -> axis or None) over ``mesh``'s model
+    axis, or None when nothing splits (a world of one)."""
+    split = {k: a for k, a in layout.items() if a is not None}
+    return Split(mesh.group("model"), split) if split and mesh.size("model") > 1 else None
+
 
 _state = threading.local()
 
 
+def active() -> Optional[Split]:
+    """The Split a ``P`` built from a plain dict takes (see
+    :func:`tensor_parallel`)."""
+    return getattr(_state, "v", None)
+
+
 @contextmanager
 def tensor_parallel(mesh, layout: Dict[str, Optional[int]]):
-    """Within: a ``dense`` (or ``moe_ffn``) whose flat weight name is in
-    ``layout`` with an axis reads this rank's block of that weight and
-    runs the split product over ``mesh``'s model axis."""
-    prev = getattr(_state, "v", None)
-    split = {k: a for k, a in layout.items() if a is not None}
-    _state.v = (mesh.group("model"), split) if split and mesh.size("model") > 1 else None
+    """Within: a ``P`` built from a plain dict carries ``layout``'s Split, so
+    its ``dense`` (or ``moe_ffn``) over a split weight reads this rank's
+    block and runs the split product over ``mesh``'s model axis.  The
+    trainers build their views inside it; a server's pipelines hold split
+    views (``infer/pipeline.py shard_pipeline``) and need no context."""
+    prev = active()
+    _state.v = make_split(mesh, layout)
     try:
         yield
     finally:
@@ -204,8 +246,9 @@ def tensor_parallel(mesh, layout: Dict[str, Optional[int]]):
 
 @contextmanager
 def suspended():
-    """Within: no split products (the pipeline's stages run whole blocks)."""
-    prev = getattr(_state, "v", None)
+    """Within: a ``P`` built from a plain dict is whole (the pipeline's
+    stages run whole blocks)."""
+    prev = active()
     _state.v = None
     try:
         yield
@@ -213,27 +256,49 @@ def suspended():
         _state.v = prev
 
 
-def split_axis(weight_name: str) -> Optional[int]:
-    """The split axis of a flat weight name in the active layout, or None."""
-    v = getattr(_state, "v", None)
-    return None if v is None else v[1].get(weight_name)
+def split_axis(p, key: str) -> Optional[int]:
+    """The split axis of ``p[key]``, or None (whole)."""
+    return None if p.split is None else p.split.layout.get(p.full(key))
 
 
-def model_group():
-    v = getattr(_state, "v", None)
-    return None if v is None else v[0]
+def gather_weights(p, keys: Sequence[str]) -> List[torch.Tensor]:
+    """The whole tensors ``p[k]`` of ``keys``: this rank's blocks of the
+    split ones, packed into one all-gather over the model axis, set back
+    in place."""
+    ws = [p[k] for k in keys]
+    axes = [split_axis(p, k) for k in keys]
+    idx = [i for i, a in enumerate(axes) if a is not None]
+    if not idx:
+        return ws
+    group = p.split.group
+    parts = comm.all_gather_cat(torch.cat([ws[i].reshape(-1) for i in idx]), 0,
+                                group).chunk(comm.group_size(group))
+    at = 0
+    for i in idx:
+        n = ws[i].numel()
+        ws[i] = torch.cat([q[at:at + n].view(ws[i].shape) for q in parts], dim=axes[i])
+        at += n
+    return ws
 
 
 def split_dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
-                axis: int) -> torch.Tensor:
-    """``x @ W^T + b`` with ``W`` split over the model axis: ``axis`` 0
-    (output columns) computes this rank's columns and all-gathers them;
-    ``axis`` 1 (input dim) multiplies this rank's slice of ``x`` and
-    all-reduces the partial sums, then adds the whole bias."""
-    group = model_group()
+                axis: int, group, scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``x @ W^T + b`` with ``W`` split over the model axis' ``group``:
+    ``axis`` 0 (output columns) computes this rank's columns and all-gathers
+    them; ``axis`` 1 (input dim) multiplies this rank's slice of ``x`` and
+    all-reduces the partial sums, then adds the whole bias.  ``scale``: the
+    whole per-output-channel scales of an int8 ``W`` (cast to x's dtype),
+    applied before the bias: a row split takes this rank's rows of them."""
     if axis == 0:
-        y = F.linear(comm.grad_sum(x, group), w, b)
+        x = comm.grad_sum(x, group)
+        if scale is None:
+            y = F.linear(x, w, b)
+        else:
+            rows = comm.local_slice(scale, 0, comm.group_rank(group), comm.group_size(group))
+            y = F.linear(x, w) * rows
+            y = y if b is None else y + b
         return comm.gather(y, y.dim() - 1, group)
     y = F.linear(comm.split(x, x.dim() - 1, group), w)
     y = comm.reduce_sum(y, group)
+    y = y if scale is None else y * scale
     return y if b is None else y + b

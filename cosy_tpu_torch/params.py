@@ -22,6 +22,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from .parallel import tp as _tp
+
 Params = Dict[str, torch.Tensor]
 
 
@@ -42,16 +44,25 @@ class P:
 
     ``P(params, "encoder.")["embed.out.0.weight"]`` reads
     ``params["encoder.embed.out.0.weight"]``.
+
+    ``split``: a ``parallel.tp.Split`` when some of the leaves are this
+    rank's blocks of tensor-parallel weights (``dense`` runs their split
+    products), else None.  A view of a ``P`` keeps its split; a ``P`` of a
+    plain dict takes the one of an enclosing ``parallel.tp.tensor_parallel``.
     """
 
-    __slots__ = ("d", "prefix")
+    __slots__ = ("d", "prefix", "split")
 
-    def __init__(self, d, prefix: str = ""):
+    def __init__(self, d, prefix: str = "", split=None):
         if isinstance(d, P):
             prefix = d.prefix + prefix
+            split = d.split if split is None else split
             d = d.d
+        elif split is None:
+            split = _tp.active()
         self.d = d
         self.prefix = prefix
+        self.split = split
 
     def __getitem__(self, key: str) -> torch.Tensor:
         return self.d[self.prefix + key]
@@ -64,7 +75,7 @@ class P:
         return self.prefix + key
 
     def sub(self, key: str) -> "P":
-        return P(self.d, self.prefix + key + ".")
+        return P(self, key + ".")
 
 
 # ---------------------------------------------------------------------------

@@ -26,19 +26,31 @@ SIGTERM / SIGINT drain: the listener closes, in-flight requests finish
 (bounded by ``--drain-timeout``), then the process exits.  The server runs
 on CUDA unless ``--device cpu`` is passed; without a card it raises.
 ``wav_bytes`` needs numpy only (the client imports it).
+
+Tensor-parallel serving, one process a GPU::
+
+    torchrun --nproc-per-node N -m cosy_tpu_torch.serve --tp N --model-dir DIR ...
+
+splits the LLM's and the flow's weights over the N ranks (HiFT stays
+whole).  Rank 0 serves HTTP; the other ranks follow: each device section
+rank 0 runs under the device lock is first sent to them, and they run it
+too, so every rank enters the same collectives in the same order
+(``parallel/replay.py``).  After rank 0's drain every rank exits.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
+import functools
 import json
 import os
 import struct
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 
@@ -81,10 +93,18 @@ class TTSServer:
     ``_next_seed`` and ``sample_rate``)."""
 
     def __init__(self, api, lock: Optional[threading.Lock] = None,
-                 batch_window_ms: float = 20.0, max_batch: int = 8, engine_slots: int = 0):
+                 batch_window_ms: float = 20.0, max_batch: int = 8, engine_slots: int = 0,
+                 replay_group=None):
         self.api = api
         # one card: serialize its work; the pipelines batch inside a call
         self.lock = lock or threading.Lock()
+        # rank 0 of a tensor-parallel server: each device section is sent to
+        # the followers first (parallel/replay.py)
+        self.replay = None
+        if replay_group is not None:
+            from .parallel.replay import Leader
+
+            self.replay = Leader(replay_group, self.lock)
         # continuous batching (infer/engine.py) for prompt-free streams:
         # requests join and leave one running decode at segment boundaries.
         # The engine serves both families; it takes the same device lock.
@@ -97,7 +117,7 @@ class TTSServer:
             from .infer.engine import ContinuousBatchEngine
 
             self.engine = ContinuousBatchEngine(api.model, slots=engine_slots,
-                                                device_lock=self.lock)
+                                                device_lock=self.lock, replay=self.replay)
         # dynamic batching of whole prompt-free requests: requests that
         # arrive within the window share one batched decode
         self.batch_window_ms = batch_window_ms
@@ -218,27 +238,56 @@ class TTSServer:
         fe = self.api.frontend
         return fe.extract_text_token(fe.normalize(text, split=False))
 
+    def _model_iter(self, method: str, *args, **kwargs):
+        """``api.model.<method>(*args, **kwargs)``, a generator, advanced one
+        item a device section: each ``next`` runs under the device lock,
+        never across a yield (this generator suspends while a handler
+        writes to its client's socket), and under ``--tp`` is first sent to
+        the followers, the first together with the call."""
+        gen = getattr(self.api.model, method)(*args, **kwargs)
+        gid, live = None, True
+        try:
+            while True:
+                with self.lock:
+                    if self.replay is not None:
+                        gid = self.replay.advance(gid, method, args, kwargs)
+                    live = False  # its end or a raise ends it on every rank
+                    out = next(gen, None)
+                    live = out is not None
+                if not live:
+                    return
+                yield out
+        finally:
+            if live:  # closed early: a client that went away
+                gen.close()
+                if gid is not None:
+                    with self.lock:
+                        self.replay.send(("close", gid))
+
+    def _model_call(self, method: str, *args, **kwargs):
+        """``api.model.<method>(*args, **kwargs)`` as one device section."""
+        with self.lock:
+            if self.replay is not None:
+                self.replay.send(("call", method, args, kwargs))
+            return getattr(self.api.model, method)(*args, **kwargs)
+
     def synthesize(self, text: str, spk_id: str = "", speed: float = 1.0,
                    stream: bool = False, voice: str = ""):
         """One request alone: ``inference_sft`` for a ``spk_id``, else the
         prompt-free path (zero embedding; ``voice`` routes its adapters).
         Yields 1-D wav chunks; the device lock is held per chunk."""
         if spk_id:
-            gen = self.api.inference_sft(text, spk_id, stream=stream, speed=speed)
+            gen = self.api.inference_sft(text, spk_id, stream=stream, speed=speed,
+                                         run=functools.partial(self._model_iter, "synthesize"))
         else:
             kwargs = self._prompt_free_kwargs()
             if voice:
                 kwargs["voice"] = voice
-            gen = self.api.model.synthesize(self._text_ids(text), stream=stream, speed=speed,
-                                            seed=self.api._next_seed(), **kwargs)
-        # the lock per CHUNK, not across the yield: this generator suspends
-        # while the handler writes to the client's socket
-        while True:
-            with self.lock:
-                out = next(gen, None)
-            if out is None:
-                return
-            yield out["tts_speech"][0]
+            gen = self._model_iter("synthesize", self._text_ids(text), stream=stream,
+                                   speed=speed, seed=self.api._next_seed(), **kwargs)
+        with contextlib.closing(gen) as chunks:
+            for out in chunks:
+                yield out["tts_speech"][0]
 
     def synthesize_batched(self, text: str, speed: float = 1.0, voice: str = "") -> np.ndarray:
         """Queue a prompt-free request; the first waiting request thread
@@ -259,11 +308,10 @@ class TTSServer:
                     try:
                         vkw = ({"voices": [b["voice"] or None for b in batch]}
                                if any(b["voice"] for b in batch) else {})
-                        with self.lock:
-                            wavs = self.api.model.synthesize_batch(
-                                [b["ids"] for b in batch], [self._zero_spk()] * len(batch),
-                                speed=[b["speed"] for b in batch],
-                                seed=self.api._next_seed(), **vkw)
+                        wavs = self._model_call(
+                            "synthesize_batch", [b["ids"] for b in batch],
+                            [self._zero_spk()] * len(batch), speed=[b["speed"] for b in batch],
+                            seed=self.api._next_seed(), **vkw)
                         for b, w in zip(batch, wavs):
                             b["wav"] = w[0]
                     except Exception as e:  # noqa: BLE001 - every row gets the error
@@ -362,15 +410,10 @@ class TTSServer:
         try:
             vkw = ({"voices": [it["voice"] or None for it in cohort]}
                    if any(it["voice"] for it in cohort) else {})
-            gen = self.api.model.synthesize_stream_batch(
-                [it["ids"] for it in cohort], [self._zero_spk()] * len(cohort),
-                seed=self.api._next_seed(), **vkw)
-            while True:
-                with self.lock:  # per segment: cohorts interleave here
-                    got = next(gen, None)
-                if got is None:
-                    break
-                b, wav, done = got
+            # the device lock per segment: cohorts interleave here
+            for b, wav, done in self._model_iter(
+                    "synthesize_stream_batch", [it["ids"] for it in cohort],
+                    [self._zero_spk()] * len(cohort), seed=self.api._next_seed(), **vkw):
                 if not cohort[b]["dead"]:
                     cohort[b]["q"].put(wav[0])
                 if done:
@@ -596,20 +639,28 @@ def warmup(server: TTSServer, text: str = "warmup.") -> float:
     return time.time() - t0
 
 
-# flags of the JAX server whose modules are still queued (ROADMAP queue A):
-# each with its default, which is the only value accepted
-_QUEUED = {"tp": (1, "A16 (serve --tp: one process per GPU needs a server design of its "
-                    "own; the training scale-out is ported)"),
-           "engine_prefetch": (False, "A9 (prefetch is left out by design: the port syncs "
+# flags of the JAX server the port leaves out (ROADMAP queue A): each with
+# its default, which is the only value accepted
+_QUEUED = {"engine_prefetch": (False, "A9 (prefetch is left out by design: the port syncs "
                                       "every token for host sampling)")}
 
 
 def refuse_queued_flags(args):
-    """SystemExit naming the ROADMAP item for a flag whose module is queued."""
+    """SystemExit naming the ROADMAP item for a flag whose module is queued,
+    and for a ``--tp`` that is not the launch's world."""
     for name, (default, item) in _QUEUED.items():
         if getattr(args, name) != default:
             raise SystemExit(f"--{name.replace('_', '-')} {getattr(args, name)} is not ported "
                              f"yet: ROADMAP queue {item}")
+    from .parallel.mesh import launched
+
+    world = int(os.environ["WORLD_SIZE"]) if launched() else 1
+    if args.tp != world:
+        if args.tp > 1:
+            raise SystemExit(f"--tp {args.tp} needs torchrun --nproc-per-node {args.tp} (one "
+                             f"process a GPU); this launch has a world of {world}")
+        raise SystemExit(f"a launch of {world} processes serves with --tp {world}, one process "
+                         f"a GPU (got --tp {args.tp})")
     if args.voices and args.cosyvoice2:
         raise SystemExit("--voices is CosyVoice(1)-only for now (the CosyVoice2 pipeline has "
                          "no multi-voice decode wiring)")
@@ -655,19 +706,54 @@ def build_parser() -> argparse.ArgumentParser:
                          "(CosyVoice-300M) or every Qwen2 projection (--cosyvoice2); the "
                          "rounding can change the sampled tokens, so check a voice first "
                          "with quant.validate_int8_voice")
-    # flags of the JAX server whose modules are still queued: refused
-    ap.add_argument("--tp", type=int, default=1)
+    ap.add_argument("--tp", type=int, default=1,
+                    help="split the LLM and the flow over N GPUs, one process each: run under "
+                         "torchrun --nproc-per-node N; rank 0 serves HTTP")
     ap.add_argument("--aot-cache", default=None, metavar="DIR",
                     help="build and load the compiled kernel libraries in DIR (created 0700; "
                          "refused if another user could write to it): a later start with "
                          "the same DIR loads them without running nvcc or g++")
+    # a flag of the JAX server the port leaves out: refused
     ap.add_argument("--engine-prefetch", action="store_true")
     return ap
 
 
-def build_server(args) -> TTSServer:
+class TPRun(NamedTuple):
+    """A tensor-parallel server's place: its mesh, the replay ops' group
+    and whether it made the process group (and so leaves it)."""
+    mesh: object
+    group: object
+    made: bool
+
+
+def start_tp(args) -> TPRun:
+    """Join torchrun's group (NCCL on ``cuda:LOCAL_RANK``; gloo under
+    ``--device cpu``; a group made before is joined as it is) and lay the
+    ranks out as a (dp 1, model N) mesh."""
+    import torch.distributed as dist
+
+    from .parallel import mesh as M
+    from .parallel.replay import replay_group
+
+    made = not dist.is_initialized()
+    dev = M.init_distributed(args.device)
+    return TPRun(M.make_mesh(dp=1, model=args.tp, device=dev), replay_group(), made)
+
+
+def end_tp(tp: TPRun) -> None:
+    import torch.distributed as dist
+
+    if tp.made:
+        dist.destroy_process_group()
+    else:
+        dist.destroy_process_group(tp.group)
+
+
+def build_server(args, tp: Optional[TPRun] = None) -> TTSServer:
     """The API, the weights' options and the voices of ``args`` in a
-    server (nothing listens yet)."""
+    server (nothing listens yet); under ``tp`` on the mesh's device, the
+    LLM and the flow split over it after the voices are set, and on rank 0
+    a server that sends its device sections to the followers."""
     refuse_queued_flags(args)
     if args.aot_cache is not None:
         from .utils import aot
@@ -697,7 +783,8 @@ def build_server(args) -> TTSServer:
         if args.sampler == "meanflow":
             icfg = replace(icfg, sampler="meanflow", meanflow_steps=2 if args.meanflow_steps
                            is None else args.meanflow_steps)
-    kw = dict(infer_cfg=icfg, device=args.device, flow_state=override_flow)
+    kw = dict(infer_cfg=icfg, device=args.device if tp is None else tp.mesh.device,
+              flow_state=override_flow)
     try:  # the pipeline holds the sampler against the flow weights
         api = (CosyVoice2(args.model_dir, **kw) if args.cosyvoice2
                else CosyVoice(args.model_dir, finetuned_norm=fnorm, **kw))
@@ -721,12 +808,31 @@ def build_server(args) -> TTSServer:
         voices, llm_s, flow_s = parse_voices(args.voices)
         model.set_voices(voices, llm_scale=llm_s, flow_scale=flow_s)
         print(f"voices: {list(voices)} (un-merged adapter routing)")
-    return TTSServer(api, engine_slots=args.engine_slots)
+    if tp is None:
+        return TTSServer(api, engine_slots=args.engine_slots)
+    n_llm, n_flow = model.shard(tp.mesh)
+    print(f"LLM+flow tensor-parallel over {args.tp} ranks ({n_llm} llm + {n_flow} flow split "
+          "params)")
+    leader = tp.mesh.coord("model") == 0
+    return TTSServer(api, engine_slots=args.engine_slots,
+                     replay_group=tp.group if leader else None)
 
 
 def main(argv=None):
+    """Serve until SIGTERM / SIGINT.  Under ``--tp`` returns this rank's
+    replay count: ``{"sent": n}`` on rank 0, ``{"replayed": n, "errors":
+    [...]}`` on a follower."""
     args = build_parser().parse_args(argv)
-    server = build_server(args)
+    refuse_queued_flags(args)
+    tp = start_tp(args) if args.tp > 1 else None
+    return serve(build_server(args, tp), args, tp)
+
+
+def serve(server: TTSServer, args, tp: Optional[TPRun] = None):
+    """``main`` after the server is built: listen on ``args.port`` until a
+    signal drains it (a follower runs rank 0's sections until its stop)."""
+    if tp is not None and server.replay is None:
+        return _follow(server, tp)
     if args.warmup:
         print("warmup: one request of each route ...", flush=True)
         print(f"warmup done in {warmup(server):.1f} s", flush=True)
@@ -749,6 +855,32 @@ def main(argv=None):
     if server.engine is not None:
         server.engine.stop()
     print(f"drained; served {sum(server.stats()['requests'].values())} requests total")
+    if tp is not None:
+        server.replay.stop()
+        print(f"sent {server.replay.sent} device sections to {args.tp - 1} follower(s)",
+              flush=True)
+        end_tp(tp)
+        return {"sent": server.replay.sent}
+
+
+def _follow(server: TTSServer, tp: TPRun) -> dict:
+    """A follower's whole serve: it runs rank 0's device sections until rank
+    0's stop.  A signal does not stop it: rank 0's drain does."""
+    import signal
+
+    from .parallel.replay import follow
+
+    before = {sig: signal.signal(sig, signal.SIG_IGN) for sig in (signal.SIGTERM, signal.SIGINT)}
+    print(f"rank {tp.mesh.coord('model')}: following rank 0", flush=True)
+    try:
+        res = follow(tp.group, server.api.model, server.engine)
+    finally:
+        for sig, handler in before.items():
+            signal.signal(sig, handler)
+    print(f"rank {tp.mesh.coord('model')}: replayed {res['replayed']} device sections "
+          f"({len(res['errors'])} raised, as on rank 0)", flush=True)
+    end_tp(tp)
+    return res
 
 
 if __name__ == "__main__":

@@ -29,6 +29,7 @@ import socket
 import subprocess
 import sys
 import tempfile
+import time
 from typing import Dict, List
 
 import numpy as np
@@ -46,6 +47,7 @@ from cosy_tpu_torch.models import llm as TLLM  # noqa: E402
 from cosy_tpu_torch.params import P  # noqa: E402
 from cosy_tpu_torch.train.full_trainer import FullTrainer, adamw  # noqa: E402
 from test_torch_common import one_thread  # noqa: F401  (autouse: one intra-op thread)
+from test_torch_tp_serve import DECODES, FLOW_TOL, FLOWS  # noqa: E402
 
 LAUNCH_TIMEOUT = 240  # seconds a launch may take before its ranks are killed
 CFG = tiny_model_config()
@@ -337,6 +339,7 @@ def _worker_two(res, rank, out_dir, M, all_hosts_agree, joined_loader) -> None:
     losses.append(tr.step(flow_super(2), step_gen(2))["loss"])
     res["tp_losses"], res["tp_params"] = losses, tr.whole_params()
     res["ckpt_dirs"] = {"zero2": ck_z2, "tp": ck_tp}
+    _tp_serving_two(res, rank, out_dir, model2)
 
     from cosy_tpu_torch.train import full as TFULL
 
@@ -347,6 +350,176 @@ def _worker_two(res, rank, out_dir, M, all_hosts_agree, joined_loader) -> None:
         res["cli_refusal"] = None
     except SystemExit as e:
         res["cli_refusal"] = str(e)
+
+
+def _tp_serving_two(res, rank, out_dir, mesh) -> None:
+    """serve --tp's pieces over model 2, each beside the world of one: the
+    decodes and flows of test_torch_tp_serve.py's helpers, then
+    ``serve.main --tp 2`` (rank 0 serving, rank 1 following) against a
+    world-one server over the same requests."""
+    import test_torch_tp_serve as TS
+
+    res["tp_decodes"] = {case: (TS.decode_case(case, mesh), TS.decode_case(case))
+                         for case in TS.DECODES}
+    z = np.load(os.path.join(out_dir, "tp_flow_z.npy"))
+    res["tp_flows"] = {v: (TS.flow_case(v, z, mesh), TS.flow_case(v, z)) for v in TS.FLOWS}
+    res["tp_cv2"] = (TS.cv2_case(mesh), TS.cv2_case())
+    d = os.path.join(out_dir, "tp_serve")
+    if rank == 0:
+        write_serve_dir(d)
+    torch.distributed.barrier()
+    res["tp_serve"] = run_tp_server(rank, d)
+
+
+def write_serve_dir(d: str) -> None:
+    """test_torch_serve.py's tiny CosyVoice as a model dir (seed 40) with
+    two voices' adapter files."""
+    from cosy_tpu_torch.config import LoRAConfig
+    from cosy_tpu_torch.lora import init_lora
+    from cosy_tpu_torch.models.hift import init_hift_params
+    from cosy_tpu_torch.params import save_torch_checkpoint
+
+    os.makedirs(d)
+    mods = {"llm": TLLM.init_llm_params(CFG.llm, "cpu", seed=40),
+            "flow": TF.init_flow_params(CFG.flow, "cpu", seed=41),
+            "hift": init_hift_params(CFG.hift, "cpu", seed=42)}
+    for name, m in mods.items():
+        save_torch_checkpoint(m.state_dict(), os.path.join(d, f"{name}.pt"))
+    llm = {k: v.detach() for k, v in mods["llm"].state_dict().items()}
+    for voice, seed in (("alice", 7), ("bob", 8)):
+        lo = init_lora(torch.Generator().manual_seed(seed), llm,
+                       LoRAConfig(r=2, alpha=4, dropout=0.0))
+        save_torch_checkpoint({**{"llm." + k: (v * 8 if ".lora_B" in k else v).detach()
+                                  for k, v in lo.items()},
+                               "llm._scaling": torch.tensor(2.0)},
+                              os.path.join(d, f"adapters_{voice}.pt"))
+
+
+SERVE_WAIT = 120  # seconds: the bound of each request and of the server's start
+
+
+def tts_script(url: str) -> dict:
+    """The requests both servers answer, in one order (the seeds are drawn
+    in it): a whole request, a voiced stream (a cohort), an engine stream,
+    an engine stream closed within its first piece, two concurrent whole
+    requests of one text (one batch, or two whose rows take the same
+    seeds), an unknown voice.  Bytes as received."""
+    import http.client
+    import json as _json
+    import threading
+    import urllib.error
+    import urllib.request
+
+    def post(body):
+        req = urllib.request.Request(f"{url}/tts", data=_json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=SERVE_WAIT) as r:
+            return r.read()
+
+    out = {"whole": post({"text": "hi."}),
+           "cohort": post({"text": "hey.", "stream": True, "voice": "alice"}),
+           "engine": post({"text": "hi.", "stream": True})}
+    host, port = url.split("//")[1].split(":")
+    conn = http.client.HTTPConnection(host, int(port), timeout=SERVE_WAIT)
+    conn.request("POST", "/tts", _json.dumps({"text": "hello there.", "stream": True}),
+                 {"Content-Type": "application/json"})
+    r = conn.getresponse()
+    out["closed"] = r.read(44 + 2048)  # the header and 1024 samples of the first piece
+    conn.close()
+    pair = [None, None]
+
+    def one(i):
+        pair[i] = post({"text": "hello."})
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=SERVE_WAIT)
+    out["pair"] = sorted(pair)
+    try:
+        post({"text": "hi.", "voice": "carol"})
+        out["unknown"] = 200
+    except urllib.error.HTTPError as e:
+        out["unknown"] = e.code
+    deadline = time.time() + SERVE_WAIT
+    while True:  # a request is recorded after its handler ends (the closed one's later)
+        with urllib.request.urlopen(f"{url}/stats", timeout=SERVE_WAIT) as r:
+            out["stats"] = _json.loads(r.read())
+        if sum(out["stats"]["requests"].values()) >= 7 or time.time() > deadline:
+            return out
+        time.sleep(0.05)
+
+
+def _serve_args(d: str) -> List[str]:
+    voices = ",".join(f"{v}={os.path.join(d, f'adapters_{v}.pt')}" for v in ("alice", "bob"))
+    return ["--model-dir", d, "--device", "cpu", "--finetuned-norm", "1", "--voices", voices,
+            "--engine-slots", "2", "--int8", "--attn-window", "4"]
+
+
+def run_tp_server(rank: int, d: str) -> dict:
+    """``serve.main --tp 2`` on both ranks; rank 0 runs :func:`tts_script`
+    against it from a thread, then SIGTERMs itself (the drain), and
+    against a world-one server after.  Returns what each rank saw."""
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    import cosy_tpu_torch.api as TAPI
+    from cosy_tpu_torch import serve as S
+    from cosy_tpu_torch.config import InferenceConfig
+
+    real = TAPI.CosyVoice
+
+    def tiny(model_dir, infer_cfg=None, **kw):  # the tiny topology: no cosyvoice.yaml
+        return real(model_dir, model_cfg=CFG, **kw,
+                    infer_cfg=infer_cfg or InferenceConfig(max_token_text_ratio=3.0))
+
+    TAPI.CosyVoice = tiny
+    handlers = {s: signal.getsignal(s) for s in (signal.SIGTERM, signal.SIGINT)}
+    out: dict = {}
+    try:
+        port = free_port()
+        if rank == 0:
+            def client():
+                url = f"http://127.0.0.1:{port}"
+                try:
+                    deadline = time.time() + SERVE_WAIT
+                    while True:
+                        try:
+                            urllib.request.urlopen(f"{url}/healthz", timeout=5).read()
+                            break
+                        except OSError:
+                            if time.time() > deadline:
+                                raise
+                            time.sleep(0.1)
+                    out["tp"] = tts_script(url)
+                except Exception as e:  # noqa: BLE001 - reported by the test
+                    out["client_error"] = repr(e)
+                finally:
+                    os.kill(os.getpid(), signal.SIGTERM)
+
+            threading.Thread(target=client, daemon=True).start()
+        out["main"] = S.main(_serve_args(d) + ["--tp", "2", "--port", str(port)])
+        if rank == 0:  # the world-one server over the same requests
+            os.environ["WORLD_SIZE"] = "1"
+            try:
+                server = S.build_server(S.build_parser().parse_args(_serve_args(d)))
+            finally:
+                os.environ["WORLD_SIZE"] = "2"
+            httpd = ThreadingHTTPServer(("127.0.0.1", 0), S.make_handler(server, CFG.sample_rate))
+            threading.Thread(target=httpd.serve_forever, daemon=True).start()
+            try:
+                out["one"] = tts_script(f"http://127.0.0.1:{httpd.server_address[1]}")
+            finally:
+                httpd.shutdown()
+                httpd.server_close()
+                server.engine.stop(timeout=SERVE_WAIT)
+    finally:
+        TAPI.CosyVoice = real
+        for s, h in handlers.items():
+            signal.signal(s, h)
+    return out
 
 
 def _preempt_two(res, rank, mesh, out_dir) -> None:
@@ -523,7 +696,10 @@ def torchrun(module_argv: List[str], nproc: int, tmp: str,
 def two(tmp_path_factory):
     from test_torch_train_full_cli import write_dataset
 
+    from test_torch_tp_serve import jax_flow_z
+
     out = str(tmp_path_factory.mktemp("two"))
+    np.save(os.path.join(out, "tp_flow_z.npy"), jax_flow_z())
     ranks = _run_worker(2, out, write_dataset(out, "train", n=4))
     for r in ranks:
         with open(os.path.join(out, f"cli{r['rank']}.txt")) as f:
@@ -859,6 +1035,78 @@ def test_full_cli_over_two_ranks_takes_the_parallel_flags(two):
     d = two[0]["cli_dir"]
     assert os.path.exists(os.path.join(d, "llm_epoch0.pt"))
     assert os.path.exists(os.path.join(d, "ckpt", "1", "state.pt"))
+
+
+@pytest.mark.parametrize("case", DECODES)
+def test_tp_decode_over_model2_equals_world_one(two, case):
+    """serve --tp's decodes in f64 with the LLM split over 2 ranks (the
+    solo, batched, two-voice, int8 and Qwen2 decodes): every rank's tokens
+    are the world-one port's, which test_torch_tp_serve.py holds to the JAX
+    package's tp decodes."""
+    got, want = two[0]["tp_decodes"][case]
+    assert got == two[1]["tp_decodes"][case][0] == want
+    assert all(len(row) >= 2 for row in want)
+
+
+@pytest.mark.parametrize("variant", FLOWS)
+def test_tp_flow_over_model2_within_tolerance_of_world_one(two, variant):
+    """The flow split over 2 ranks (JAX's z injected, f64): Euler, a
+    windowed estimator, the MeanFlow sampler and Euler through the fused
+    block's chain (each block's split weights all-gathered first), within
+    tests/test_tp_decode.py's 2e-4 of the world-one flow of that variant."""
+    got, want = two[0]["tp_flows"][variant]
+    assert got.shape == want.shape == (1, 80, 13)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **FLOW_TOL)
+    np.testing.assert_allclose(two[1]["tp_flows"][variant][0].numpy(), got.numpy(), **FLOW_TOL)
+
+
+def test_tp_cosyvoice2_pipeline_over_model2_equals_world_one(two):
+    """``TTS2Pipeline.shard`` over 2 ranks (f32): a whole synthesis, a
+    streamed one and a batch of two give the world-one wavs (the same
+    lengths, so the same tokens) within 1e-4 x max(1, max|wav|)."""
+    got, want = two[0]["tp_cv2"]
+    assert len(got) == len(want) == 4
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.size > 0
+        assert np.abs(g - w).max() <= 1e-4 * max(1.0, np.abs(w).max())
+
+
+def _pcm(body: bytes) -> np.ndarray:
+    assert body[:4] == b"RIFF" and len(body) > 44
+    return np.frombuffer(body[44:44 + (len(body) - 44) // 2 * 2], "<i2").astype(np.int64)
+
+
+@pytest.mark.parametrize("what", ["whole", "cohort", "engine", "closed", "pair", "unknown"])
+def test_tp_server_answers_as_a_world_one_server(two, what):
+    """``serve.main --tp 2 --voices ... --engine-slots 2 --int8
+    --attn-window 4`` (rank 0 serving over 127.0.0.1, rank 1 following)
+    against a world-one server with those flags over the same requests and
+    seeds:
+    a whole request, a voiced stream (a cohort), an engine stream, one
+    closed within its first piece, two concurrent whole requests, an unknown
+    voice (400).  The servers run in f32, so the column split's sums may
+    round differently: equal lengths, every PCM16 sample within one step."""
+    serve = two[0]["tp_serve"]
+    assert "client_error" not in serve, serve.get("client_error")
+    tp, one = serve["tp"][what], serve["one"][what]
+    if what == "unknown":
+        assert tp == one == 400
+        return
+    for a, b in zip(tp if what == "pair" else [tp], one if what == "pair" else [one]):
+        a, b = _pcm(a), _pcm(b)
+        assert a.size == b.size > 0
+        assert np.abs(a - b).max() <= 1
+
+
+def test_tp_server_follower_replays_every_section_and_both_exit(two):
+    """Rank 1 replayed every device section rank 0 sent, none raised, the
+    routes were the world-one server's, and both ranks left ``main`` after
+    rank 0's SIGTERM drain (the launch asserts exit code 0)."""
+    sent, followed = two[0]["tp_serve"]["main"], two[1]["tp_serve"]["main"]
+    assert followed == {"replayed": sent["sent"], "errors": []} and sent["sent"] > 5
+    stats = [two[0]["tp_serve"][k]["stats"] for k in ("tp", "one")]
+    assert stats[0]["requests"] == stats[1]["requests"] == {
+        "batched": 3, "stream_cohort": 1, "stream_engine": 2, "bad_request": 1}
 
 
 if __name__ == "__main__" and len(sys.argv) == 5 and sys.argv[1] == "--worker":

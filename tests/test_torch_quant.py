@@ -159,8 +159,8 @@ def test_qwen2_forward_int8_matches_jax(qwen, jq_qwen):
 
 
 class _Mesh:
-    """A model axis of 2 without a process group: enough for the refusal,
-    which comes before any collective."""
+    """A model axis of 2 without a process group: the split products run
+    with identity collectives on one rank's view of the whole weight."""
 
     def group(self, axis):
         return None
@@ -169,12 +169,22 @@ class _Mesh:
         return 2
 
 
-def test_int8_weight_under_tensor_parallel_raises(qwen):
-    name = "model.layers.0.mlp.up_proj"
+@pytest.mark.parametrize("name, axis", [("model.layers.0.mlp.up_proj", 0),
+                                        ("model.layers.0.mlp.down_proj", 1)])
+def test_int8_weight_under_tensor_parallel_equals_unsplit(qwen, name, axis):
+    """An int8 weight under a tensor-parallel layout once raised; it now runs
+    the split product with its scales (a row split takes this rank's rows
+    of them, a column split scales after the sum) and the bias after them:
+    with identity collectives it equals the unsplit int8 product exactly.
+    The two-rank products are held to one process in
+    tests/test_torch_parallel.py."""
     q = TQT.quantize_int8(_port(qwen))
-    with tensor_parallel(_Mesh(), {name + ".weight": 0}):
-        with pytest.raises(NotImplementedError, match="int8"):
-            dense(P(q), name, torch.zeros(1, 32))
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (2, q[name + ".weight"].shape[1])).astype(np.float32))
+    want = dense(P(q), name, x)
+    with tensor_parallel(_Mesh(), {name + ".weight": axis}):
+        got = dense(P(q), name, x)
+    assert torch.equal(got, want)
 
 
 def _voice_adapters(lm, seed):

@@ -7,8 +7,9 @@ speaker embedding; keep-alive framing and bad bodies; the device lock
 released between chunks; voice routing with its 400s; /stats, /metrics and
 TTFA records; ``resolve_finetuned_norm`` on weight-meta sidecars (the cases
 of tests/test_weight_meta.py); the client round trip and a server that is
-down; the flags whose modules are queued, refused; ``--int8`` with and
-without ``--voices`` over a socket."""
+down; the flags whose modules are queued, refused, and ``--tp`` outside a
+launch of its world; ``--int8`` with and without ``--voices`` over a
+socket."""
 
 import http.client
 import json
@@ -455,7 +456,8 @@ def test_export_merged_writes_the_flow_sidecar(tmp_path):
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--tp", "2"], "A16"), (["--int8", "--tp", "2"], "A16"), (["--aot-cache", None], "writable"),
+    (["--tp", "2"], "torchrun --nproc-per-node 2"),
+    (["--int8", "--tp", "2"], "torchrun --nproc-per-node 2"), (["--aot-cache", None], "writable"),
     (["--sampler", "euler", "--meanflow-steps", "1"], "A14"), (["--meanflow-steps", "2"], "A14"),
     (["--engine-prefetch"], "A9"), (["--voices", "a=b.pt", "--cosyvoice2"], "CosyVoice")])
 def test_refused_flags(flags, item, tmp_path):
