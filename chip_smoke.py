@@ -14,7 +14,10 @@ Phases, each fatal on failure (nothing is caught and passed over):
      and beside them the kernels' own time on the card from torch.profiler
      (ops/plan_sweep.py device_ms), which leaves out the waits for the host);
      the block's kernels B1 (ln_gemm) and B2 (block_tail) at 312, 624 and
-     5116 rows in f32 and bf16, the block beside the seven-launch chain of
+     5116 rows in f32 and bf16 (B1's x with rows at |mean| / std = 24 and
+     rows with an outlier in column 0; B1 also at 156 rows in bf16, with f32
+     x under bf16 weights and at ragged K and segment rows), the
+     block beside the seven-launch chain of
      the kept LayerNorm and GEMM kernels; A, the block, B1 and B2 at the
      streaming path's shapes (206 / 103 frames without a bias, the final
      bucket's 220 / 110 with one; 412, 206, 440 and 220 rows) with the
@@ -612,12 +615,23 @@ def gemm_case(g, M, K, seg, nseg=1, bias=False, gelu=None, residual=False, iters
                 lib_dev_ms=device_ms(run_lib))
 
 
-def ln_gemm_case(g, M, dtype, iters=20, C=256, inner=512):
-    """Kernel B1 on the block's QKV product: LN1 of x (M, C) and the three
-    (inner, C) segments read in place, against ln_gemm_ref; the library
-    yardstick is F.layer_norm then one F.linear (two calls: no single
-    PyTorch call computes it)."""
-    x = torch.randn(M, C, device=DEV, generator=g).to(dtype)
+def ln_gemm_x(g, M, C, dtype):
+    """B1's x: every fifth row at |mean| / std = 24 and every eleventh with
+    50 std added to its column 0 (a variance that cancels, or statistics
+    shifted by one of the row's values, would show)."""
+    x = torch.randn(M, C, device=DEV, generator=g)
+    x[::5] = x[::5] * 0.5 + 12.0
+    x[3::11, 0] += 50.0
+    return x.to(dtype)
+
+
+def ln_gemm_case(g, M, dtype, iters=20, C=256, inner=512, x_dtype=None):
+    """Kernel B1 on the block's QKV product: LN1 of x (M, C, ``ln_gemm_x``)
+    and the three (inner, C) segments read in place, against ln_gemm_ref.
+    ``x_dtype`` f32 under bf16 weights takes x as it is and rounds h.  The
+    library yardstick is F.layer_norm then one F.linear (two calls: no
+    single PyTorch call computes it)."""
+    x = ln_gemm_x(g, M, C, x_dtype or dtype)
     w = (torch.randn(C, device=DEV, generator=g) * 0.05 + 1.0).to(dtype)
     b = (torch.randn(C, device=DEV, generator=g) * 0.05).to(dtype)
     ws = [(torch.randn(inner, C, device=DEV, generator=g) * 0.05).to(dtype) for _ in range(3)]
@@ -631,7 +645,7 @@ def ln_gemm_case(g, M, dtype, iters=20, C=256, inner=512):
         return ln_gemm_ref(x, w, b, ws)
 
     def run_lib():
-        return F.linear(F.layer_norm(x, (C,), w, b, 1e-5), w_cat)
+        return F.linear(F.layer_norm(x, (C,), w.to(x.dtype), b.to(x.dtype), 1e-5).to(dtype), w_cat)
 
     got = run()
     torch.cuda.synchronize()
@@ -641,6 +655,29 @@ def ln_gemm_case(g, M, dtype, iters=20, C=256, inner=512):
                 library_ms=None, unfused_ms=cuda_ms(run_lib, iters), bound_ms=bms, bound_by=by,
                 plan=plan, dev_ms=device_ms(run), plain_dev_ms=device_ms(run_ref, 3),
                 lib_dev_ms=device_ms(run_lib), same=torch.equal(run(), run()))
+
+
+def ln_gemm_ragged(g):
+    """B1 off the main path's shapes, as ``ln_gemm`` accepts them: K of 64,
+    128 and 192, one to three segments whose rows end inside a tile, 77
+    rows (a ragged row tile), an f32 y under bf16 weights; each against
+    ln_gemm_ref in both dtypes."""
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for K, seg, nseg in ((64, 24, 3), (128, 100, 2), (192, 36, 1)):
+            x = ln_gemm_x(g, 77, K, dtype)
+            w = (torch.randn(K, device=DEV, generator=g) * 0.05 + 1.0).to(dtype)
+            b = (torch.randn(K, device=DEV, generator=g) * 0.05).to(dtype)
+            ws = [(torch.randn(seg, K, device=DEV, generator=g) * 0.05).to(dtype)
+                  for _ in range(nseg)]
+            err, ok, tol = compare("ln_gemm", ln_gemm(x, w, b, ws, torch.float32),
+                                   ln_gemm_ref(x, w, b, ws, torch.float32), dtype)
+            if not ok:
+                raise SystemExit(f"chip_smoke: B1 at K = {K}, {nseg} x {seg} rows, {dtype} "
+                                 f"disagrees with ln_gemm_ref: max_abs_err {err:.3e} ({tol})")
+            worst[str(dtype)[6:]] = max(worst.get(str(dtype)[6:], 0.0), err)
+    log("  B1 ragged (77 rows; K 64 / 128 / 192 with 3 x 24, 2 x 100, 1 x 36 weight rows; "
+        "y f32): ok, worst max_abs_err " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
 
 
 def tail_case(g, M, dtype, iters=20, C=256, inner=512, ff=1024, gelu="tanh"):
@@ -3134,7 +3171,7 @@ def trace_phase(est, ecfg, root, T=312):
         names = [e.get("name", "") for e in json.load(f)["traceEvents"]]
     found = {what: sum(key in n for n in names) for what, key in (
         ("A flash_attention_kernel", "flash_attention_kernel"),
-        ("B1 gemm_kernel (LN prologue)", "gemm_kernel"),
+        ("B1 ln_gemm_kernel", "ln_gemm_kernel"),
         ("B2 block_tail_kernel", "block_tail_kernel"),
         ("scope cosy_estimator_call", "cosy_estimator_call"))}
     log(f"  (b) profiling.trace of one estimator call (B = 2, T = {T}, valid {T - 1}): "
@@ -3742,12 +3779,16 @@ def main():
                    f"{r2['same']}", r2)
             if rows == 2 * 156 and dtype == torch.float32:
                 main_b1, main_b2 = r1, r2
+    report("B1 ln_gemm M=312 x f32 under bf16 weights",
+           ln_gemm_case(g, 312, torch.bfloat16, x_dtype=torch.float32))
+    report("B1 ln_gemm M=156 bf16 (MeanFlow's T/2 level)", ln_gemm_case(g, 156, torch.bfloat16))
+    ln_gemm_ragged(g)
     # the streaming path's shapes (phase 9): a 120-token window is 206 mel
     # frames (even: no mask, no bias) and 103 at the T/2 level; the bucketed
     # final chunk is 220 frames with its true 172 valid (a (B,T,T) bias),
     # 110 with 86 valid at T/2.  B1 and B2 run at 412, 206, 440 and 220 rows
     log("  streaming and final-bucket shapes (phase 9's), plans (block_q, kv_splits) of A, "
-        "(block_m, block_n, cluster) of B1, (block_m, cluster, sub-tile) of B2")
+        "(block_m, block_n) of B1, (block_m, cluster, sub-tile) of B2")
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype)[6:]
         for T, valid in ((206, None), (103, None), (220, 172), (110, 86)):
@@ -3928,7 +3969,7 @@ def main():
               "cosy_tpu/ops/fused_block.py:49", main_ln),
         entry("gemm", "cosy_tpu_torch/csrc/fused_block.cu",
               "cosy_tpu/ops/fused_block.py:51", main_gemm),
-        entry("ln_gemm", "cosy_tpu_torch/csrc/fused_block.cu",
+        entry("ln_gemm", "cosy_tpu_torch/csrc/ln_gemm.cu",
               "cosy_tpu/ops/fused_block.py:49", main_b1),
         entry("block_tail", "cosy_tpu_torch/csrc/block_tail.cu",
               "cosy_tpu/ops/fused_block.py:74", main_b2),
@@ -3959,7 +4000,7 @@ def main():
              "cosy_tpu/ops/flash_attention.py:76"),
             ("fused_transformer_block", "cosy_tpu_torch/csrc/fused_block.cu",
              "cosy_tpu/ops/fused_block.py:34"),
-            ("ln_gemm", "cosy_tpu_torch/csrc/fused_block.cu", "cosy_tpu/ops/fused_block.py:49"),
+            ("ln_gemm", "cosy_tpu_torch/csrc/ln_gemm.cu", "cosy_tpu/ops/fused_block.py:49"),
             ("block_tail", "cosy_tpu_torch/csrc/block_tail.cu", "cosy_tpu/ops/fused_block.py:74"))
     ] + [
         # phase 16 (a): the MeanFlow syntheses' launches (1 and 2 steps, the
@@ -3970,7 +4011,7 @@ def main():
              "cosy_tpu/ops/flash_attention.py:76"),
             ("fused_transformer_block", "cosy_tpu_torch/csrc/fused_block.cu",
              "cosy_tpu/ops/fused_block.py:34"),
-            ("ln_gemm", "cosy_tpu_torch/csrc/fused_block.cu", "cosy_tpu/ops/fused_block.py:49"),
+            ("ln_gemm", "cosy_tpu_torch/csrc/ln_gemm.cu", "cosy_tpu/ops/fused_block.py:49"),
             ("block_tail", "cosy_tpu_torch/csrc/block_tail.cu", "cosy_tpu/ops/fused_block.py:74"))
     ] + [
         # the distillation teacher's CFG-batched calls (4 x 64 blocks an
@@ -3998,7 +4039,7 @@ def main():
              "cosy_tpu/ops/flash_attention.py:76", main_a),
             ("fused_transformer_block", "cosy_tpu_torch/csrc/fused_block.cu",
              "cosy_tpu/ops/fused_block.py:34", main_b),
-            ("ln_gemm", "cosy_tpu_torch/csrc/fused_block.cu", "cosy_tpu/ops/fused_block.py:49",
+            ("ln_gemm", "cosy_tpu_torch/csrc/ln_gemm.cu", "cosy_tpu/ops/fused_block.py:49",
              main_b1),
             ("block_tail", "cosy_tpu_torch/csrc/block_tail.cu", "cosy_tpu/ops/fused_block.py:74",
              main_b2))

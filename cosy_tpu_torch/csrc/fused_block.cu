@@ -1,8 +1,8 @@
 // Kernel B: the estimator's diffusers transformer block, as a chain of three
-// hand kernels: B1 (LayerNorm folded into the QKV product, this file's
-// gemm_kernel<kLn>), kernel A (flash_attention.cu) and B2 (the block tail,
-// block_tail.cu).  This file also keeps the row LayerNorm kernel and the
-// plain GEMM, which the block's path no longer launches.
+// hand kernels: B1 (LayerNorm folded into the QKV product, ln_gemm.cu),
+// kernel A (flash_attention.cu) and B2 (the block tail, block_tail.cu).
+// This file keeps the row LayerNorm kernel and the plain GEMM of the
+// earlier seven-launch chain, which the block's path no longer launches.
 //
 // Replaces the JAX package's Pallas kernel cosy_tpu/ops/fused_block.py
 // (_make_kernel :34, called by fused_transformer_block :95), which ran the
@@ -25,12 +25,6 @@
 // operations, not bytes.  At the estimator's T/2 level (M = 312 rows, where
 // 56 of the 64 blocks run) the limit is neither: a grid of whole 64x64 tiles
 // has 20 blocks for 132 SMs, and each block waits for its loads.
-//
-// What B1 adds to the GEMM: K = C = 256 is the whole row, so the blocks of
-// a row tile compute its rows' statistics (f32, two passes, as
-// layer_norm_kernel) while the first slices load, and every slice of x is
-// normalised in shared memory as it lands; one launch and one (rows, C)
-// round trip fewer.
 //
 // What gemm_kernel does about it:
 //  - Tensor cores.  bf16 operands go through mma.sync.m16n8k16 (ldmatrix
@@ -125,42 +119,22 @@ struct GemmArgs {
   const void *a, *w0, *w1, *w2, *bias, *res;
   void* y;
   int seg, res_f32, out_f32, M, N, K, act, k_per_split;
-  // the LayerNorm prologue (kLn): a is x, f32 (a_f32) or T; h = LN(x) w + b
-  const void *ln_w, *ln_b;
-  int a_f32;
-  float eps;
 };
 
-constexpr int kLnMaxK = 256;  // a lane holds a whole row's statistics pass: K <= this
-
-// shared memory of a gemm_kernel instantiation at depth K: the ring, and
-// under kLn after it the rows' mean and 1/std and the affine w and b (f32);
-// the split's partial tile (BM x (BN + 4) f32) lies over the start once the
-// mainloop is done
-template <typename T, int BM, int BN, bool kLn>
-constexpr int gemm_smem_bytes(int K) {
+// shared memory of a gemm_kernel instantiation: the ring; the split's
+// partial tile (BM x (BN + 4) f32) lies over it once the mainloop is done
+template <typename T, int BM, int BN>
+constexpr int gemm_smem_bytes() {
   const int ring = kStages * (BM + BN) * kRowBytes;
-  const int ln = kLn ? (2 * BM + 2 * K) * 4 : 0;
   const int red = BM * (BN + 4) * 4;
-  return ring + ln > red ? ring + ln : red;
+  return ring > red ? ring : red;
 }
 
 // One block computes a BM x BN tile of Y over the K range of its rank in the
 // cluster (blockIdx.z); WARPS_M x WARPS_N warps each own a (BM / WARPS_M) x
 // (BN / WARPS_N) part of it as m16n8 accumulator fragments (slice_product),
 // K streaming through a three-stage ring (stream_slices, mma.cuh).
-// kLn: A is h = LayerNorm(x) of the tile's BM rows; K is not split.  x
-// streams through the ring as A does, and each landed slice is normalised
-// in place, in f32 and rounded to T, before its product.  The row
-// statistics come first: the blocks of one row tile form a cluster along N
-// (gridDim.x); rank q computes mean and 1/std of rows [q BM/R, (q+1) BM/R)
-// (a warp a row, two passes in the order of layer_norm_kernel) and, after a
-// cluster barrier, every block reads the others' from their shared memory.
-// Both alternatives measured slower on the card (ops/phase_trace.py,
-// PERF.md): normalising the whole tile in each of the N / BN blocks of a row
-// tile, and copying normalised rows between the ranks; the statistics are
-// 512 bytes.
-template <typename T, int BM, int BN, int WARPS_M, int WARPS_N, bool kLn>
+template <typename T, int BM, int BN, int WARPS_M, int WARPS_N>
 __global__ void __launch_bounds__(WARPS_M * WARPS_N * 32)
 gemm_kernel(const GemmArgs p) {
   constexpr int kThreads = WARPS_M * WARPS_N * 32;
@@ -178,8 +152,6 @@ gemm_kernel(const GemmArgs p) {
   const int k_begin = rank * p.k_per_split;
   const int k_len = min(K, k_begin + p.k_per_split) - k_begin;
   unsigned char* ring = smem;
-  // kLn: mean, 1/std of the BM rows; w and b of the K columns (f32)
-  float* stats = reinterpret_cast<float*>(smem + kStages * (BM + BN) * kRowBytes);
 
   float acc[MT][NT][4];
 #pragma unroll
@@ -195,111 +167,20 @@ gemm_kernel(const GemmArgs p) {
     const T* wseg = static_cast<const T*>(sgi == 0 ? p.w0 : (sgi == 1 ? p.w1 : p.w2));
     return wseg + (long long)(gn - sgi * p.seg) * K + k_begin;
   };
-  // kLn with f32 x under bf16 weights: x is read, normalised and rounded as
-  // a slice is issued (not on the block's path, where x has T's type)
-  const bool ln_convert = kLn && p.a_f32 && sizeof(T) != 4;
-  // the rows' statistics: rank q of the cluster computes those of its share
-  // of the tile's rows, then reads the others' (see above)
-  auto ln_stats = [&]() {
-    if constexpr (kLn) {
-      cg::cluster_group cluster = cg::this_cluster();
-      const int ranks = static_cast<int>(cluster.num_blocks());
-      const int q = static_cast<int>(cluster.block_rank()), rp = BM / ranks, r0 = q * rp;
-      const T* lw = static_cast<const T*>(p.ln_w);
-      const T* lb = static_cast<const T*>(p.ln_b);
-      for (int k = tid; k < K; k += kThreads) {
-        stats[2 * BM + k] = to_f(lw[k]);
-        stats[2 * BM + K + k] = to_f(lb[k]);
-      }
-      constexpr int kRows = 4, kC32 = kLnMaxK / 32;
-      for (int rr = warp * kRows; rr < rp; rr += kThreads / 32 * kRows) {
-        float v[kRows][kC32];
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) {
-          const int gm = m0 + r0 + rr + i;
-          const bool ok = rr + i < rp && gm < M;
-#pragma unroll
-          for (int j = 0; j < kC32; ++j) {
-            const int c = lane + 32 * j;
-            const long long o = (long long)gm * K + c;
-            v[i][j] = ok && c < K ? (p.a_f32 ? static_cast<const float*>(p.a)[o] : to_f(A[o]))
-                                  : 0.f;
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) {
-          float s1 = 0.f;
-#pragma unroll
-          for (int j = 0; j < kC32; ++j) s1 += v[i][j];
-          const float mean = warp_sum(s1) / K;
-          float s2 = 0.f;
-#pragma unroll
-          for (int j = 0; j < kC32; ++j) {
-            const float d = v[i][j] - mean;
-            if (lane + 32 * j < K) s2 = fmaf(d, d, s2);
-          }
-          const float inv = rsqrtf(warp_sum(s2) / K + p.eps);
-          if (lane == 0 && rr + i < rp) {
-            stats[r0 + rr + i] = mean;
-            stats[BM + r0 + rr + i] = inv;
-          }
-        }
-      }
-      cluster.sync();  // every rank's statistics are in place
-      for (int r = tid; r < BM; r += kThreads) {
-        if (r / rp == q) continue;
-        stats[r] = *cluster.map_shared_rank(stats + r, r / rp);
-        stats[BM + r] = *cluster.map_shared_rank(stats + BM + r, r / rp);
-      }
-      __syncthreads();
-    }
-  };
-  // h of element (r, k): (x - mean) / std * w + b, as layer_norm_kernel
-  auto ln = [&](float x, int r, int k) {
-    return (x - stats[r]) * stats[BM + r] * stats[2 * BM + k] + stats[2 * BM + K + k];
-  };
   // a stage: the slice of A's BM rows and W's BN rows
   constexpr int BK = kSliceBytes / sizeof(T), LD = kRowBytes / sizeof(T);
   constexpr int kStage = (BM + BN) * kRowBytes;
   const int n_slices = k_len > 0 ? (k_len + BK - 1) / BK : 0;
   auto issue = [&](int i) {
     T* st = reinterpret_cast<T*>(ring + (i % kStages) * kStage);
-    if (!ln_convert) {
-      load_slice_rows<T, BM, kThreads>(st, a_row, min(BM, M - m0), i * BK, k_len);
-    } else {
-      const float* x = static_cast<const float*>(p.a);
-      for (int e = tid; e < BM * BK / 2; e += kThreads) {
-        const int r = e / (BK / 2), c = (e % (BK / 2)) * 2, k = k_begin + i * BK + c;
-        float2 v = make_float2(0.f, 0.f);
-        if (m0 + r < M) {
-          v = load_pair(x + (long long)(m0 + r) * K + k);
-          v = make_float2(ln(v.x, r, k), ln(v.y, r, k + 1));
-        }
-        store_pair(st + r * LD + c, v);
-      }
-    }
+    load_slice_rows<T, BM, kThreads>(st, a_row, min(BM, M - m0), i * BK, k_len);
     load_slice_rows<T, BN, kThreads>(st + BM * LD, w_row, min(BN, N - n0), i * BK, k_len);
   };
-  if constexpr (kLn) COSY_PHASE(10);
-  if (ln_convert) ln_stats();  // the slices are normalised as they are issued
   stream_start<kStages>(n_slices, issue);
-  if (!ln_convert) ln_stats();  // while the first slices load
-  if constexpr (kLn) COSY_PHASE(11);
-  stream_slices<kStages>(0, n_slices, n_slices, issue, [&](int stage, int it) {
+  stream_slices<kStages>(0, n_slices, n_slices, issue, [&](int stage, int) {
     T* st = reinterpret_cast<T*>(ring + stage * kStage);
-    if (kLn && !ln_convert) {
-      // the landed slice of x becomes h in place; the stream's next
-      // __syncthreads() is a slice away, so one here
-      for (int e = tid; e < BM * BK / 2; e += kThreads) {
-        const int r = e / (BK / 2), c = (e % (BK / 2)) * 2, k = k_begin + it * BK + c;
-        const float2 v = load_pair(st + r * LD + c);
-        store_pair(st + r * LD + c, make_float2(ln(v.x, r, k), ln(v.y, r, k + 1)));
-      }
-      __syncthreads();
-    }
     slice_product<T, BM, BN, WARPS_M, WARPS_N>(acc, st, LD, st + BM * LD);
   });
-  if constexpr (kLn) COSY_PHASE(12);
 
   const T* bias = static_cast<const T*>(p.bias);
   // the epilogue of columns gn (even) and gn + 1 of row gm
@@ -330,10 +211,6 @@ gemm_kernel(const GemmArgs p) {
         for (int h = 0; h < 2; ++h)
           finish(m0 + wm0 + i * 16 + g + h * 8, n0 + wn0 + j * 8 + 2 * t,
                  make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]));
-    if constexpr (kLn) {
-      COSY_PHASE(13);
-      cg::this_cluster().sync();  // no block leaves while its statistics are read
-    }
     return;
   }
 
@@ -367,24 +244,23 @@ gemm_kernel(const GemmArgs p) {
   cluster.sync();  // no block leaves while its partial tile is being read
 }
 
-template <typename T, int BM, int BN, int WARPS_M, int WARPS_N, bool kLn>
+template <typename T, int BM, int BN, int WARPS_M, int WARPS_N>
 cudaError_t launch_gemm(const GemmArgs& args, int split, cudaStream_t stream) {
-  auto kernel = gemm_kernel<T, BM, BN, WARPS_M, WARPS_N, kLn>;
+  auto kernel = gemm_kernel<T, BM, BN, WARPS_M, WARPS_N>;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      gemm_smem_bytes<T, BM, BN, kLn>(kLnMaxK));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, gemm_smem_bytes<T, BM, BN>());
   if (attr != cudaSuccess) return attr;
-  // split: the cluster's size, along K (gridDim.z) or, under kLn, along N
+  // split: the cluster's size along K (gridDim.z)
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((args.N + BN - 1) / BN, (args.M + BM - 1) / BM, kLn ? 1 : split);
+  cfg.gridDim = dim3((args.N + BN - 1) / BN, (args.M + BM - 1) / BM, split);
   cfg.blockDim = dim3(WARPS_M * WARPS_N * 32);
-  cfg.dynamicSmemBytes = gemm_smem_bytes<T, BM, BN, kLn>(args.K);
+  cfg.dynamicSmemBytes = gemm_smem_bytes<T, BM, BN>();
   cfg.stream = stream;
   cudaLaunchAttribute cluster;
   cluster.id = cudaLaunchAttributeClusterDimension;
-  cluster.val.clusterDim.x = kLn ? split : 1;
+  cluster.val.clusterDim.x = 1;
   cluster.val.clusterDim.y = 1;
-  cluster.val.clusterDim.z = kLn ? 1 : split;
+  cluster.val.clusterDim.z = split;
   cfg.attrs = &cluster;
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args);
@@ -394,13 +270,13 @@ cudaError_t launch_gemm(const GemmArgs& args, int split, cudaStream_t stream) {
 // the tiles the wrapper's plan may name: 64x64 on four warps, and on eight
 // warps 128x128 in bf16 or 128x64 in f32, whose second (kPromote) fragment
 // set doubles the accumulator registers
-template <typename T, bool kLn>
+template <typename T>
 cudaError_t dispatch_gemm(const GemmArgs& args, int block_m, int block_n, int split,
                           cudaStream_t s) {
   constexpr bool kF = sizeof(T) == 4;
-  if (block_m == 64 && block_n == 64) return launch_gemm<T, 64, 64, 2, 2, kLn>(args, split, s);
+  if (block_m == 64 && block_n == 64) return launch_gemm<T, 64, 64, 2, 2>(args, split, s);
   if (block_m == 128 && block_n == (kF ? 64 : 128))
-    return launch_gemm<T, 128, kF ? 64 : 128, kF ? 4 : 2, kF ? 2 : 4, kLn>(args, split, s);
+    return launch_gemm<T, 128, kF ? 64 : 128, kF ? 4 : 2, kF ? 2 : 4>(args, split, s);
   return cudaErrorInvalidValue;
 }
 
@@ -472,46 +348,10 @@ extern "C" int cosy_gemm(int dtype, int res_dtype, int out_dtype, const void* a,
     return static_cast<int>(cudaErrorInvalidValue);
   const int slices = (K + 63) / 64;
   GemmArgs args{a, w0, w1, w2, bias, res, y, seg, res_dtype == kF32, out_dtype == kF32,
-                M, N, K, act, (slices + split_k - 1) / split_k * 64,
-                nullptr, nullptr, 0, 0.f};
+                M, N, K, act, (slices + split_k - 1) / split_k * 64};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      dtype == kF32 ? dispatch_gemm<float, false>(args, block_m, block_n, split_k, s)
-                    : dispatch_gemm<__nv_bfloat16, false>(args, block_m, block_n, split_k, s);
-  return static_cast<int>(err);
-}
-
-#ifdef COSY_TRACE
-// the phase times of the last COSY_TRACE launch (ops/phase_trace.py)
-extern "C" int cosy_trace(long long* out) {
-  return static_cast<int>(cudaMemcpyFromSymbol(out, cosy::trace_ns, sizeof(cosy::trace_ns)));
-}
-#endif
-
-// Kernel B1: y (M, N) = LayerNorm(x) (M, K) . W^T, the LayerNorm (f32
-// statistics, eps, affine ln_w / ln_b of the weights' type, rounded to it)
-// computed into shared memory by the `cluster` blocks of a row tile
-// together: the GEMM above with its A tile resident and K not split.  x is
-// f32 or of the weights' type (in_dtype); y is f32 or of the weights' type.
-// W as for cosy_gemm; K a multiple of 64 and at most 256; (block_m,
-// block_n) as for cosy_gemm; cluster in {1, 2, 4, 8} divides the number of
-// N tiles.
-extern "C" int cosy_ln_gemm(int dtype, int in_dtype, int out_dtype, const void* x,
-                            const void* ln_w, const void* ln_b, const void* w0,
-                            const void* w1, const void* w2, int seg, void* y, int M,
-                            int N, int K, float eps, int block_m, int block_n,
-                            int cluster, void* stream) {
-  using namespace cosy;
-  if (!valid_dtype(dtype) || !valid_dtype(in_dtype) || !valid_dtype(out_dtype) ||
-      (in_dtype != kF32 && in_dtype != dtype) || M <= 0 || N <= 0 || K <= 0 ||
-      K > kLnMaxK || K % 64 != 0 || seg <= 0 || N > 3 * seg || seg % 4 != 0 ||
-      !valid_split(cluster) || block_n <= 0 || ((N + block_n - 1) / block_n) % cluster != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  GemmArgs args{x, w0, w1, w2, nullptr, nullptr, y, seg, 0, out_dtype == kF32,
-                M, N, K, kNone, K, ln_w, ln_b, in_dtype == kF32, eps};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      dtype == kF32 ? dispatch_gemm<float, true>(args, block_m, block_n, cluster, s)
-                    : dispatch_gemm<__nv_bfloat16, true>(args, block_m, block_n, cluster, s);
+      dtype == kF32 ? dispatch_gemm<float>(args, block_m, block_n, split_k, s)
+                    : dispatch_gemm<__nv_bfloat16>(args, block_m, block_n, split_k, s);
   return static_cast<int>(err);
 }

@@ -190,8 +190,8 @@ __device__ __forceinline__ void mma_grid(float (*c)[NT][4], const typename MM::A
 }
 
 // ---------------------------------------------------------------------------
-// The block's products: one mainloop for the GEMM kernel (with or without
-// its LayerNorm prologue) and the three products of the block tail
+// The block's products on mma.sync: one mainloop for the GEMM kernel and
+// the three products of the block tail (B1 runs on wgmma.cuh's)
 // ---------------------------------------------------------------------------
 
 constexpr int kSliceBytes = 128;  // K advances 128 bytes of a row at a time

@@ -29,7 +29,7 @@ import torch
 from ..utils import aot
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("flash_attention.cu", "fused_block.cu", "block_tail.cu")
+SOURCES = ("flash_attention.cu", "fused_block.cu", "ln_gemm.cu", "block_tail.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -56,9 +56,9 @@ SIGNATURES = {
     "cosy_gemm": ("fused_block.cu", [
         _i, _i, _i, _vp, _vp, _vp, _vp, _i, _vp, _vp, _vp, _i, _i, _i, _i,
         _i, _i, _i, _vp]),
-    "cosy_ln_gemm": ("fused_block.cu", [
+    "cosy_ln_gemm": ("ln_gemm.cu", [
         _i, _i, _i, _vp, _vp, _vp, _vp, _vp, _vp, _i, _vp, _i, _i, _i, _f,
-        _i, _i, _i, _vp]),
+        _i, _i, _vp]),
     "cosy_block_tail": ("block_tail.cu", [
         _i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i,
         _f, _i, _i, _i, _i, _vp]),

@@ -4,7 +4,7 @@
 ``ops/fused_block.py`` Pallas kernel.  For CUDA tensors it runs three
 launches of hand-written kernels:
 
-    B1 ``ln_gemm``: LN1 folded into the QKV product (``csrc/fused_block.cu``)
+    B1 ``ln_gemm``: LN1 folded into the QKV product (``csrc/ln_gemm.cu``)
     -> kernel A ``flash_attention`` (``csrc/flash_attention.cu``)
     -> B2 ``block_tail``: out-proj (+bo, +x, f32 x1) -> LN3 -> FF1 (+b1,
        GELU) -> FF2 (+b2, +x1) in one cluster kernel (``csrc/block_tail.cu``)
@@ -207,37 +207,42 @@ gemm.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# Kernel B1: LayerNorm as the prologue of a GEMM
+# Kernel B1: LayerNorm folded into the QKV product
 # ---------------------------------------------------------------------------
 
 
-LN_MAX_K = 256  # a lane holds its share of a row's statistics pass (csrc kLnMaxK)
+LN_MAX_K = 256  # the whole x tile stays in shared memory (csrc/ln_gemm.cu kLnMaxK)
 SMEM_LIMIT = 232_448  # bytes of shared memory a block may have on an H100
-_RING_STAGES = 3
 _ROW_BYTES = 144  # a 128-byte K slice row, padded (csrc/mma.cuh kRowBytes)
+# (block_m, block_n) instantiations of csrc/ln_gemm.cu: 64 rows, one
+# consumer warpgroup, the whole N tile; f32 holds a slice's partial sums
+# beside its running sums (3xTF32, kPromote) and its W stages twice (hi, lo)
+_LN_GEMM_TILES = {dtype: ((64, 64), (64, 128)) for dtype in (torch.float32, torch.bfloat16)}
+_LN_STAGES = 4  # the W ring (csrc/ln_gemm.cu kStages)
+_LN_SLICE = 128  # bytes of a row in a K slice: the TMA box and swizzle width
+_LN_BARRIERS = LN_MAX_K * 4 // _LN_SLICE + 2 * _LN_STAGES  # x slices', the ring's
 
 
-def _ln_gemm_smem_bytes(block_m: int, block_n: int, K: int, dtype) -> int:
-    """Shared memory of kernel B1 (``csrc/fused_block.cu``
-    ``gemm_smem_bytes<kLn>``): the ring of x and W slices, then the rows'
-    mean and 1/std and the affine w and b in f32 (the same for both
-    dtypes); the split's partial tile would lie over them."""
-    ring = _RING_STAGES * (block_m + block_n) * _ROW_BYTES
-    return max(ring + (2 * block_m + 2 * K) * 4, block_m * (block_n + 4) * 4)
+def _ln_gemm_smem_bytes(block_m: int, block_n: int, K: int, dtype, x_dtype=None) -> int:
+    """Shared memory of kernel B1 (``csrc/ln_gemm.cu`` ``LnGemmSmem``):
+    1024 bytes of alignment slack, the ring of W slices (f32: a hi and a lo
+    slice a stage), the whole x tile in x's dtype (the weights' by
+    default), the affine w and b in f32 and the barriers."""
+    es = torch.finfo(dtype).bits // 8
+    xs = torch.finfo(x_dtype or dtype).bits // 8
+    ring = _LN_STAGES * block_n * _LN_SLICE * (2 if es == 4 else 1)
+    return 1024 + ring + block_m * K * xs + 2 * K * 4 + _LN_BARRIERS * 8
 
 
 @functools.lru_cache(maxsize=None)
 def _ln_gemm_plan(M: int, N: int, K: int, dtype=torch.float32):
-    """(block_m, block_n, cluster) of kernel B1: the large tile where its
-    grid has a block for nine SMs of ten, else 64x64; K is never split; the
-    blocks of a row tile share its rows' statistics in a cluster along N,
-    the largest of 8, 4, 2 that divides the N tiles.  The rule follows the
-    sweep of ``python -m cosy_tpu_torch.ops.plan_sweep`` (PERF.md).  A pure
-    function of shape and type."""
-    big, small = _GEMM_TILES_F32 if dtype == torch.float32 else _GEMM_TILES
-    cdiv = _cuda.cdiv
-    bm, bn, _ = big if 10 * cdiv(M, big[0]) * cdiv(N, big[1]) >= 9 * _cuda.SMS else small
-    return bm, bn, next(c for c in (8, 4, 2, 1) if cdiv(N, bn) % c == 0)
+    """(block_m, block_n) of kernel B1: 64x64 tiles while their grid fits
+    the SMs in one wave, else 64x128.  K is never split.  The rule follows
+    the sweep of ``python -m cosy_tpu_torch.ops.plan_sweep`` (PERF.md).  A
+    pure function of shape and type: it is passed to the kernel, and is no
+    caller's option."""
+    del K, dtype  # one rule for every depth and both types
+    return (64, 64) if _cuda.cdiv(M, 64) * _cuda.cdiv(N, 64) <= _cuda.SMS else (64, 128)
 
 
 def ln_gemm_ref(x, w, b, weights, out_dtype=None, eps: float = 1e-5) -> torch.Tensor:
@@ -250,11 +255,12 @@ def ln_gemm_ref(x, w, b, weights, out_dtype=None, eps: float = 1e-5) -> torch.Te
 
 
 def ln_gemm(x, w, b, weights, out_dtype=None, eps: float = 1e-5) -> torch.Tensor:
-    """``Y (M, N) = LayerNorm(x (M, K)) . W^T`` in one launch: the blocks
-    of a row tile share its rows' statistics (K <= 256, a multiple of 64),
-    and each slice of x is normalised in shared memory as it lands.  ``x``
-    is f32 or of the weights' dtype; ``w``, ``b`` and the one to three
-    weight segments are of one dtype, the compute dtype h is rounded to."""
+    """``Y (M, N) = LayerNorm(x (M, K)) . W^T`` in one launch: a block
+    holds its x rows whole (K <= 256, a multiple of 64), takes their
+    statistics and builds the product's normalised operand in registers
+    while the weight slices stream in.  ``x`` is f32 or of the weights'
+    dtype; ``w``, ``b`` and the one to three weight segments are of one
+    dtype, the compute dtype h is rounded to."""
     out_dtype = out_dtype or weights[0].dtype
     _cuda.refuse_grad("ln_gemm", x, w, b, *weights)
     if x.device.type == "cpu":
@@ -293,7 +299,7 @@ def check_ln_gemm_args(x, w, b, weights, out_dtype):
                                          for t in weights):
         raise ValueError("ln_gemm takes 1-3 weight segments (seg, K) of one dtype")
     if weights[0].shape[0] % 4:
-        raise ValueError("ln_gemm takes segments of a multiple of 4 rows (16-byte copies)")
+        raise ValueError("ln_gemm takes segments of a multiple of 4 rows")
     tensors = [x, w, b] + list(weights)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("ln_gemm takes contiguous tensors")

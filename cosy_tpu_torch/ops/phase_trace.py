@@ -2,14 +2,17 @@
 
     python -m cosy_tpu_torch.ops.phase_trace
 
-Builds ``csrc/fused_block.cu`` and ``csrc/block_tail.cu`` once more with
+Builds ``csrc/ln_gemm.cu`` and ``csrc/block_tail.cu`` once more with
 ``-DCOSY_TRACE`` into ``build/cosy_tpu_torch/trace/`` (the library build has
 no trace), launches B1 on the QKV product and B2 on the block tail at the
 main path's row counts in f32 and bf16 with their plans, and prints, for
 block 0, the microseconds from the kernel's first phase to each later one
 (``%globaltimer``, read back through ``cosy_trace``):
 
-    B1: 10 start, 11 row statistics exchanged, 12 product loop done, 13 end
+    B1: 10 start, 17 x landed and the row statistics taken, 11 first W
+        stage landed, 14 slice 2's products issued, 15 slice 3 landed, split
+        and its fragments built, 16 slice 2's products done, 12 mainloop
+        done, 13 end (y stored)
     B2: 0 start, 1 out-projection, 2 barrier, 3 x1 reduced, 4 LN3,
         5 FF1 (first sub-tile), 6 FF2 (first sub-tile), 7 partial tiles
         exchanged, 8 end
@@ -29,7 +32,7 @@ from . import _cuda
 from .fused_block import _ln_gemm_plan, _tail_plan
 
 ROWS = (312, 624, 5116)
-B1_PHASES = (10, 11, 12, 13)
+B1_PHASES = (10, 17, 11, 14, 15, 16, 12, 13)
 B2_PHASES = tuple(range(9))
 
 
@@ -40,7 +43,7 @@ def _trace_libraries():
     jobs = {src: subprocess.Popen([nvcc, *_cuda.NVCC_FLAGS, "-DCOSY_TRACE", "-o",
                                    str(out / f"{src[:-3]}.so"), str(_cuda.CSRC / src)],
                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for src in ("fused_block.cu", "block_tail.cu")}
+            for src in ("ln_gemm.cu", "block_tail.cu")}
     libs = {}
     for src, proc in jobs.items():
         log, _ = proc.communicate()
@@ -50,11 +53,11 @@ def _trace_libraries():
         lib.cosy_trace.argtypes = [ctypes.c_void_p]
         lib.cosy_trace.restype = ctypes.c_int
         libs[src] = lib
-    for name, src in (("cosy_ln_gemm", "fused_block.cu"), ("cosy_block_tail", "block_tail.cu")):
+    for name, src in (("cosy_ln_gemm", "ln_gemm.cu"), ("cosy_block_tail", "block_tail.cu")):
         fn = getattr(libs[src], name)
         fn.argtypes = _cuda.SIGNATURES[name][1]
         fn.restype = ctypes.c_int
-    return libs["fused_block.cu"], libs["block_tail.cu"]
+    return libs["ln_gemm.cu"], libs["block_tail.cu"]
 
 
 def _phases(lib, launch, marks, runs: int = 5):
@@ -84,13 +87,14 @@ def main():
             def mk(*shape, scale=0.05):
                 return (torch.randn(*shape, device=dev, generator=gen) * scale).to(dtype)
 
-            x, lw, lb, w = mk(M, C, scale=1.0), mk(C), mk(C), mk(3 * inner, C)
+            x, lw, lb = mk(M, C, scale=1.0), mk(C), mk(C)
+            w = [mk(inner, C) for _ in range(3)]  # Wq, Wk, Wv: three segments
             y = torch.empty(M, 3 * inner, device=dev, dtype=dtype)
             plan = _ln_gemm_plan(M, 3 * inner, C, dtype)
             print(f"B1 {str(dtype)[6:]} M={M} plan {plan} us: " + _phases(b1, lambda: _cuda.check(
                 b1.cosy_ln_gemm(codes[dtype], codes[dtype], codes[dtype], x.data_ptr(),
-                                lw.data_ptr(), lb.data_ptr(), w.data_ptr(), None, None,
-                                3 * inner, y.data_ptr(), M, 3 * inner, C, 1e-5, *plan,
+                                lw.data_ptr(), lb.data_ptr(), *(t.data_ptr() for t in w),
+                                inner, y.data_ptr(), M, 3 * inner, C, 1e-5, *plan,
                                 _cuda.stream_ptr(x)), "ln_gemm"), B1_PHASES), flush=True)
             ts = (mk(M, inner, scale=1.0), x, mk(C, inner), mk(C), mk(C), mk(C), mk(F, C), mk(F),
                   mk(C, F), mk(C), torch.empty(M, C, device=dev, dtype=dtype))

@@ -4,8 +4,9 @@
 
 At the main path's row counts, in f32 and bf16, every plan the kernels take
 is launched directly through the C entry points and timed (device time of
-the kernel by torch.profiler, mean of 10 launches): kernel B1 (the QKV
-product with its LayerNorm prologue, every tile and N-cluster), kernel B2 (the
+the kernel by torch.profiler, mean of 10 launches): kernel B1 (LN1 and the
+QKV product, every tile, at 150 and 156 rows as well; its lines end with
+the time of ``F.layer_norm`` + ``F.linear`` on the same inputs), kernel B2 (the
 block tail, every (block_m, cluster, sub-tile)), the GEMM's four products
 and kernel A at the path's attention shapes.  Each line names the choice of
 ``_ln_gemm_plan`` / ``_tail_plan`` / ``_gemm_plan`` / ``_attention_plan``
@@ -21,15 +22,17 @@ import ctypes
 import subprocess
 
 import torch
+import torch.nn.functional as F
 
 from . import _cuda
 from .flash_attention import BLOCK_Q, KV_TILE, _SPLITS, _attention_plan
-from .fused_block import (_GEMM_TILES, _GEMM_TILES_F32, _TAIL_PLANS, K_SLICE, _gemm_plan,
-                          _ln_gemm_plan, _tail_plan)
+from .fused_block import (_GEMM_TILES, _GEMM_TILES_F32, _LN_GEMM_TILES, _TAIL_PLANS, K_SLICE,
+                          _gemm_plan, _ln_gemm_plan, _tail_plan)
 
 PRODUCTS = {"QKV": (1536, 256), "out-proj": (256, 512), "FF1": (1024, 256),
             "FF2": (256, 1024)}
 ROWS = (312, 624, 2558, 5116)
+B1_ROWS = (150, 156) + ROWS  # CosyVoice2's and MeanFlow's T/2 levels first
 ATTENTION = ((156, 156), (312, 312), (1279, 1279), (2580, 2580), (128, 8320))
 
 
@@ -55,13 +58,17 @@ def device_ms(fn, iters: int = 10):
     return None
 
 
-def _line(what, plan, results):
-    if any(r[0] is None for r in results):
+def _line(what, plan, results, library=None):
+    """One line: the plan's time, the fastest plans (with their blocks)
+    and, where given, ``(name, ms)`` of the library calls that compute the
+    same function."""
+    if any(r[0] is None for r in results) or (library and library[1] is None):
         raise SystemExit("plan_sweep: the profiler recorded no device events")
     results.sort()
     mine = [r[0] for r in results if r[1] == plan]
     best = " ".join(f"({', '.join(map(str, r[1]))}; {r[2]}): {r[0]:.4f}" for r in results[:4])
-    print(f"{what}: plan {plan} {mine[0] if mine else float('nan'):.4f} ms | fastest {best}",
+    lib = f" | {library[0]} {library[1]:.4f}" if library else ""
+    print(f"{what}: plan {plan} {mine[0] if mine else float('nan'):.4f} ms | fastest {best}{lib}",
           flush=True)
 
 
@@ -94,33 +101,31 @@ def sweep_gemm(dev, gen):
 
 def sweep_ln_gemm(dev, gen):
     """Kernel B1 on the QKV product (N = 1536, K = 256): every tile, and
-    every cluster along N that divides its N tiles."""
+    the library sequence F.layer_norm + F.linear on the same inputs."""
     fn = _cuda.function("cosy_ln_gemm")
     codes = _cuda.DTYPE_CODE
     N, K = PRODUCTS["QKV"]
     for dtype in (torch.float32, torch.bfloat16):
-        tiles = _GEMM_TILES_F32 if dtype == torch.float32 else _GEMM_TILES
-        for M in ROWS:
+        for M in B1_ROWS:
             x = torch.randn(M, K, device=dev, generator=gen).to(dtype)
             lw, lb = (torch.randn(K, device=dev, generator=gen).to(dtype) for _ in range(2))
-            w = (torch.randn(N, K, device=dev, generator=gen) * 0.05).to(dtype)
+            w = [(torch.randn(N // 3, K, device=dev, generator=gen) * 0.05).to(dtype)
+                 for _ in range(3)]
             y = torch.empty(M, N, device=dev, dtype=dtype)
             results = []
-            for bm, bn, _ in tiles:
-                for cluster in (1, 2, 4, 8):
-                    if _cuda.cdiv(N, bn) % cluster:
-                        continue
+            for bm, bn in _LN_GEMM_TILES[dtype]:
+                def run():
+                    _cuda.check(fn(codes[dtype], codes[dtype], codes[dtype], x.data_ptr(),
+                                   lw.data_ptr(), lb.data_ptr(), *(t.data_ptr() for t in w),
+                                   N // 3, y.data_ptr(), M, N, K, 1e-5, bm, bn,
+                                   _cuda.stream_ptr(x)), "ln_gemm")
 
-                    def run():
-                        _cuda.check(fn(codes[dtype], codes[dtype], codes[dtype], x.data_ptr(),
-                                       lw.data_ptr(), lb.data_ptr(), w.data_ptr(), None, None,
-                                       N, y.data_ptr(), M, N, K, 1e-5, bm, bn, cluster,
-                                       _cuda.stream_ptr(x)), "ln_gemm")
-
-                    blocks = _cuda.cdiv(M, bm) * _cuda.cdiv(N, bn)
-                    results.append((device_ms(run), (bm, bn, cluster), blocks))
+                blocks = _cuda.cdiv(M, bm) * _cuda.cdiv(N, bn)
+                results.append((device_ms(run), (bm, bn), blocks))
+            w_cat = torch.cat(w)
+            lib = device_ms(lambda: F.linear(F.layer_norm(x, (K,), lw, lb, 1e-5), w_cat))
             _line(f"ln_gemm {str(dtype)[6:]} M={M} LN1+QKV", _ln_gemm_plan(M, N, K, dtype),
-                  results)
+                  results, ("F.layer_norm + F.linear", lib))
 
 
 def sweep_tail(dev, gen):

@@ -9,8 +9,14 @@ CPU run can hold of it.
 - the tail's splits in its plain version (the out-projection over K and
   the FF hidden over 1, 4 and 8 ranks) against the unsplit sums, 2e-5;
 - the plans (``_ln_gemm_plan``, ``_tail_plan``) at the main path's shapes,
-  and the shared-memory budget of every plan the kernels have against the
-  227 KB a block may use;
+  the tiles ``csrc/ln_gemm.cu`` dispatches, and the shared-memory budget
+  of every plan the kernels have against the 227 KB a block may use;
+- a numpy emulation of B1's arithmetic (statistics merged by Chan's rule
+  slice by slice and across the quad, the operand normalised by two fused
+  multiply-adds, 3xTF32 with the kernel's split rules and per-slice partial
+  sums, or bf16) at 312 x 256 x 1536, with rows far from zero mean and rows
+  with an outlier in column 0: inside ``ln_gemm_ref``'s tolerances and,
+  through the plain chain, the Pallas kernel's;
 - a numpy emulation of 3xTF32 (mantissa cut to 10 bits, three products, f32
   sums in the tail's split order) through the whole tail at the estimator's
   widths: inside the f32 tolerance where single-pass TF32 is not;
@@ -34,7 +40,7 @@ from cosy_tpu_torch.ops import _cuda
 from cosy_tpu_torch.ops import fused_block as tfb
 from cosy_tpu_torch.ops.flash_attention import flash_attention_ref
 from test_torch_common import assert_close, t
-from test_torch_kernel_plans import _matmul_tf32, _within
+from test_torch_kernel_plans import _matmul_tf32, _tf32, _within
 from test_torch_common import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 TOL = dict(atol=2e-5, rtol=2e-5)
@@ -247,25 +253,46 @@ def test_tail_plan_on_the_main_path(M, dtype):
         assert dtype == F32 and blocks <= 2.5 * _cuda.SMS
 
 
-LN_GEMM_TILES = {(t_[0], t_[1]) for t_ in tfb._GEMM_TILES + tfb._GEMM_TILES_F32}
+B1_ROWS = [150, 156, 312, 624, 2558, 5116]  # CosyVoice2's and MeanFlow's T/2 levels, MAIN_ROWS
+
+
+def test_ln_gemm_tiles_are_the_kernels_instantiations():
+    """_LN_GEMM_TILES names exactly the tiles csrc/ln_gemm.cu dispatches,
+    the budget's constants are the source's, and B1 has no cluster: no
+    launch attribute, no cluster barrier, no distributed shared memory; the
+    GEMM kernel keeps no LayerNorm branch."""
+    src = (CSRC / "ln_gemm.cu").read_text()
+    dispatch = src[src.index("cudaError_t dispatch("):src.index("bool valid_dtype")]
+    built = {(64, int(v)) for v in re.findall(r"launch<T, TX, (\d+)>", dispatch)}
+    assert set(tfb._LN_GEMM_TILES[F32]) == set(tfb._LN_GEMM_TILES[BF16]) == built
+    assert "if (block_m != 64) return cudaErrorInvalidValue;" in dispatch
+    for const in (f"kSmemLimit = {tfb.SMEM_LIMIT};", f"kStages = {tfb._LN_STAGES};",
+                  f"kSlice = {tfb._LN_SLICE};", f"kLnMaxK = {tfb.LN_MAX_K};"):
+        assert const in src
+    for what in ("cudaLaunchAttributeClusterDimension", "cluster.sync", "map_shared_rank"):
+        assert what not in src
+    assert "wgmma.mma_async" in (CSRC / "wgmma.cuh").read_text()
+    gemm_src = (CSRC / "fused_block.cu").read_text()
+    assert "bool kLn" not in gemm_src and "ln_stats" not in gemm_src
+    assert "cosy_ln_gemm" not in gemm_src and "cosy_ln_gemm" in src
 
 
 @pytest.mark.parametrize("dtype", [F32, BF16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("M", MAIN_ROWS)
+@pytest.mark.parametrize("M", B1_ROWS)
 def test_ln_gemm_plan_on_the_main_path(M, dtype):
-    bm, bn, cluster = tfb._ln_gemm_plan(M, 1536, 256, dtype)
-    tiles = tfb._GEMM_TILES_F32 if dtype == F32 else tfb._GEMM_TILES
-    assert (bm, bn) in [t_[:2] for t_ in tiles]  # an instantiation the kernel has
-    # the blocks of a row tile share its LayerNorm: the cluster divides the
-    # N tiles and deals the tile's rows out whole, and is as large as that allows
-    n_tiles = -(-1536 // bn)
-    assert cluster in (1, 2, 4, 8) and n_tiles % cluster == 0 and bm % cluster == 0
-    assert cluster == 8 or n_tiles % (2 * cluster)
-    assert tfb._ln_gemm_smem_bytes(bm, bn, 256, dtype) <= tfb.SMEM_LIMIT
+    plan = tfb._ln_gemm_plan(M, 1536, 256, dtype)
+    assert plan in tfb._LN_GEMM_TILES[dtype]  # an instantiation the kernel has
+    bm, bn = plan
+    # a tile never ends past its 512-row weight segment: y goes out by TMA
+    assert 512 % bn == 0
+    # 64x64 tiles while their grid fits the SMs in one wave, else 64x128
+    assert (bn == 64) == (-(-M // 64) * (1536 // 64) <= _cuda.SMS)
+    for x_dtype in (dtype, F32):
+        assert tfb._ln_gemm_smem_bytes(bm, bn, 256, dtype, x_dtype) <= tfb.SMEM_LIMIT
 
 
-LN_PLANS = {(312, F32): (64, 64, 8), (624, F32): (128, 64, 8), (5116, F32): (128, 64, 8),
-            (312, BF16): (64, 64, 8), (624, BF16): (64, 64, 8), (2558, BF16): (128, 128, 4)}
+# what the sweep on the card chose (PERF.md), spelt out
+LN_PLANS = {(M, dt): (64, 64) if M <= 312 else (64, 128) for M in B1_ROWS for dt in (F32, BF16)}
 
 
 @pytest.mark.parametrize("case", sorted(LN_PLANS, key=str), ids=str)
@@ -274,12 +301,192 @@ def test_ln_gemm_plan_choices(case):
     assert tfb._ln_gemm_plan(M, 1536, 256, dtype) == LN_PLANS[case]
 
 
+@pytest.mark.parametrize("x_dtype", [None, F32], ids=["x_weights", "x_f32"])
 @pytest.mark.parametrize("dtype", [F32, BF16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("K", [64, 128, 192, 256])
-def test_every_ln_gemm_tile_fits_shared_memory(K, dtype):
-    tiles = tfb._GEMM_TILES_F32 if dtype == F32 else tfb._GEMM_TILES
-    for bm, bn, _ in tiles:
-        assert tfb._ln_gemm_smem_bytes(bm, bn, K, dtype) <= tfb.SMEM_LIMIT
+def test_every_ln_gemm_tile_fits_shared_memory(K, dtype, x_dtype):
+    es, xs = (torch.finfo(d).bits // 8 for d in (dtype, x_dtype or dtype))
+    for bm, bn in tfb._LN_GEMM_TILES[dtype]:
+        need = tfb._ln_gemm_smem_bytes(bm, bn, K, dtype, x_dtype)
+        assert need <= tfb.SMEM_LIMIT
+        # at least the ring (a hi and, f32, a lo slice a stage) and the x tile
+        ring = tfb._LN_STAGES * bn * tfb._LN_SLICE * (2 if es == 4 else 1)
+        assert need >= ring + bm * K * xs
+        # the epilogue stages the 64 x bn y tile (f32 at most) in the ring
+        assert 64 * bn * 4 <= ring
+
+
+# ---------------------------------------------------------------------------
+# B1's arithmetic in numpy
+# ---------------------------------------------------------------------------
+
+
+def _rna_tf32(x):
+    """cvt.rna.tf32.f32: x rounded to TF32's 10 mantissa bits, ties away
+    from zero (the low 13 bits of the f32 word then zero)."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _bf16(a):
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(BF16).float().numpy()
+
+
+def _chan_stats(x, tx):
+    """Each row's (mean, M2 = sum (x - mean)^2) as csrc/ln_gemm.cu takes
+    them, in f32: thread t of a row's quad holds, in x slice j (128 bytes),
+    the values at 32 j + 4 c + t (f32 x) or 64 j + 8 c + 2 t + e (bf16 x);
+    it sums them about their own mean and merges them into its running
+    (mean, M2) by Chan's rule, then the quad merges in two shuffles (lanes
+    t ^ 1, then t ^ 2), each side holding n values."""
+    f32 = np.float32
+    M, K = x.shape
+    if tx == F32:
+        v = x.reshape(M, K // 32, 8, 4).transpose(0, 1, 3, 2)
+    else:
+        v = x.reshape(M, K // 64, 8, 4, 2).transpose(0, 1, 3, 2, 4).reshape(M, K // 64, 4, 16)
+    vps = v.shape[-1]
+    m = np.zeros((M, 4), f32)
+    m2 = np.zeros((M, 4), f32)
+    for j in range(v.shape[1]):
+        blk = v[:, j]
+        s = np.zeros((M, 4), f32)
+        for e in range(vps):
+            s = s + blk[..., e]
+        bm = s * f32(1.0 / vps)
+        q = np.zeros((M, 4), f32)
+        for e in range(vps):
+            d = blk[..., e] - bm
+            q = _fma(d, d, q)
+        share = f32(1.0) / f32(j + 1)
+        d = bm - m
+        m = _fma(d, share, m)
+        m2 = m2 + _fma(d * d, f32(vps * j) * share, q)
+    n = f32(K // 4)
+    for lanes in (1, 2):
+        om, om2 = m[:, np.arange(4) ^ lanes], m2[:, np.arange(4) ^ lanes]
+        d = om - m
+        m = f32(0.5) * (m + om)
+        m2 = _fma(d * d, f32(0.5) * n, m2 + om2)
+        n = n * f32(2)
+    assert (m == m[:, :1]).all() and (m2 == m2[:, :1]).all()  # the lanes agree
+    return m[:, :1], m2[:, :1]
+
+
+def _fma(a, b, c):
+    """fmaf in f32: the product exact in f64, one rounding of the sum."""
+    return (np.asarray(a, np.float64) * b + c).astype(np.float32)
+
+
+def _ln_gemm_kernel_np(x, w, b, W, dtype, passes=3, eps=1e-5):
+    """y = LN(x) W^T as csrc/ln_gemm.cu computes it, in numpy: the row
+    statistics in f32 merged by Chan's rule (``_chan_stats``), rstd =
+    1 / sqrt(M2 / K + eps); h = fma(fma(x, rstd, -mean rstd), w, b), each
+    fused multiply-add rounded once to f32.  bf16: h rounded to bf16, the
+    product in f32, y rounded to bf16.  f32: 3xTF32 over K slices of 32
+    values: A split hi = rna(h), lo = h - hi read as its top 19 bits; W
+    split by truncation, hi and lo = W - hi; a slice's a_lo W_hi + a_hi
+    W_lo + a_hi W_hi summed in f32 and added to the running sum
+    (``passes=1``: a_hi W_hi alone, single-pass TF32)."""
+    x = np.asarray(x, np.float32)
+    K = x.shape[1]
+    mean, m2 = _chan_stats(x, dtype)
+    rstd = (1.0 / np.sqrt(m2 / np.float32(K) + np.float32(eps))).astype(np.float32)
+    shift = (-mean * rstd).astype(np.float32)
+    h = _fma(_fma(x, rstd, shift), w, b)
+    if dtype == BF16:
+        return _bf16(h @ np.asarray(W, np.float32).T)
+    a_hi = _rna_tf32(h)
+    a_lo = _tf32(h - a_hi)
+    w_hi = _tf32(W)
+    w_lo = _tf32(W - w_hi)
+    acc = np.zeros((x.shape[0], W.shape[0]), np.float32)
+    for k0 in range(0, K, 32):
+        k = slice(k0, k0 + 32)
+        part = a_hi[:, k] @ w_hi[:, k].T
+        if passes == 3:
+            part = (a_lo[:, k] @ w_hi[:, k].T + a_hi[:, k] @ w_lo[:, k].T) + part
+        acc = acc + part
+    return acc
+
+
+def _b1_inputs(seed, dtype, M=312, C=256, N=1536):
+    """x (M, C) with every fifth row at |mean| / std = 24, every seventh
+    at 30 and every eleventh with 50 std added to its column 0
+    (cancellation, or statistics shifted by one of the row's values, would
+    show there), the norm near 1, W ~0.05: numpy f32 rounded to
+    ``dtype``'s values."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((M, C)).astype(np.float32)
+    x[::5] = x[::5] * 0.5 + 12.0
+    x[1::7] = x[1::7] * 0.4 - 12.0
+    x[3::11, 0] += 50.0
+    w = (rng.standard_normal(C) * 0.05 + 1.0).astype(np.float32)
+    b = (rng.standard_normal(C) * 0.05).astype(np.float32)
+    W = (rng.standard_normal((N, C)) * 0.05).astype(np.float32)
+    if dtype == BF16:
+        x, w, b, W = (_bf16(a) for a in (x, w, b, W))
+    return x, w, b, W
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16], ids=["f32", "bf16"])
+def test_ln_gemm_kernel_arithmetic_holds_the_tolerance(dtype):
+    """B1's arithmetic at the main path's 312 x 256 x 1536 against
+    ``ln_gemm_ref`` at chip_smoke's tolerances (f32 1e-4, bf16 1e-2), with
+    rows far from zero mean and rows with an outlier in column 0; f32
+    single-pass TF32 does not hold it."""
+    x, w, b, W = _b1_inputs(15, dtype)
+    tol = 1e-4 if dtype == F32 else 1e-2
+    want = tfb.ln_gemm_ref(*(t(a).to(dtype) for a in (x, w, b)), (t(W).to(dtype),),
+                           out_dtype=F32).numpy()
+    got = _ln_gemm_kernel_np(x, w, b, W, dtype)
+    assert _within(got, want, tol)
+    if dtype == F32:
+        assert not _within(_ln_gemm_kernel_np(x, w, b, W, dtype, passes=1), want, tol)
+        # and the statistics match f64's closely at |mean| / std = 30 and
+        # beside a 50 std outlier
+        f64 = x.astype(np.float64)
+        h64 = (f64 - f64.mean(-1, keepdims=True)) / np.sqrt(f64.var(-1, keepdims=True) + 1e-5)
+        assert _within(_ln_gemm_kernel_np(x, np.ones_like(w), np.zeros_like(b),
+                                          np.eye(256, dtype=np.float32), dtype), h64, 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16], ids=["f32", "bf16"])
+def test_ln_gemm_kernel_arithmetic_in_the_block_matches_pallas(dtype):
+    """The block at the estimator's widths (B = 2, T = 156: 312 rows, 8 x
+    64 heads, FF 1024, a (B, T, T) bias) with B1 taken as the kernel's
+    arithmetic and A, B2 as their plain versions, against the JAX
+    package's Pallas kernel in interpret mode: the tolerances of the
+    three-launch chain test."""
+    x, *_ = _b1_inputs(16, F32)
+    B, T, C, heads, d, ff = 2, 156, 256, 8, 64, 1024
+    rng = np.random.default_rng(17)
+    W = _weights(rng, C, heads * d, ff)
+    bias = np.zeros((B, T, T), np.float32)
+    bias[1, :, -9:] = -1e10
+    jd = jnp.float32 if dtype == F32 else jnp.bfloat16
+    want = j_fused(jnp.asarray(x.reshape(B, T, C), jd), jnp.asarray(bias, jd),
+                   *(jnp.asarray(v, jd) for v in W), heads=heads, scale=d ** -0.5,
+                   interpret=True)
+    want = torch.from_numpy(np.array(want.astype(jnp.float32)))
+
+    def kernel_b1(x2, n1w, n1b, ws):
+        Wc = torch.cat([v.float() for v in ws]).numpy()
+        y = _ln_gemm_kernel_np(x2.float().numpy(), n1w.float().numpy(), n1b.float().numpy(),
+                               Wc, dtype)
+        return torch.from_numpy(y).to(dtype)
+
+    def attend(q, k, v, bias_, scale):
+        return flash_attention_ref(q, k, v, bias_, scale).permute(0, 2, 1, 3)
+
+    tx, tW = t(x.reshape(B, T, C)).to(dtype), [t(v).to(dtype) for v in W]
+    got = tfb._block(tx, t(bias).to(dtype), *tW, heads, d ** -0.5, kernel_b1, attend,
+                     tfb.block_tail_ref)
+    if dtype == F32:
+        assert_close(got, want, **TOL, name="B1 arithmetic vs pallas interpret")
+    else:
+        assert_close(got.float(), want, atol=6e-2, rtol=2e-2,
+                     name="B1 arithmetic vs pallas interpret")
 
 
 # ---------------------------------------------------------------------------
