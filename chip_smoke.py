@@ -15,7 +15,8 @@ Phases, each fatal on failure (nothing is caught and passed over):
      (ops/plan_sweep.py device_ms), which leaves out the waits for the host);
      the block's kernels B1 (ln_gemm) and B2 (block_tail) at 312, 624 and
      5116 rows in f32 and bf16 (B1's x with rows at |mean| / std = 24 and
-     rows with an outlier in column 0; B1 also at 156 rows in bf16, with f32
+     rows with an outlier in column 0, B2's x with rows whose x1 lies at
+     |mean| / std ~10-30 and with an outlier; B1 also at 156 rows in bf16, with f32
      x under bf16 weights and at ragged K and segment rows), the
      block beside the seven-launch chain of
      the kept LayerNorm and GEMM kernels; A, the block, B1 and B2 at the
@@ -264,8 +265,8 @@ from cosy_tpu_torch.ops import _cuda  # noqa: E402
 from cosy_tpu_torch.ops.flash_attention import (_attention_plan,  # noqa: E402
                                                 banded_attention, banded_attention_ref,
                                                 flash_attention, flash_attention_ref)
-from cosy_tpu_torch.ops.fused_block import (_gemm_plan, _ln_gemm_plan,  # noqa: E402
-                                            _tail_plan, block_tail, block_tail_ref,
+from cosy_tpu_torch.ops.fused_block import (_TAIL_PLANS, _gemm_plan,  # noqa: E402
+                                            _ln_gemm_plan, _tail_plan, block_tail, block_tail_ref,
                                             fused_transformer_block,
                                             fused_transformer_block_ref, gemm, gemm_ref,
                                             layer_norm_rows, layer_norm_rows_ref, ln_gemm,
@@ -680,19 +681,34 @@ def ln_gemm_ragged(g):
         "y f32): ok, worst max_abs_err " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
 
 
+def tail_x(g, M, C, dtype):
+    """B2's x: every fifth row shifted to a mean of 12 and every seventh to
+    -20, so that their x1 lies at |mean| / std ~10-30, and every eleventh
+    with 40 added to column 7 (a cancelling LN3 would show)."""
+    x = torch.randn(M, C, device=DEV, generator=g)
+    x[::5] = x[::5] * 0.5 + 12.0
+    x[1::7] = x[1::7] * 0.4 - 20.0
+    x[3::11, 7] += 40.0
+    return x.to(dtype)
+
+
+TAIL_PLANS_RUN = set()  # the B2 plans tail_case held against block_tail_ref
+
+
 def tail_case(g, M, dtype, iters=20, C=256, inner=512, ff=1024, gelu="tanh"):
     """Kernel B2 on the block's shapes against block_tail_ref with the
-    plan's ranks and the same GELU ("tanh" or "erf"); the library yardstick
-    is the unfused sequence F.linear, add, F.layer_norm, F.linear, F.gelu,
-    F.linear, add."""
+    plan's ranks and the same GELU ("tanh" or "erf"), x from ``tail_x``;
+    the library yardstick is the unfused sequence F.linear, add,
+    F.layer_norm, F.linear, F.gelu, F.linear, add."""
     def mk(*shape, scale=0.05, one=False):
         t = torch.randn(*shape, device=DEV, generator=g) * scale
         return (t + 1.0 if one else t).to(dtype)
 
-    a, x = mk(M, inner, scale=1.0), mk(M, C, scale=1.0)
+    a, x = mk(M, inner, scale=1.0), tail_x(g, M, C, dtype)
     W = (mk(C, inner), mk(C), mk(C, one=True), mk(C), mk(ff, C), mk(ff), mk(C, ff), mk(C))
     wo, bo, n3w, n3b, w1, b1, w2, b2 = W
     plan = _tail_plan(M, C, inner, ff, dtype)
+    TAIL_PLANS_RUN.add(plan)
 
     def run():
         return block_tail(a, x, *W, gelu=gelu)
@@ -3779,6 +3795,9 @@ def main():
                    f"{r2['same']}", r2)
             if rows == 2 * 156 and dtype == torch.float32:
                 main_b1, main_b2 = r1, r2
+    # bf16 at 2558 rows: 40 row tiles, the plan no other row count picks
+    r2 = tail_case(g, 2558, torch.bfloat16, iters=10)
+    report(f"B2 block_tail M=2558 bf16 plan {r2['plan']} same bits twice {r2['same']}", r2)
     report("B1 ln_gemm M=312 x f32 under bf16 weights",
            ln_gemm_case(g, 312, torch.bfloat16, x_dtype=torch.float32))
     report("B1 ln_gemm M=156 bf16 (MeanFlow's T/2 level)", ln_gemm_case(g, 156, torch.bfloat16))
@@ -3835,6 +3854,10 @@ def main():
         if T == 75 and dtype == torch.float32:
             cv2_kernels = {"flash_attention": ra, "fused_transformer_block": rb,
                            "ln_gemm": r1, "block_tail": r2}
+    if set(_TAIL_PLANS) - TAIL_PLANS_RUN:
+        raise SystemExit(f"chip_smoke: no case ran the B2 plans "
+                         f"{set(_TAIL_PLANS) - TAIL_PLANS_RUN}")
+    log(f"  B2: every plan held against block_tail_ref: {sorted(TAIL_PLANS_RUN)}")
     same_twice(g)
 
     cfg = ModelConfig()

@@ -1,8 +1,10 @@
 // Hopper's own machinery for the block's products: a ring of shared-memory
 // stages filled by the Tensor Memory Accelerator (TMA), completion reported
 // to mbarriers, and warpgroup products (wgmma.mma_async) that read B from
-// the ring and A from registers.  Kernel B1 (ln_gemm.cu) is built on it;
-// the pieces are kernel-agnostic, so the block tail can take them next.
+// the ring and A from registers; and, for blocks that share work across a
+// thread block cluster, pushes into a peer's shared memory that complete on
+// the peer's own mbarrier.  Kernels B1 (ln_gemm.cu) and B2 (block_tail.cu)
+// are built on it; the pieces are kernel-agnostic.
 //
 //   TmaRing<STAGES>: one producer thread issues the copies of stream slice i
 //     into stage i % STAGES (acquire: the stage's consumers have released
@@ -15,6 +17,16 @@
 //     chunk c ^ (r % 8)).  cuTensorMapEncodeTiled is reached through
 //     cudaGetDriverEntryPoint, so the library needs no -lcuda.  Rows past
 //     the tensor's end land as zeros, and count in the expected bytes.
+//   Pushes: bulk_push copies bytes of this block's shared memory into block
+//     `rank` of the cluster (cp.async.bulk, addresses from mapa) and reports
+//     them to that block's mbarrier (complete_tx), which the receiver alone
+//     waits on (mbar_wait_cluster: acquire at cluster scope); the sender
+//     learns of it only through the receiver (its source stays in place and
+//     the block stays resident until the receiver says so, for instance at
+//     a cluster barrier after its wait).  mbar_arrive_remote is an
+//     arrival without data on a peer's barrier.  A block may push or arrive
+//     remotely only after cluster_wait() of the cluster barrier that follows
+//     the barriers' initialisation (cluster_arrive() after init).
 //   Wgmma<T, N>::rs: D (64 x N, f32) += A (64 x k, registers) B (k x N,
 //     shared, K-major, 128-byte swizzle); k is 8 TF32 values (f32 words,
 //     of which the tensor cores read the top 19 bits) or 16 bf16 values.
@@ -78,6 +90,61 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(smem_u32(bar)), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// the same wait with acquire at cluster scope: for a phase that peers'
+// pushes or remote arrivals complete
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+#ifdef COSY_WAIT_LIMIT
+  long long polls = 0;
+#endif
+  do {
+#ifdef COSY_WAIT_LIMIT
+    if (++polls > COSY_WAIT_LIMIT) __trap();
+#endif
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// ---------------------------------------------------------------------------
+// clusters: the split cluster barrier, pushes into a peer's shared memory
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+// the shared::cluster address of p (this block's shared memory) in block `rank`
+__device__ __forceinline__ uint32_t mapa(const void* p, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(smem_u32(p)), "r"(rank));
+  return out;
+}
+// `bytes` (a multiple of 16) from src in this block to dst in block `rank`
+// (both 16-byte aligned, dst and bar given as this block's addresses of the
+// same layout), completion reported to that block's barrier `bar`
+__device__ __forceinline__ void bulk_push(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar, int rank) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(mapa(dst, rank)),
+      "r"(smem_u32(src)), "r"(bytes), "r"(mapa(bar, rank))
+      : "memory");
+}
+// one arrival, released at cluster scope, on barrier `bar` of block `rank`
+__device__ __forceinline__ void mbar_arrive_remote(uint64_t* bar, int rank) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+                   mapa(bar, rank))
+               : "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -192,8 +259,10 @@ __device__ __forceinline__ void fence_operands(V (&d)[R][N]) {
 #define COSY_D8(i)                                                                       \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),            \
       "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define COSY_D32 COSY_D8(0), COSY_D8(8), COSY_D8(16), COSY_D8(24)
+#define COSY_D16 COSY_D8(0), COSY_D8(8)
+#define COSY_D32 COSY_D16, COSY_D8(16), COSY_D8(24)
 #define COSY_D64 COSY_D32, COSY_D8(32), COSY_D8(40), COSY_D8(48), COSY_D8(56)
+#define COSY_R16 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
 #define COSY_R32                                                                          \
   "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
   "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
@@ -212,6 +281,14 @@ template <typename T, int N>
 struct Wgmma;
 
 template <>
+struct Wgmma<float, 32> {
+  static __device__ __forceinline__ void rs(float (&d)[16], const uint32_t (&a)[4],
+                                            uint64_t desc, int scale_d) {
+    COSY_WGMMA_RS("wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32", COSY_R16, "%16",
+                  "%17", "%18", "%19", "%20", "%21", "1, 1", COSY_D16);
+  }
+};
+template <>
 struct Wgmma<float, 64> {
   static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4],
                                             uint64_t desc, int scale_d) {
@@ -225,6 +302,14 @@ struct Wgmma<float, 128> {
                                             uint64_t desc, int scale_d) {
     COSY_WGMMA_RS("wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32", COSY_R64, "%64",
                   "%65", "%66", "%67", "%68", "%69", "1, 1", COSY_D64);
+  }
+};
+template <>
+struct Wgmma<__nv_bfloat16, 32> {
+  static __device__ __forceinline__ void rs(float (&d)[16], const uint32_t (&a)[4],
+                                            uint64_t desc, int scale_d) {
+    COSY_WGMMA_RS("wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16", COSY_R16, "%16",
+                  "%17", "%18", "%19", "%20", "%21", "1, 1, 0", COSY_D16);
   }
 };
 template <>
@@ -247,8 +332,10 @@ struct Wgmma<__nv_bfloat16, 128> {
 #undef COSY_WGMMA_RS
 #undef COSY_R64
 #undef COSY_R32
+#undef COSY_R16
 #undef COSY_D64
 #undef COSY_D32
+#undef COSY_D16
 #undef COSY_D8
 
 // ---------------------------------------------------------------------------

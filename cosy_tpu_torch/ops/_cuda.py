@@ -30,8 +30,11 @@ from ..utils import aot
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("flash_attention.cu", "fused_block.cu", "ln_gemm.cu", "block_tail.cu")
+# --split-compile=0: each nvcc spreads its optimizer and ptxas over the
+# free cores (chip_smoke.py's four builds on an H100 machine: 50.4 s, 23.0 s
+# split; block_tail.cu's ten kernels are the longest)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--split-compile=0")
 
 SMS = 132  # streaming multiprocessors of an H100: what the kernels' plans fill
 

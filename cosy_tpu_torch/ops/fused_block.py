@@ -7,7 +7,9 @@ launches of hand-written kernels:
     B1 ``ln_gemm``: LN1 folded into the QKV product (``csrc/ln_gemm.cu``)
     -> kernel A ``flash_attention`` (``csrc/flash_attention.cu``)
     -> B2 ``block_tail``: out-proj (+bo, +x, f32 x1) -> LN3 -> FF1 (+b1,
-       GELU) -> FF2 (+b2, +x1) in one cluster kernel (``csrc/block_tail.cu``)
+       GELU) -> FF2 (+b2, +x1) in one kernel on ``wgmma`` fed by TMA, the FF
+       hidden split over a cluster where row tiles alone leave SMs idle
+       (``csrc/block_tail.cu``)
 
 rounding to the compute dtype (x's dtype) at the Pallas kernel's points;
 x1 stays f32 and the FF hidden never reaches device memory.  The plans
@@ -213,7 +215,6 @@ gemm.launches = 0
 
 LN_MAX_K = 256  # the whole x tile stays in shared memory (csrc/ln_gemm.cu kLnMaxK)
 SMEM_LIMIT = 232_448  # bytes of shared memory a block may have on an H100
-_ROW_BYTES = 144  # a 128-byte K slice row, padded (csrc/mma.cuh kRowBytes)
 # (block_m, block_n) instantiations of csrc/ln_gemm.cu: 64 rows, one
 # consumer warpgroup, the whole N tile; f32 holds a slice's partial sums
 # beside its running sums (3xTF32, kPromote) and its W stages twice (hi, lo)
@@ -319,72 +320,71 @@ ln_gemm.launches = 0
 
 
 TAIL_C = 256  # the block width the tail kernel is instantiated for
-# (block_m, cluster, hidden sub-tile) instantiations of csrc/block_tail.cu
-_TAIL_PLANS = ((32, 4, 64), (32, 8, 64), (32, 8, 128), (64, 4, 64), (64, 4, 128),
-               (64, 8, 64), (64, 8, 128))
+# (block_m, cluster, hidden sub-tile) instantiations of csrc/block_tail.cu:
+# 64-row tiles (one wgmma tile), R ranks of a cluster along the FF hidden
+# (R = 1: no cluster; R = 16: a non-portable cluster whose ranks pair up on
+# 8 chunks of x1 columns), sub-tiles of 128 hidden columns (64 at R = 16)
+_TAIL_PLANS = ((64, 1, 128), (64, 2, 128), (64, 4, 128), (64, 8, 128), (64, 16, 64))
+# row tiles for which R = 16 stays fastest: 7 clusters of 16 run at once on
+# an H100, an 8th waits for a second wave (plan_sweep: 440 rows 0.0305 ms,
+# 500 rows 0.0598 at R = 16 against 0.0453 at R = 8, f32)
+_TAIL_MAX_CLUSTERS_16 = 7
+# the ring's stages (csrc/block_tail.cu TailSmem): 64 W rows (or a's 64
+# rows) of a 128-byte K slice, f32 with their 3xTF32 lo beside them
+_TAIL_STAGES = {torch.float32: 6, torch.bfloat16: 12}
+_TAIL_W_ROWS = 64
 
 
-def _tail_smem_bytes(block_m: int, cluster: int, sub: int, dtype, C: int = TAIL_C) -> int:
+def _tail_smem_bytes(block_m: int, dtype, C: int = TAIL_C) -> int:
     """Shared memory of one tail plan (``csrc/block_tail.cu`` ``TailSmem``):
-    h2 (T) with the partial tiles (f32) over it, the rank's x1 columns
-    (f32), the f sub-tile (T) and the ring of the slice stream, whose stage
-    holds the out-projection's A rows and C rows of Wo: three stages, or two
-    where three would pass ``SMEM_LIMIT``."""
-    es = torch.finfo(dtype).bits // 8
-    epc = 16 // es
-    red = max(block_m * (C + epc) * es, block_m * (C + 4) * 4)
-    x1 = block_m * (C // cluster + 4) * 4
-    f = block_m * (sub + epc) * es
-    base, stage = red + x1 + f, (block_m + C) * _ROW_BYTES
-    return base + (3 if base + 3 * stage <= SMEM_LIMIT else 2) * stage
+    1024 bytes of alignment slack, the ring (a stage holds 64 rows of a
+    128-byte K slice, twice in f32: hi and lo), the f32 x1 tile of block_m
+    rows and the f32 FF2 sum of its shape (x's columns land there first),
+    and the barriers (three a stage: landed, split, released; five for x
+    and the exchanges).  The same for every cluster and sub-tile: the
+    exchanges reuse the x1 tile and the FF2 sum."""
+    stage = _TAIL_W_ROWS * _LN_SLICE * (2 if dtype == torch.float32 else 1)
+    stages = _TAIL_STAGES[dtype]
+    return 1024 + stages * stage + 2 * block_m * C * 4 + (3 * stages + 5) * 8
 
 
 @functools.lru_cache(maxsize=None)
 def _tail_plan(M: int, C: int, inner: int, F: int, dtype=torch.float32):
-    """(block_m, cluster, sub-tile) of kernel B2: the first of 32-row tiles
-    in clusters of 8, then 64-row tiles in clusters of 8, whose grid fits
-    the SMs in one wave (a plan takes one block an SM); past that 64-row
-    tiles in clusters of 4, but in f32, whose 3xTF32 products gain from more
-    blocks, clusters of 8 up to 2.5 waves; the hidden sub-tile 128.  The
-    rule follows the sweep of ``python -m cosy_tpu_torch.ops.plan_sweep`` on
-    the card (PERF.md).  A pure function of shape and type: it is passed to
-    the kernel, and is no caller's option."""
-    del C, inner  # one rule for the instantiated width
-    cdiv, sms = _cuda.cdiv, _cuda.SMS
-    for bm, cluster in ((32, 8), (64, 8)):
-        if cdiv(M, bm) * cluster <= sms:
-            return bm, cluster, 128
-    if dtype == torch.float32 and cdiv(M, 64) * 8 <= 2.5 * sms:
+    """(block_m, cluster, sub-tile) of kernel B2: 64-row tiles, the FF
+    hidden split over R ranks: 16 while the clusters of 16 run at once (up
+    to 7 row tiles), 8 while row tiles x 8 blocks (one an SM) fit the SMs
+    in one wave.  Past that f32, whose 3xTF32 products gain from more
+    blocks, keeps 8 up to 2.5 waves, then 4; bf16 takes 2 in one wave, then
+    R = 1 (no cluster, no exchange).  The rule follows the sweep of ``python -m
+    cosy_tpu_torch.ops.plan_sweep`` on the card (PERF.md).  A pure function
+    of shape and type: it is passed to the kernel, and is no caller's
+    option."""
+    del C, inner, F  # one rule for the instantiated widths
+    tiles, sms = _cuda.cdiv(M, 64), _cuda.SMS
+    if tiles <= _TAIL_MAX_CLUSTERS_16:
+        return 64, 16, 64
+    if tiles * 8 <= sms or (dtype == torch.float32 and tiles * 8 <= 2.5 * sms):
         return 64, 8, 128
-    return 64, 4, 128
+    if dtype == torch.float32:
+        return 64, 4, 128
+    return (64, 2, 128) if tiles * 2 <= sms else (64, 1, 128)
 
 
 def block_tail_ref(a, x, wo, bo, n3w, n3b, w1, b1, w2, b2, eps: float = 1e-5,
                    gelu: Optional[str] = "tanh", ranks: int = 1) -> torch.Tensor:
     """Plain version of B2, with the kernel's rounding points and splits:
-    ``x1 = x + (a Wo^T + bo)`` in f32, the product the f32 sum in rank
-    order of ``ranks`` partial products over equal K ranges of ``a``;
-    ``h2 = LN3(x1)`` rounded to the compute dtype (x's); the FF hidden
-    columns cut into ``ranks`` equal chunks, each ``f_r = gelu(h2 W1_r^T +
-    b1_r)`` rounded to the compute dtype and its partial ``f_r W2[:, r]^T``
-    in f32; the partials summed in rank order, then ``y = x1 + (sum + b2)``
-    cast to x's dtype."""
+    ``x1 = x + (a Wo^T + bo)`` in f32 (a rank owns whole x1 columns over all
+    of K, or at 16 ranks a pair owns them over two halves of K, summed in
+    order: within f32 roundings of the unsplit product); ``h2 = LN3(x1)`` rounded to the compute
+    dtype (x's); the FF hidden columns cut into ``ranks`` equal chunks, each
+    ``f_r = gelu(h2 W1_r^T + b1_r)`` rounded to the compute dtype and its
+    partial ``f_r W2[:, r]^T`` in f32; the partials summed in rank order,
+    then ``y = x1 + (sum + b2)`` cast to x's dtype."""
     cd = x.dtype
-    inner, F_ = a.shape[1], w1.shape[0]
-    if inner % ranks or F_ % ranks:
-        raise ValueError(f"block_tail_ref: {ranks} ranks do not divide inner {inner} "
-                         f"and the FF width {F_}")
-
-    def rank_sum(lhs, rhs):
-        """sum over r in order of lhs[:, K_r] rhs[:, K_r]^T, f32"""
-        per = lhs.shape[1] // ranks
-        out = torch.zeros((lhs.shape[0], rhs.shape[0]), dtype=torch.float32, device=x.device)
-        for r in range(ranks):
-            k = slice(r * per, (r + 1) * per)
-            out = out + lhs[:, k].float() @ rhs[:, k].float().t()
-        return out
-
-    x1 = x.float() + (rank_sum(a, wo) + bo.float())
+    F_ = w1.shape[0]
+    if F_ % ranks:
+        raise ValueError(f"block_tail_ref: {ranks} ranks do not divide the FF width {F_}")
+    x1 = x.float() + (a.float() @ wo.float().t() + bo.float())
     h2 = layer_norm_rows_ref(x1, n3w, n3b, cd, eps)
     per = F_ // ranks
     ff = torch.zeros(x1.shape, dtype=torch.float32, device=x.device)
@@ -398,7 +398,8 @@ def block_tail_ref(a, x, wo, bo, n3w, n3b, w1, b1, w2, b2, eps: float = 1e-5,
 def block_tail(a, x, wo, bo, n3w, n3b, w1, b1, w2, b2, eps: float = 1e-5,
                gelu: str = "tanh") -> torch.Tensor:
     """``y (M, C)`` = the block after attention (out-projection with its
-    residual, LN3, FF1 with GELU, FF2 with its residual) in one launch.
+    residual, LN3, FF1 with GELU, FF2 with its residual) in one launch:
+    64-row tiles, each split over the ranks of ``_tail_plan``'s cluster.
     ``gelu`` is "tanh" (the approximation) or "erf" (exact).  ``a``
     (M, inner) and ``x`` (M, C) and every weight share one dtype, the
     compute dtype; C = 256.  CPU tensors run ``block_tail_ref``."""
@@ -440,9 +441,9 @@ def check_tail_args(a, x, wo, bo, n3w, n3b, w1, b1, w2, b2):
         if tuple(t.shape) != shape:
             raise ValueError(f"block_tail: {name} must be {shape}, got {tuple(t.shape)}")
     plan = _tail_plan(M, C, inner, F_, x.dtype)
-    if inner % (8 * plan[1]):
-        raise ValueError(f"block_tail: inner {inner} is not a multiple of 8 x {plan[1]} ranks "
-                         "(16-byte copies of each rank's K range)")
+    if inner % 128:
+        raise ValueError(f"block_tail: inner {inner} is not a multiple of 128 (two halves of "
+                         "the kernel's 128-byte K slices of a and Wo in either type)")
     if F_ % (plan[1] * plan[2]):
         raise ValueError(f"block_tail: the FF width {F_} is not a multiple of "
                          f"{plan[1]} ranks x {plan[2]}")

@@ -13,9 +13,13 @@ block 0, the microseconds from the kernel's first phase to each later one
         stage landed, 14 slice 2's products issued, 15 slice 3 landed, split
         and its fragments built, 16 slice 2's products done, 12 mainloop
         done, 13 end (y stored)
-    B2: 0 start, 1 out-projection, 2 barrier, 3 x1 reduced, 4 LN3,
-        5 FF1 (first sub-tile), 6 FF2 (first sub-tile), 7 partial tiles
-        exchanged, 8 end
+    B2: 0 start, 1 first stage landed (a and Wo of the out-projection's
+        first slice, its fragments built), 2 out-projection done, 3 x1
+        gathered (at R = 16 the pair's halves of K summed; the rank's
+        columns written and pushed, every peer's landed), 4 FF1 of the
+        first sub-tile done, 5 FF2 done (the last sub-tile; its chunks
+        pushed quarter by quarter), 6 FF2 partials received (every peer's
+        landed), 7 end (y stored, the cluster's last barrier)
 
 Needs a CUDA device; prints the card's name and power limit first.
 """
@@ -33,7 +37,7 @@ from .fused_block import _ln_gemm_plan, _tail_plan
 
 ROWS = (312, 624, 5116)
 B1_PHASES = (10, 17, 11, 14, 15, 16, 12, 13)
-B2_PHASES = tuple(range(9))
+B2_PHASES = tuple(range(8))
 
 
 def _trace_libraries():
@@ -99,11 +103,10 @@ def main():
             ts = (mk(M, inner, scale=1.0), x, mk(C, inner), mk(C), mk(C), mk(C), mk(F, C), mk(F),
                   mk(C, F), mk(C), torch.empty(M, C, device=dev, dtype=dtype))
             plan = _tail_plan(M, C, inner, F, dtype)
-            print(f"B2 {str(dtype)[6:]} M={M} plan {plan} us: " + _phases(b2, lambda: _cuda.check(
-                b2.cosy_block_tail(codes[dtype], *(t.data_ptr() for t in ts), M, C, inner, F,
-                                   1e-5, 1, *plan, _cuda.stream_ptr(x)), "block_tail"),
-                                         B2_PHASES),
-                  flush=True)
+            print(f"B2 {str(dtype)[6:]} M={M} plan {plan} us: " + _phases(
+                b2, lambda: _cuda.check(b2.cosy_block_tail(
+                    codes[dtype], *(t.data_ptr() for t in ts), M, C, inner, F, 1e-5, 1,
+                    *plan, _cuda.stream_ptr(x)), "block_tail"), B2_PHASES), flush=True)
 
 
 if __name__ == "__main__":

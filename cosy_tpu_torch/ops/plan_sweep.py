@@ -6,9 +6,12 @@ At the main path's row counts, in f32 and bf16, every plan the kernels take
 is launched directly through the C entry points and timed (device time of
 the kernel by torch.profiler, mean of 10 launches): kernel B1 (LN1 and the
 QKV product, every tile, at 150 and 156 rows as well; its lines end with
-the time of ``F.layer_norm`` + ``F.linear`` on the same inputs), kernel B2 (the
-block tail, every (block_m, cluster, sub-tile)), the GEMM's four products
-and kernel A at the path's attention shapes.  Each line names the choice of
+the time of ``F.layer_norm`` + ``F.linear`` on the same inputs), kernel B2
+(the block tail, every (block_m, cluster, sub-tile), at 150, 156 and from
+6 to 9 row tiles of 64 as well; its lines end with the time of the unfused
+sequence ``F.linear``, add, ``F.layer_norm``, ``F.linear``, ``F.gelu``,
+``F.linear``, add on the same inputs), the GEMM's four products and kernel
+A at the path's attention shapes.  Each line names the choice of
 ``_ln_gemm_plan`` / ``_tail_plan`` / ``_gemm_plan`` / ``_attention_plan``
 with its time and then the four fastest choices, as ``(plan; blocks): ms``.
 The plans' rules were fitted to this output (PERF.md); rerun it after a
@@ -33,6 +36,9 @@ PRODUCTS = {"QKV": (1536, 256), "out-proj": (256, 512), "FF1": (1024, 256),
             "FF2": (256, 1024)}
 ROWS = (312, 624, 2558, 5116)
 B1_ROWS = (150, 156) + ROWS  # CosyVoice2's and MeanFlow's T/2 levels first
+# B2 also at 6-9 row tiles of 64, where clusters of 16 stop fitting the card
+# at once: the streaming levels 412 and 440, the distillation teacher's 500
+TAIL_ROWS = (150, 156, 312, 384, 412, 440, 500, 576) + ROWS[1:]
 ATTENTION = ((156, 156), (312, 312), (1279, 1279), (2580, 2580), (128, 8320))
 
 
@@ -129,29 +135,38 @@ def sweep_ln_gemm(dev, gen):
 
 
 def sweep_tail(dev, gen):
-    """Kernel B2 at C = 256, inner 512, FF 1024."""
+    """Kernel B2 at C = 256, inner 512, FF 1024: every plan, and the
+    unfused sequence of library calls on the same inputs."""
     fn = _cuda.function("cosy_block_tail")
     codes = _cuda.DTYPE_CODE
-    C, inner, F = 256, 512, 1024
+    C, inner, F_ = 256, 512, 1024
     for dtype in (torch.float32, torch.bfloat16):
-        for M in ROWS:
+        for M in TAIL_ROWS:
             def mk(*shape):
                 return (torch.randn(*shape, device=dev, generator=gen) * 0.05).to(dtype)
 
             a, x = mk(M, inner), mk(M, C)
-            ts = (a, x, mk(C, inner), mk(C), mk(C), mk(C), mk(F, C), mk(F), mk(C, F), mk(C),
+            ts = (a, x, mk(C, inner), mk(C), mk(C), mk(C), mk(F_, C), mk(F_), mk(C, F_), mk(C),
                   torch.empty(M, C, device=dev, dtype=dtype))
+            wo, bo, n3w, n3b, w1, b1, w2, b2 = ts[2:10]
             results = []
             for bm, cluster, sub in _TAIL_PLANS:
                 def run():
-                    _cuda.check(fn(codes[dtype], *(t.data_ptr() for t in ts), M, C, inner, F,
+                    _cuda.check(fn(codes[dtype], *(t.data_ptr() for t in ts), M, C, inner, F_,
                                    1e-5, 1, bm, cluster, sub, _cuda.stream_ptr(x)),
                                 "block_tail")
 
                 results.append((device_ms(run), (bm, cluster, sub),
                                 _cuda.cdiv(M, bm) * cluster))
-            _line(f"block_tail {str(dtype)[6:]} M={M}", _tail_plan(M, C, inner, F, dtype),
-                  results)
+
+            def unfused():
+                x1 = x.float() + F.linear(a, wo, bo)
+                f = F.gelu(F.linear(F.layer_norm(x1.to(dtype), (C,), n3w, n3b, 1e-5), w1, b1),
+                           approximate="tanh")
+                return (x1 + F.linear(f, w2, b2)).to(dtype)
+
+            _line(f"block_tail {str(dtype)[6:]} M={M}", _tail_plan(M, C, inner, F_, dtype),
+                  results, ("unfused", device_ms(unfused)))
 
 
 def sweep_attention(dev, gen):

@@ -6,11 +6,15 @@ CPU run can hold of it.
   mode and against the seven-launch chain of plain LayerNorm and GEMM
   versions it replaced, with and without a (B, T, T) bias: 2e-5 in f32, one
   bf16 rounding step in bf16;
-- the tail's splits in its plain version (the out-projection over K and
-  the FF hidden over 1, 4 and 8 ranks) against the unsplit sums, 2e-5;
+- the tail's split in its plain version (the FF hidden over the 1, 2, 4
+  and 8 ranks of B2's plans, the partials summed in rank order; the
+  out-projection unsplit) against the unsplit sums, 2e-5, on rows whose x1
+  lies far from zero mean or holds an outlier;
 - the plans (``_ln_gemm_plan``, ``_tail_plan``) at the main path's shapes,
-  the tiles ``csrc/ln_gemm.cu`` dispatches, and the shared-memory budget
-  of every plan the kernels have against the 227 KB a block may use;
+  the tiles and plans ``csrc/ln_gemm.cu`` and ``csrc/block_tail.cu``
+  dispatch (B1 without a cluster; B2's R = 1 plan without one, and no pull
+  read of a peer's memory), and the shared-memory budget of every plan the
+  kernels have against the 227 KB a block may use;
 - a numpy emulation of B1's arithmetic (statistics merged by Chan's rule
   slice by slice and across the quad, the operand normalised by two fused
   multiply-adds, 3xTF32 with the kernel's split rules and per-slice partial
@@ -18,8 +22,10 @@ CPU run can hold of it.
   with an outlier in column 0: inside ``ln_gemm_ref``'s tolerances and,
   through the plain chain, the Pallas kernel's;
 - a numpy emulation of 3xTF32 (mantissa cut to 10 bits, three products, f32
-  sums in the tail's split order) through the whole tail at the estimator's
-  widths: inside the f32 tolerance where single-pass TF32 is not;
+  sums in the tail kernel's order: the out-projection's chains of 256 of K,
+  LN3's statistics by Chan's rule, the FF partials in rank order) through
+  the whole tail at the estimator's widths for every R of B2's plans:
+  inside the f32 tolerance where single-pass TF32 is not;
 - the wrappers' refusals, of inputs that require a gradient among them.
 
 The kernels themselves run only on the card, where ``chip_smoke.py`` holds
@@ -144,17 +150,32 @@ def test_chain_of_kernel_plain_versions_in_their_split_order(with_bias):
 # ---------------------------------------------------------------------------
 
 
+def _tail_x(rng, M, C):
+    """The tail's x: every fifth row shifted to a mean of 12 and every
+    seventh to -20, so that their x1 sits at |mean| / std of ~10-30, and every
+    eleventh with 40 added to column 7 (a cancelling LN3, or statistics
+    shifted by one of the row's values, would show there)."""
+    x = rng.standard_normal((M, C)).astype(np.float32)
+    x[::5] = x[::5] * 0.5 + 12.0
+    x[1::7] = x[1::7] * 0.4 - 20.0
+    x[3::11, 7] += 40.0
+    return x
+
+
 def _tail_inputs(seed, M, C, inner, ff, dtype=F32):
     rng = np.random.default_rng(seed)
     W = _weights(rng, C, inner, ff)
     a = rng.standard_normal((M, inner)).astype(np.float32)
-    x = rng.standard_normal((M, C)).astype(np.float32)
+    x = _tail_x(rng, M, C)
     # wo, bo, n3w, n3b, w1, b1, w2, b2
     tail = [W[i] for i in (5, 6, 7, 8, 9, 10, 11, 12)]
     return [t(v).to(dtype) for v in [a, x] + tail]
 
 
-@pytest.mark.parametrize("ranks", [1, 4, 8])
+TAIL_RANKS = sorted({plan[1] for plan in tfb._TAIL_PLANS})  # 1, 2, 4, 8, 16
+
+
+@pytest.mark.parametrize("ranks", TAIL_RANKS)
 @pytest.mark.parametrize("widths", [(32, 32, 64), (256, 512, 1024)], ids=["small", "estimator"])
 def test_block_tail_ref_ranks_equal_the_unsplit_sum(widths, ranks):
     C, inner, ff = widths
@@ -170,7 +191,7 @@ def test_block_tail_ref_ranks_equal_the_unsplit_sum(widths, ranks):
         assert torch.equal(got, tfb.block_tail(*args))  # the CPU wrapper
 
 
-@pytest.mark.parametrize("ranks", [4, 8])
+@pytest.mark.parametrize("ranks", TAIL_RANKS[1:])
 def test_block_tail_ref_bf16_rounds_where_the_kernel_rounds(ranks):
     """bf16: h2 and f rounded to bf16, x1 and the sums f32, y rounded once;
     the split order moves y by at most one bf16 step."""
@@ -212,45 +233,80 @@ MAIN_ROWS = [312, 624, 2558, 5116]  # B*T at T = 156, 312, 1279, 2558
 
 
 def test_tail_plans_are_the_kernels_instantiations():
-    """_TAIL_PLANS names exactly the plans csrc/block_tail.cu instantiates,
-    and the budget's limit is the source's."""
+    """_TAIL_PLANS names exactly the plans csrc/block_tail.cu dispatches,
+    the budget's constants are the source's, and the kernel is the Hopper
+    one: products on wgmma from TMA stages, no mma.sync and no cp.async
+    ring, exchanges by pushes that complete on the receiver's mbarrier (no
+    pull read of a peer's memory, no cluster.sync()), and a launch that
+    sets the cluster attribute only for R > 1."""
     src = (CSRC / "block_tail.cu").read_text()
+    dispatch = src[src.index("cudaError_t dispatch_tail("):src.index("#undef COSY_TAIL")]
     built = {tuple(int(v) for v in m) for m in
-             re.findall(r"COSY_TAIL\((\d+), (\d+), (\d+)\)\n", src)}
+             re.findall(r"COSY_TAIL\((\d+), (\d+), (\d+)\)\n", dispatch)}
     assert built == set(tfb._TAIL_PLANS)
-    assert f"kSmemLimit = {tfb.SMEM_LIMIT};" in src
-    assert f"kC = {tfb.TAIL_C};" in src
+    for const in (f"kSmemLimit = {tfb.SMEM_LIMIT};", f"kC = {tfb.TAIL_C};", "kBM = 64;",
+                  "kFS = 128;", "kFH = 64;", f"kWRows = {tfb._TAIL_W_ROWS};",
+                  "e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);",
+                  f"kSlice = {tfb._LN_SLICE};",
+                  "kStages = kF32 ? {} : {};".format(tfb._TAIL_STAGES[F32],
+                                                      tfb._TAIL_STAGES[BF16])):
+        assert const in src
+    assert {bm for bm, _, _ in tfb._TAIL_PLANS} == {64}
+    assert all(sub == (64 if cluster == 16 else 128) for _, cluster, sub in tfb._TAIL_PLANS)
+    launch = src[src.index("cudaError_t launch_tail("):src.index("cudaError_t dispatch_tail(")]
+    assert src.count("cudaLaunchAttributeClusterDimension") == 1
+    gated = launch[launch.index("if constexpr (R > 1) {  // R = 1: no cluster attribute"):]
+    assert "cudaLaunchAttributeClusterDimension" in gated[:gated.index("}")]
+    for gone in ("mma.sync", "slice_product", "stream_slices", "cp_async", "cluster.sync",
+                 "map_shared_rank", "cooperative_groups", "Mma<"):
+        assert gone not in src
+    for used in ("Wgmma<T, ", "TmaRing<", "tma_load_2d(", "bulk_push(", "mbar_arrive_remote(",
+                 "mbar_wait_cluster(", "fence_proxy_async()"):
+        assert used in src
+    wg = (CSRC / "wgmma.cuh").read_text()
+    assert "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes" in wg
+    assert "mbarrier.arrive.release.cluster.shared::cluster" in wg
 
 
 @pytest.mark.parametrize("dtype", [F32, BF16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("plan", tfb._TAIL_PLANS, ids=str)
 def test_every_tail_plan_fits_shared_memory(plan, dtype):
     bm, cluster, sub = plan
-    need = tfb._tail_smem_bytes(bm, cluster, sub, dtype)
+    need = tfb._tail_smem_bytes(bm, dtype)
     assert need <= tfb.SMEM_LIMIT
-    # at least the two-stage ring of the stream's largest slice
-    assert need >= (bm + tfb.TAIL_C) * 2 * 144 + bm * (tfb.TAIL_C + 4) * 4
-    assert bm % 16 == 0 and cluster in (4, 8) and tfb.TAIL_C % (32 * cluster) == 0
+    # at least the ring, the f32 x1 tile and the f32 FF2 sum of its shape
+    # (the pushed FF2 partials go out of the sum and land in the other
+    # ranks' x1 columns: whole 128-byte slices of 32 f32 columns a rank)
+    ring = tfb._TAIL_STAGES[dtype] * tfb._TAIL_W_ROWS * 128 * (2 if dtype == F32 else 1)
+    x1 = bm * tfb.TAIL_C * 4
+    assert need >= ring + 2 * x1
+    # a stage holds a's 64 rows, and every W item (64 rows, and its lo)
+    assert tfb._TAIL_W_ROWS == bm
+    assert bm == 64 and sub == (64 if cluster == 16 else 128) and cluster in (1, 2, 4, 8, 16)
+    assert tfb.TAIL_C % (32 * min(cluster, 8)) == 0  # chunks of whole 32-column slices
 
 
 # what the sweep on the card chose (PERF.md), spelt out
-TAIL_PLANS = {312: (32, 8, 128), 624: (64, 8, 128), (2558, F32): (64, 8, 128),
-              (2558, BF16): (64, 4, 128), 5116: (64, 4, 128)}
+TAIL_PLANS = {150: (64, 16, 64), 156: (64, 16, 64), 312: (64, 16, 64), 440: (64, 16, 64),
+              500: (64, 8, 128), 624: (64, 8, 128),
+              (2558, F32): (64, 8, 128), (2558, BF16): (64, 2, 128),
+              (5116, F32): (64, 4, 128), (5116, BF16): (64, 1, 128)}
 
 
 @pytest.mark.parametrize("dtype", [F32, BF16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("M", MAIN_ROWS)
+@pytest.mark.parametrize("M", [150, 156, 440, 500] + MAIN_ROWS)
 def test_tail_plan_on_the_main_path(M, dtype):
     bm, cluster, sub = tfb._tail_plan(M, 256, 512, 1024, dtype)
     assert (bm, cluster, sub) == TAIL_PLANS.get(M, TAIL_PLANS.get((M, dtype)))
     assert (bm, cluster, sub) in tfb._TAIL_PLANS
-    assert 1024 % (cluster * sub) == 0 and 512 % (8 * cluster) == 0
+    assert 1024 % (cluster * sub) == 0 and 512 % 128 == 0
     blocks = -(-M // bm) * cluster
-    # one wave (a plan holds one block an SM) wherever a plan gives one;
-    # past that f32 takes up to 2.5 waves of clusters of 8
-    assert blocks <= _cuda.SMS or -(-M // 64) * 8 > _cuda.SMS
-    if blocks > _cuda.SMS and cluster == 8:
-        assert dtype == F32 and blocks <= 2.5 * _cuda.SMS
+    # bf16: a split in one wave where row tiles alone leave SMs idle, none
+    # at 5116 rows (80 row tiles: no cluster, no exchange); f32's 3xTF32
+    # products take more blocks, up to 2.5 waves
+    tiles = -(-M // 64)
+    assert blocks <= (_cuda.SMS if dtype == BF16 else 2.5 * _cuda.SMS)
+    assert (cluster == 1) == (dtype == BF16 and tiles * 2 > _cuda.SMS)
 
 
 B1_ROWS = [150, 156, 312, 624, 2558, 5116]  # CosyVoice2's and MeanFlow's T/2 levels, MAIN_ROWS
@@ -495,43 +551,64 @@ def test_ln_gemm_kernel_arithmetic_in_the_block_matches_pallas(dtype):
 
 
 def _tail_np(a, x, W, ranks, mm):
-    """The tail in numpy with every product through ``mm`` in the kernel's
-    split order: out-projection partials over K ranges, FF hidden chunks,
-    partial sums in rank order (f32); LayerNorm and GELU in f32."""
+    """The tail in numpy in the kernel's order of summation, every product
+    through ``mm``: the out-projection unsplit over the ranks, its chains of
+    256 of K summed in f32 (the kernel promotes them into its x1 tile), x1
+    = x + (s + bo); LN3 as the kernel takes it in f32 (``_chan_stats``, two
+    fused multiply-adds; in f64 the plain two-pass form); the FF hidden in
+    ``ranks`` chunks, each chunk's FF2 product summed over its sub-tiles of
+    64 hidden columns in f32 (the kernel's FF2 sum in shared memory), the
+    partials summed in rank order; GELU in f32; y = x1 + (ff + b2)."""
     wo, bo, n3w, n3b, w1, b1, w2, b2 = W
-    kr, fr = a.shape[1] // ranks, w1.shape[0] // ranks
-    s = np.zeros((a.shape[0], wo.shape[0]), np.float32)
-    for r in range(ranks):
-        s = s + mm(a[:, r * kr:(r + 1) * kr], np.ascontiguousarray(wo[:, r * kr:(r + 1) * kr].T))
+    s = np.zeros((a.shape[0], wo.shape[0]), a.dtype)
+    for k0 in range(0, a.shape[1], 256):
+        k = slice(k0, k0 + 256)
+        s = s + mm(a[:, k], np.ascontiguousarray(wo[:, k].T))
     x1 = x + (s + bo)
-    mu = x1.mean(-1, keepdims=True, dtype=np.float32)
-    var = np.square(x1 - mu).mean(-1, keepdims=True, dtype=np.float32)
-    h2 = ((x1 - mu) / np.sqrt(var + np.float32(1e-5)) * n3w + n3b).astype(np.float32)
+    if x1.dtype == np.float64:
+        mu = x1.mean(-1, keepdims=True)
+        h2 = (x1 - mu) / np.sqrt(np.square(x1 - mu).mean(-1, keepdims=True) + 1e-5) * n3w + n3b
+    else:
+        mean, m2 = _chan_stats(x1, F32)
+        rstd = (1.0 / np.sqrt(m2 / np.float32(x1.shape[1]) + np.float32(1e-5))).astype(np.float32)
+        h2 = _fma(_fma(x1, rstd, (-mean * rstd).astype(np.float32)), n3w, n3b)
+    fr = w1.shape[0] // ranks
     ff = np.zeros_like(s)
     for r in range(ranks):
         cols = slice(r * fr, (r + 1) * fr)
         f = mm(h2, np.ascontiguousarray(w1[cols].T)) + b1[cols]
-        f = (0.5 * f * (1 + np.tanh(0.7978845608 * (f + 0.044715 * f ** 3)))).astype(np.float32)
-        ff = ff + mm(f, np.ascontiguousarray(w2[:, cols].T))
+        f = (0.5 * f * (1 + np.tanh(0.7978845608 * (f + 0.044715 * f ** 3)))).astype(f.dtype)
+        part = np.zeros_like(s)
+        for j0 in range(0, fr, 64):
+            sub = slice(r * fr + j0, r * fr + j0 + 64)
+            part = part + mm(f[:, j0:j0 + 64], np.ascontiguousarray(w2[:, sub].T))
+        ff = ff + part
     return x1 + (ff + b2)
 
 
-@pytest.mark.parametrize("ranks", [4, 8])
+@pytest.mark.parametrize("ranks", TAIL_RANKS)
 def test_3xtf32_holds_the_tail_tolerance(ranks):
     """chip_smoke's tail inputs at the estimator's widths (inner 512, FF
-    1024: out-projection chains of 128 / 64 a rank, FF1 256, FF2 256 / 128
-    a rank): 3xTF32 is inside atol = rtol = 1e-4 of the f64 tail, single-pass
-    TF32 is not."""
+    1024: out-projection chains of 256, FF1 256, FF2 64 a sub-tile) on a
+    64-row tile with rows of x1 at |mean| / std ~10-30 and an outlier
+    column: 3xTF32 is inside atol = rtol = 1e-4 of the f64 tail, single-pass
+    TF32 is not.  The emulation rounds each product's sum once to f32; it
+    does not model the tensor cores' truncation as they add into their
+    accumulator: that the chains of 256 hold the tolerance is the card's to
+    show (chip_smoke's B2 cases)."""
     rng = np.random.default_rng(ranks)
     W = [w.astype(np.float32) for w in _weights(rng, 256, 512, 1024)]
     tail = [W[i] for i in (5, 6, 7, 8, 9, 10, 11, 12)]
-    a = rng.standard_normal((32, 512)).astype(np.float32)
-    x = rng.standard_normal((32, 256)).astype(np.float32)
+    a = rng.standard_normal((64, 512)).astype(np.float32)
+    x = _tail_x(rng, 64, 256)
     want = _tail_np(a.astype(np.float64), x.astype(np.float64),
                     [w.astype(np.float64) for w in tail], ranks, lambda p, q: p @ q)
     assert _within(_tail_np(a, x, tail, ranks, lambda p, q: _matmul_tf32(p, q, 3)), want, 1e-4)
     assert not _within(_tail_np(a, x, tail, ranks, lambda p, q: _matmul_tf32(p, q, 1)), want,
                        1e-4)
+    # and block_tail_ref with the plan's ranks agrees with the f64 tail
+    ref = tfb.block_tail_ref(*(t(v) for v in [a, x] + tail), ranks=ranks).numpy()
+    assert _within(ref, want, 1e-4)
 
 
 # ---------------------------------------------------------------------------
@@ -679,7 +756,7 @@ def test_erf_chain_matches_pallas(with_bias):
     assert not torch.equal(got, tanh)  # the two GELUs differ
 
 
-@pytest.mark.parametrize("ranks", [1, 8])
+@pytest.mark.parametrize("ranks", TAIL_RANKS)
 def test_block_tail_ref_erf_ranks_equal_the_unsplit_sum(ranks):
     args = _tail_inputs(40 + ranks, 19, 256, 512, 1024)
     a, x, wo, bo, n3w, n3b, w1, b1, w2, b2 = args
@@ -703,7 +780,7 @@ def test_gelu_codes_are_the_kernels_act_codes():
     assert "erff(v * 0.70710678f)" in src
     tail = (CSRC / "block_tail.cu").read_text()
     assert "(act != kGeluTanh && act != kGeluErf)" in tail
-    assert "kGeluTanh)" not in tail.split("block_tail_kernel(const TailArgs p)")[1]
+    assert "kGeluTanh)" not in tail.split("block_tail_kernel(const __grid_constant__ TailArgs p)")[1]
     assert "act > kGeluErf" in (CSRC / "fused_block.cu").read_text()
 
 
