@@ -22,8 +22,9 @@ Phases, each fatal on failure (nothing is caught and passed over):
      the kept LayerNorm and GEMM kernels; A, the block, B1 and B2 at the
      streaming path's shapes (206 / 103 frames without a bias, the final
      bucket's 220 / 110 with one; 412, 206, 440 and 220 rows) with the
-     plans they pick; the plans that split return the same bits on two
-     calls;
+     plans they pick; A on the fused block's strided views, and A and C
+     unsplit and over a cluster of 2; the plans that split return the
+     same bits on two calls;
   4. one full-width estimator call on the card (kernels) against the same
      call on the CPU (plain versions);
   5. full-width prompt-free CosyVoice-300M synthesis on random seeded
@@ -207,6 +208,7 @@ repository, it exits non-zero before printing any result.
 """
 
 import contextlib
+import ctypes
 import dataclasses
 import json
 import os
@@ -348,6 +350,12 @@ def bound(flops, nbytes, dtype):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
+def tf32x3_ms(flops, dtype):
+    """The f32 kernels' own floor: three TF32 passes at the tensor cores'
+    TF32 peak (None for bf16)."""
+    return 3 * flops / costs.H100_TF32_FLOPS * 1e3 if dtype == torch.float32 else None
+
+
 def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
@@ -406,11 +414,43 @@ def attention_case(g, B, H, T, S, dtype, masked=True, iters=20, pad_from=None, b
                   iters)
     bms, by = bound(4 * B * H * T * S * 64, nbytes(q, k, v, got, bias, kv), dtype)
     return dict(err=err, ok=ok, tol=tol, ms=ms, plain_ms=plain, library_ms=lib,
-                bound_ms=bms, bound_by=by,
+                bound_ms=bms, bound_by=by, tf32x3_ms=tf32x3_ms(4 * B * H * T * S * 64, dtype),
                 dev_ms=device_ms(lambda: flash_attention(q, k, v, bias, scale, kv)),
                 plain_dev_ms=device_ms(lambda: flash_attention_ref(q, k, v, bias, scale, kv), 3),
                 lib_dev_ms=device_ms(lambda: F.scaled_dot_product_attention(
                     q, k, v, attn_mask=mask, scale=scale)))
+
+
+def attention_views_case(g, B, H, T, dtype, iters=20):
+    """Kernel A on the fused block's strided views: q, k, v the heads of a
+    (B, T, 3, H, d) product, out a (B, H, T, d) view of a (B, T, H, d)
+    tensor, with the estimator's bias of a masked mel (the last key at
+    -1e10), against ``flash_attention_ref`` on the same views."""
+    qkv = torch.randn(B, T, 3, H, 64, device=DEV, generator=g).to(dtype)
+    q, k, v = (qkv[:, :, i].permute(0, 2, 1, 3) for i in range(3))
+    bias = torch.zeros(B, T, T, device=DEV)
+    bias[:, :, T - 1:] = -1e10
+    bias = bias.to(dtype)
+    o = torch.full((B, T, H, 64), float("nan"), device=DEV, dtype=dtype)
+    view = o.permute(0, 2, 1, 3)
+    scale = 64 ** -0.5
+    flash_attention(q, k, v, bias, scale, out=view)
+    torch.cuda.synchronize()
+    want = flash_attention_ref(q, k, v, bias, scale)
+    err, ok, tol = compare("attention", view, want, dtype)
+
+    def run():
+        flash_attention(q, k, v, bias, scale, out=view)
+
+    lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias[:, None],
+                                                         scale=scale), iters)
+    bms, by = bound(4 * B * H * T * T * 64, nbytes(qkv, o, bias), dtype)
+    return dict(err=err, ok=ok, tol=tol, ms=cuda_ms(run, iters),
+                plain_ms=cuda_ms(lambda: flash_attention_ref(q, k, v, bias, scale), 5),
+                library_ms=lib, bound_ms=bms, bound_by=by,
+                tf32x3_ms=tf32x3_ms(4 * B * H * T * T * 64, dtype), dev_ms=device_ms(run),
+                lib_dev_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=bias[:, None], scale=scale)))
 
 
 # ---------------------------------------------------------------------------
@@ -451,6 +491,7 @@ def banded_case(g, B, H, T, window, dtype, kv=None, iters=10):
     bms, by = bound(4 * H * pairs * 64, nbytes(q, k, v, got, k_valid), dtype)
     return dict(err=err, ok=good, tol=tol, ms=ms, plain_ms=plain, library_ms=lib,
                 kernel_a_ms=a_ms, bound_ms=bms, bound_by=by,
+                tf32x3_ms=tf32x3_ms(4 * H * pairs * 64, dtype),
                 dev_ms=device_ms(lambda: banded_attention(q, k, v, scale, window, k_valid)),
                 plain_dev_ms=device_ms(
                     lambda: banded_attention_ref(q, k, v, scale, window, k_valid), 3),
@@ -732,6 +773,45 @@ def tail_case(g, M, dtype, iters=20, C=256, inner=512, ff=1024, gelu="tanh"):
                 lib_dev_ms=device_ms(run_lib), same=torch.equal(run(), run()))
 
 
+def attention_splits(g):
+    """Kernels A and C unsplit and over a cluster of 2 against their plain
+    versions, in both types, where the path's plans would not split.  S =
+    310 leaves bias rows off a 16-byte boundary: the producer's lanes copy
+    the bias."""
+    scale = 64 ** -0.5
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn(2, 8, 310, 64, device=DEV, generator=g).to(dtype)
+                   for _ in range(3))
+        bias = torch.zeros(2, 310, 310, device=DEV)
+        bias[1, :, 290:] = -1e10
+        bias = bias.to(dtype)
+        kv = torch.tensor([310, 300], dtype=torch.int32, device=DEV)
+        want_a = flash_attention_ref(q, k, v, bias, scale, kv)
+        want_c = banded_attention_ref(q, k, v, scale, 40, kv)
+        rows = (torch.arange(310, device=DEV)[None, :] < kv[:, None])[:, None, :, None]
+        strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                                           *q.stride()[:3])
+        code = _cuda.DTYPE_CODE[dtype]
+        for splits in (1, 2):
+            got_a, got_c = torch.empty_like(q), torch.empty_like(q)
+            _cuda.check(_cuda.function("cosy_flash_attention")(
+                code, q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                kv.data_ptr(), got_a.data_ptr(), 2, 8, 310, 310, 64, strides, scale, splits,
+                _cuda.stream_ptr(q)), "flash_attention")
+            _cuda.check(_cuda.function("cosy_banded_attention")(
+                code, q.data_ptr(), k.data_ptr(), v.data_ptr(), kv.data_ptr(),
+                got_c.data_ptr(), 2, 8, 310, 64, strides, scale, 40, splits,
+                _cuda.stream_ptr(q)), "banded_attention")
+            torch.cuda.synchronize()
+            ea, oka, _ = compare("attention", got_a, want_a, dtype)
+            ec, okc, _ = compare("attention", got_c * rows, want_c * rows, dtype)
+            log(f"  splits {splits} {str(dtype)[6:]}: A (2,8,310,64) + bias, "
+                f"k_valid max_abs_err {ea:.3e}; C window 40 {ec:.3e}")
+            if not (oka and okc):
+                raise SystemExit(f"chip_smoke: A or C over {splits} splits disagrees with "
+                                 "its plain version")
+
+
 def same_twice(g):
     """The plans that split (K of a product over a cluster, the keys of an
     attention call over a cluster) sum in a fixed order: two calls on the
@@ -742,7 +822,7 @@ def same_twice(g):
     q = torch.randn(2, 8, 128, 64, device=DEV, generator=g)
     k, v = (torch.randn(2, 8, 8320, 64, device=DEV, generator=g) for _ in range(2))
     gp, ap = _gemm_plan(312, 256, 1024, torch.float32), _attention_plan(16, 128, 8320)
-    if gp[2] < 2 or ap[1] < 2:
+    if gp[2] < 2 or ap < 2:
         raise SystemExit(f"chip_smoke: the plans {gp}, {ap} do not split where they should")
     same_g = torch.equal(gemm(a, w, None, r), gemm(a, w, None, r))
     same_a = torch.equal(flash_attention(q, k, v, None, 0.125), flash_attention(q, k, v, None, 0.125))
@@ -3619,7 +3699,8 @@ def report(name, r):
            if "kernel_a_ms" in r else "")
         + (f", seven-launch chain {r['chain7_ms']:.4f} ms{dev('chain7_dev_ms')} "
            f"(err {r['chain7_err']:.2e})" if "chain7_ms" in r else "")
-        + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+        + (f" (three TF32 passes {r['tf32x3_ms']:.4f} ms)" if r.get("tf32x3_ms") else ""))
     if not r["ok"]:
         raise SystemExit(f"chip_smoke: {name} disagrees with its plain version")
     if not r.get("same", True):
@@ -3757,6 +3838,9 @@ def main():
     report("A main path (2,8,156,64) f32 bias", main_a)
     for T in (312, 156):
         report(f"A main path (2,8,{T},64) bf16 bias", attention_case(g, 2, 8, T, T, torch.bfloat16))
+    for dtype in (torch.float32, torch.bfloat16):
+        report(f"A fused block's views (2,312,3,8,64) -> (2,312,8,64) {str(dtype)[6:]} bias",
+               attention_views_case(g, 2, 8, 312, dtype))
     report("B main path (2,312,256) f32 bias", block_case(g, 2, 312, torch.float32, True))
     main_b = block_case(g, 2, 156, torch.float32, True)
     report("B main path (2,156,256) f32 bias", main_b)
@@ -3806,7 +3890,7 @@ def main():
     # frames (even: no mask, no bias) and 103 at the T/2 level; the bucketed
     # final chunk is 220 frames with its true 172 valid (a (B,T,T) bias),
     # 110 with 86 valid at T/2.  B1 and B2 run at 412, 206, 440 and 220 rows
-    log("  streaming and final-bucket shapes (phase 9's), plans (block_q, kv_splits) of A, "
+    log("  streaming and final-bucket shapes (phase 9's), plans (kv_splits) of A, "
         "(block_m, block_n) of B1, (block_m, cluster, sub-tile) of B2")
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype)[6:]
@@ -3858,6 +3942,7 @@ def main():
         raise SystemExit(f"chip_smoke: no case ran the B2 plans "
                          f"{set(_TAIL_PLANS) - TAIL_PLANS_RUN}")
     log(f"  B2: every plan held against block_tail_ref: {sorted(TAIL_PLANS_RUN)}")
+    attention_splits(g)
     same_twice(g)
 
     cfg = ModelConfig()

@@ -95,22 +95,6 @@ struct Mma<__nv_bfloat16> {
                  : "=r"(b.r[0]), "=r"(b.r[1])
                  : "r"(smem_u32(p)));
   }
-  // B fragment (k16 x n8) from a tile stored [k][n]: `tile` points at (k0, n0)
-  static __device__ __forceinline__ void load_b_kn(B& b, const T* tile, int ld, int lane) {
-    const T* p = tile + (lane & 15) * ld;
-    asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-                 : "=r"(b.r[0]), "=r"(b.r[1])
-                 : "r"(smem_u32(p)));
-  }
-  // A fragment (16 rows x 16 k) from two neighbouring C fragments
-  // (c[0..3] the n-tile of k 0..7, c[4..7] of k 8..15), rounded to bf16;
-  // pairs with load_b_kn
-  static __device__ __forceinline__ void a_from_acc(A& a, const float* c) {
-    a.r[0] = pack_bf16(c[0], c[1]);
-    a.r[1] = pack_bf16(c[2], c[3]);
-    a.r[2] = pack_bf16(c[4], c[5]);
-    a.r[3] = pack_bf16(c[6], c[7]);
-  }
   // c += a b is kPasses mma steps; a caller runs one pass over all of its
   // independent accumulators before the next, so that no mma waits for the
   // one issued just before it
@@ -143,22 +127,6 @@ struct Mma<float> {
     const int g = lane >> 2, t = lane & 3;
     split_tf32(tile[g * ld + t], b.hi[0], b.lo[0]);
     split_tf32(tile[g * ld + t + 4], b.hi[1], b.lo[1]);
-  }
-  // [k][n] tile for a product whose A operand came from a_from_acc: a C
-  // fragment holds columns 2t and 2t+1 where an A fragment wants t and t+4,
-  // so the eight k of a step are taken in the order 0,2,4,6,1,3,5,7 on both
-  // operands (a sum does not care), and nothing moves between lanes
-  static __device__ __forceinline__ void load_b_kn(B& b, const T* tile, int ld, int lane) {
-    const int g = lane >> 2, t = lane & 3;
-    split_tf32(tile[(2 * t) * ld + g], b.hi[0], b.lo[0]);
-    split_tf32(tile[(2 * t + 1) * ld + g], b.hi[1], b.lo[1]);
-  }
-  // A fragment (16 rows x 8 k) from one C fragment c[0..3]; see load_b_kn
-  static __device__ __forceinline__ void a_from_acc(A& a, const float* c) {
-    split_tf32(c[0], a.hi[0], a.lo[0]);
-    split_tf32(c[2], a.hi[1], a.lo[1]);
-    split_tf32(c[1], a.hi[2], a.lo[2]);
-    split_tf32(c[3], a.hi[3], a.lo[3]);
   }
   static __device__ __forceinline__ void mma1(float* c, const uint32_t* a, const uint32_t* b) {
     asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "

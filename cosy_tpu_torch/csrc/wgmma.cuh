@@ -3,8 +3,8 @@
 // to mbarriers, and warpgroup products (wgmma.mma_async) that read B from
 // the ring and A from registers; and, for blocks that share work across a
 // thread block cluster, pushes into a peer's shared memory that complete on
-// the peer's own mbarrier.  Kernels B1 (ln_gemm.cu) and B2 (block_tail.cu)
-// are built on it; the pieces are kernel-agnostic.
+// the peer's own mbarrier.  Kernels B1 (ln_gemm.cu), B2 (block_tail.cu) and
+// A / C (flash_attention.cu) are built on it; the pieces are kernel-agnostic.
 //
 //   TmaRing<STAGES>: one producer thread issues the copies of stream slice i
 //     into stage i % STAGES (acquire: the stage's consumers have released
@@ -17,6 +17,11 @@
 //     chunk c ^ (r % 8)).  cuTensorMapEncodeTiled is reached through
 //     cudaGetDriverEntryPoint, so the library needs no -lcuda.  Rows past
 //     the tensor's end land as zeros, and count in the expected bytes.
+//     make_tensor_map_strided reads a tensor of up to five dimensions with
+//     any byte strides (a view such as the heads of a (B, T, 3, H, d)
+//     product), dimension 0 contiguous; each dimension is bounded on its
+//     own, so a box that runs past the end of dimension 1 takes zeros there
+//     and never the rows of the next index of dimension 2.
 //   Pushes: bulk_push copies bytes of this block's shared memory into block
 //     `rank` of the cluster (cp.async.bulk, addresses from mapa) and reports
 //     them to that block's mbarrier (complete_tx), which the receiver alone
@@ -30,6 +35,9 @@
 //   Wgmma<T, N>::rs: D (64 x N, f32) += A (64 x k, registers) B (k x N,
 //     shared, K-major, 128-byte swizzle); k is 8 TF32 values (f32 words,
 //     of which the tensor cores read the top 19 bits) or 16 bf16 values.
+//     Wgmma<bf16, N, 1> reads B MN-major instead (the transpose bit: N
+//     contiguous, a 128-byte row of N values a k); with N one 128-byte
+//     atom wide, wgmma_desc describes that tile too.  TF32 has no such form.
 //     The register fragments follow mma.sync's: warp w of the group owns
 //     rows 16w .. 16w + 15; lane (g = lane / 4, t = lane % 4) holds
 //       tf32 A: (g, t) (g+8, t) (g, t+4) (g+8, t+4)
@@ -113,6 +121,21 @@ __device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity
   } while (!done);
 }
 
+// 16 bytes global -> shared by the generic proxy, of which the first
+// `bytes` (0 to 16) are read and the rest land as zeros (with 0, src is not
+// read but must still be a valid address); and one arrival on `bar` once
+// every such copy this thread issued before it has landed (.noinc: the
+// barrier's count includes this arrival)
+__device__ __forceinline__ void cp_async_chunk(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // clusters: the split cluster barrier, pushes into a peer's shared memory
 // ---------------------------------------------------------------------------
@@ -159,6 +182,24 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+// the same for maps of three and four dimensions (make_tensor_map_strided)
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
       : "memory");
 }
 // the box of `map` at (c0, c1) from src (1024-byte aligned, written by the
@@ -277,7 +318,7 @@ __device__ __forceinline__ void fence_operands(V (&d)[R][N]) {
                : OUTS                                                                     \
                : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d))
 
-template <typename T, int N>
+template <typename T, int N, int kTransB = 0>
 struct Wgmma;
 
 template <>
@@ -326,6 +367,16 @@ struct Wgmma<__nv_bfloat16, 128> {
                                             uint64_t desc, int scale_d) {
     COSY_WGMMA_RS("wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16", COSY_R64, "%64",
                   "%65", "%66", "%67", "%68", "%69", "1, 1, 0", COSY_D64);
+  }
+};
+
+// B MN-major (the transpose bit): P V with V landed as (keys, d), d contiguous
+template <>
+struct Wgmma<__nv_bfloat16, 64, 1> {
+  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4],
+                                            uint64_t desc, int scale_d) {
+    COSY_WGMMA_RS("wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16", COSY_R32, "%32",
+                  "%33", "%34", "%35", "%36", "%37", "1, 1, 1", COSY_D32);
   }
 };
 
@@ -383,6 +434,39 @@ inline cudaError_t make_tensor_map(CUtensorMap* map, const void* ptr, bool f32, 
       const_cast<void*>(ptr), dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// `map` reads the tensor at ptr (f32 or bf16) of `rank` (2 to 5) dimensions:
+// dims[0] contiguous values, dims[i] at byte stride strides[i - 1] (each a
+// multiple of 16), as boxes of 128 bytes of dimension 0 by box_rows of
+// dimension 1 (and one of each further dimension), 128-byte swizzled.
+// Every dimension is bounded on its own: what lies past dims[1] lands as
+// zeros, whatever the next index of dimension 2 holds.
+inline cudaError_t make_tensor_map_strided(CUtensorMap* map, const void* ptr, bool f32,
+                                           int rank, const long long* dims,
+                                           const long long* strides, int box_rows) {
+  const TensorMapEncode encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  if (rank < 2 || rank > 5) return cudaErrorInvalidValue;
+  const int es = f32 ? 4 : 2;
+  cuuint64_t gd[5], gs[4];
+  cuuint32_t box[5], steps[5];
+  for (int i = 0; i < rank; ++i) {
+    if (dims[i] <= 0) return cudaErrorInvalidValue;
+    gd[i] = static_cast<cuuint64_t>(dims[i]);
+    box[i] = i == 0 ? static_cast<cuuint32_t>(128 / es) : i == 1 ? box_rows : 1;
+    steps[i] = 1;
+    if (i > 0) {
+      if (strides[i - 1] <= 0 || strides[i - 1] % 16 != 0) return cudaErrorInvalidValue;
+      gs[i - 1] = static_cast<cuuint64_t>(strides[i - 1]);
+    }
+  }
+  const CUresult r = encode(
+      map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      static_cast<cuuint32_t>(rank), const_cast<void*>(ptr), gd, gs, box, steps,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 

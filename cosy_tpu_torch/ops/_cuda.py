@@ -50,10 +50,10 @@ _f = ctypes.c_float
 SIGNATURES = {
     "cosy_flash_attention": ("flash_attention.cu", [
         _i, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i,
-        ctypes.POINTER(ctypes.c_longlong), _f, _i, _i, _vp]),
+        ctypes.POINTER(ctypes.c_longlong), _f, _i, _vp]),
     "cosy_banded_attention": ("flash_attention.cu", [
         _i, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i,
-        ctypes.POINTER(ctypes.c_longlong), _f, _i, _i, _i, _vp]),
+        ctypes.POINTER(ctypes.c_longlong), _f, _i, _i, _vp]),
     "cosy_layer_norm": ("fused_block.cu", [
         _i, _i, _i, _vp, _vp, _vp, _vp, _i, _i, _f, _vp]),
     "cosy_gemm": ("fused_block.cu", [

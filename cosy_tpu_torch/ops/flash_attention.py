@@ -28,31 +28,56 @@ from .masks import NEG_BIAS
 HEAD_DIM = 64  # kernel A is instantiated for the estimator's head dim only
 
 
-BLOCK_Q = 64  # query rows a block (four warps of 16)
-KV_TILE = 64  # keys a block takes at a time; a split is whole tiles (csrc)
-# key tiles a split must keep: an f32 block spends long enough on one tile
-# for a split down to single tiles to pay; a bf16 block does not
-_MIN_TILES = {torch.float32: 1, torch.bfloat16: 8}
+# csrc/flash_attention.cu's kBQ and kBK: 64 query rows a block (one consumer
+# warpgroup) and keys in tiles of 64 (f32's registers hold no more; bf16's
+# 128-key tiles measured slower at every shape of the path, PERF.md)
+BLOCK_Q = 64
+KV_TILE = 64  # a split is whole tiles
+# key tiles a split must keep: below that the combine's fixed cost (a
+# cluster barrier each side of a read of every rank) outweighs the split
+_MIN_TILES = {torch.float32: 4, torch.bfloat16: 8}
 _SPLITS = (1, 2, 3, 4, 8)  # the cluster sizes a plan names
+_SMEM_LIMIT = 232448  # bytes of shared memory a block may have
+_SM_SMEM = 233472  # an SM's shared memory; each block also holds 1 KB of it
+
+
+def _attention_smem_bytes(dtype) -> int:
+    """Shared memory of a block of one type (``csrc/flash_attention.cu``
+    ``AttnSmem``): 1024 bytes of alignment slack; a ring of 2 stages, each a
+    K and a V tile of ``KV_TILE`` keys (f32: also K's lo and V^T's hi and
+    lo) and the bias tile (BLOCK_Q rows of KV_TILE values and 16 bytes: a
+    row's span from a 16-byte boundary), rounded up to 1024 bytes; the Q
+    tile; 8 bytes a barrier (full, empty, split a stage; Q)."""
+    es = 4 if dtype == torch.float32 else 2
+    stages = 2
+    kv = KV_TILE * HEAD_DIM * es
+    stage = -(-((5 if es == 4 else 2) * kv + BLOCK_Q * (KV_TILE * es + 16)) // 1024) * 1024
+    return 1024 + stages * stage + BLOCK_Q * HEAD_DIM * es + (3 * stages + 1) * 8
+
+
+def _blocks_per_sm(dtype) -> int:
+    """Blocks of one type an SM holds at once (the source's kMinBlocks):
+    what its shared memory allows, at most three."""
+    return min(3, _SM_SMEM // (_attention_smem_bytes(dtype) + 1024))
 
 
 @functools.lru_cache(maxsize=None)
 def _attention_plan(BH: int, T: int, S: int, window: Optional[int] = None,
                     dtype=torch.float32):
-    """(block_q, kv_splits) of kernels A and C.  A block has ``BLOCK_Q``
-    query rows (32-row blocks were measured and lost at every shape of the
-    path).  Where that grid has no block for every SM, the keys a query tile
-    walks are split over the blocks of a cluster: the fewest of ``_SPLITS``
-    that fill the SMs, while every split keeps ``_MIN_TILES`` key tiles.  The
-    rule follows the sweep of ``python -m cosy_tpu_torch.ops.plan_sweep`` on the
+    """kv_splits of kernels A and C: where the grid of ``BLOCK_Q``-row
+    blocks leaves the card's block slots idle, the keys a query tile walks
+    are split over the blocks of a cluster: the most of ``_SPLITS`` that put
+    no more than three quarters of the slots in flight (clusters pack by
+    GPC: f32's clusters of 4 and 8 left blocks for a second wave at S =
+    8320), while every split keeps ``_MIN_TILES`` key tiles.  The rule
+    follows the sweep of ``python -m cosy_tpu_torch.ops.plan_sweep`` on the
     card (PERF.md).  A pure function of shape and type: it is passed to the
     kernel, and is no caller's option."""
-    blocks = _cuda.cdiv(T, BLOCK_Q) * BH
     keys = S if window is None else min(S, BLOCK_Q + 2 * window)
-    tiles = _cuda.cdiv(keys, KV_TILE)
-    need, limit = _cuda.cdiv(_cuda.SMS, blocks), max(1, tiles // _MIN_TILES[dtype])
-    splits = min([n for n in _SPLITS if n >= need] or _SPLITS[-1:])
-    return BLOCK_Q, max(n for n in _SPLITS if n <= min(splits, limit))
+    blocks = _cuda.cdiv(T, BLOCK_Q) * BH
+    slots = _cuda.SMS * _blocks_per_sm(dtype) * 3 // 4
+    limit = _cuda.cdiv(keys, KV_TILE) // _MIN_TILES[dtype]
+    return max(n for n in _SPLITS if n == 1 or (n <= limit and blocks * n <= slots))
 
 
 def _softmax_pv(s, v, out_dtype, kv_splits: int = 1):
@@ -114,9 +139,9 @@ def check_kernel_args(q, k, v, bias, k_valid, out=None):
     """Raise on anything kernel A does not take: a dtype other than f32 or
     bf16, a head dim other than 64, mismatched shapes or devices, a
     non-contiguous head dim, a q/k/v/out row that does not start on a
-    16-byte boundary (the kernel copies 16 bytes at a time), a bias that is
-    not a contiguous (B, T, S) of q's dtype, a ``k_valid`` that is not (B,)
-    int32."""
+    16-byte boundary (the tensor maps take strides of 16-byte multiples), a
+    bias that is not a contiguous (B, T, S) of q's dtype, a ``k_valid`` that
+    is not (B,) int32."""
     if q.dtype not in _cuda.DTYPE_CODE:
         raise TypeError(f"flash_attention kernel takes f32 or bf16, got {q.dtype}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
@@ -162,7 +187,7 @@ def _launch(q, k, v, bias, scale: float, k_valid, out):
     _cuda.check(fn(_cuda.DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
                    v.data_ptr(), _cuda.ptr(bias), _cuda.ptr(k_valid),
                    out.data_ptr(), B, H, T, S, d, strides, float(scale),
-                   *_attention_plan(B * H, T, S, None, q.dtype), _cuda.stream_ptr(q)),
+                   _attention_plan(B * H, T, S, None, q.dtype), _cuda.stream_ptr(q)),
                 "flash_attention")
     flash_attention.launches += 1
 
@@ -249,17 +274,22 @@ def banded_attention(
         raise ValueError(f"banded_attention runs on cuda or cpu tensors, got {q.device}")
     check_kernel_args(q, k, v, None, k_valid)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch_banded(q, k, v, scale, int(window), k_valid, out)
+    return out
+
+
+def _launch_banded(q, k, v, scale: float, window: int, k_valid, out):
+    """Launch kernel C on the current stream (arguments already checked)."""
     B, H, T, d = q.shape
     strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
                                        *v.stride()[:3], *out.stride()[:3])
     fn = _cuda.function("cosy_banded_attention")
     _cuda.check(fn(_cuda.DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                    _cuda.ptr(k_valid), out.data_ptr(), B, H, T, d, strides,
-                   float(scale), min(int(window), T),
-                   *_attention_plan(B * H, T, T, min(int(window), T), q.dtype),
+                   float(scale), min(window, T),
+                   _attention_plan(B * H, T, T, min(window, T), q.dtype),
                    _cuda.stream_ptr(q)), "banded_attention")
     banded_attention.launches += 1
-    return out
 
 
 banded_attention.launches = 0

@@ -6,7 +6,11 @@
 Prints one JSON line: the host microseconds of an ``ln_gemm()`` call at 312
 rows in f32, cycling through 64 weight sets as an estimator call's blocks
 do (the wrapper returns once its launch is queued, so this is what a launch
-costs the host), three times; B1's on-card ms at 150, 156, 312, 624 and
+costs the host), three times; the same for a ``flash_attention()`` call at
+the main path's T/2 level, (2,8,156,64) f32 with a (B, T, T) bias, q, k, v
+the heads of a (2, 156, 3, 8, 64) product and out a (2, 156, 8, 64) view
+(as the fused block hands them over: the kernel's tensor maps are encoded
+in the call), 400 calls a round; B1's on-card ms at 150, 156, 312, 624 and
 5116 rows in f32 and bf16 (``plan_sweep.device_ms``); and one full-width
 estimator call (B = 2, T = 312, the last frame masked: ``chip_smoke.py``'s
 [6]) as the wall of 30 back-to-back calls (three times), [6]'s unprofiled
@@ -82,6 +86,25 @@ def main(argv=None):
         torch.cuda.synchronize()
     out["ln_gemm host us a call, f32 312 rows"] = host
 
+    from cosy_tpu_torch.ops.flash_attention import flash_attention
+
+    qkv = torch.randn(2, 156, 3, 8, 64, device=dev, generator=g)
+    q, k, v = (qkv[:, :, i].permute(0, 2, 1, 3) for i in range(3))
+    bias = torch.zeros(2, 156, 156, device=dev)
+    o = torch.empty(2, 156, 8, 64, device=dev).permute(0, 2, 1, 3)
+    host = []
+    for _ in range(3):
+        for _ in range(20):
+            flash_attention(q, k, v, bias, 0.125, out=o)
+        torch.cuda.synchronize()
+        n = 400  # fewer than the launch queue holds: the host never waits on it
+        t0 = time.perf_counter()
+        for _ in range(n):
+            flash_attention(q, k, v, bias, 0.125, out=o)
+        host.append((time.perf_counter() - t0) / n * 1e6)
+        torch.cuda.synchronize()
+    out["flash_attention host us a call, f32 (2,8,156,64) views + bias"] = host
+
     cfg = cs.ModelConfig()
     flow = cs.init_flow_params(cfg.flow, dev, seed=1)
     est = cs.P(dict(flow.named_parameters())).sub("decoder.estimator")
@@ -108,7 +131,8 @@ def main(argv=None):
     out["estimator busy ms"] = busy
     out["estimator launches"] = sum(n for n, _ in by_name.values())
     out["estimator product kernels (launches, ms)"] = {
-        k[:110]: v for k, v in by_name.items() if "gemm" in k or "block_tail" in k}
+        k[:110]: v for k, v in by_name.items()
+        if "gemm" in k or "block_tail" in k or "attention" in k}
     print(json.dumps(out), flush=True)
 
 

@@ -1,13 +1,16 @@
-"""Where the time goes inside kernels B1 and B2: a phase trace on the card.
+"""Where the time goes inside kernels B1, B2, A and C: a phase trace on the card.
 
     python -m cosy_tpu_torch.ops.phase_trace
 
-Builds ``csrc/ln_gemm.cu`` and ``csrc/block_tail.cu`` once more with
-``-DCOSY_TRACE`` into ``build/cosy_tpu_torch/trace/`` (the library build has
-no trace), launches B1 on the QKV product and B2 on the block tail at the
-main path's row counts in f32 and bf16 with their plans, and prints, for
-block 0, the microseconds from the kernel's first phase to each later one
-(``%globaltimer``, read back through ``cosy_trace``):
+Builds ``csrc/ln_gemm.cu``, ``csrc/block_tail.cu`` and
+``csrc/flash_attention.cu`` once more with ``-DCOSY_TRACE`` into
+``build/cosy_tpu_torch/trace/`` (the library build has no trace), launches
+B1 on the QKV product and B2 on the block tail at the main path's row
+counts in f32 and bf16 with their plans, A with a (B, T, S) bias at
+(2,8,156,64) and (2,8,2580,64) and C at (2,8,1279,64), window 128, in f32
+and bf16 with their plans, and prints, for block 0, the microseconds from
+the kernel's first phase to each later one (``%globaltimer``, read back
+through ``cosy_trace``):
 
     B1: 10 start, 17 x landed and the row statistics taken, 11 first W
         stage landed, 14 slice 2's products issued, 15 slice 3 landed, split
@@ -20,6 +23,10 @@ block 0, the microseconds from the kernel's first phase to each later one
         first sub-tile done, 5 FF2 done (the last sub-tile; its chunks
         pushed quarter by quarter), 6 FF2 partials received (every peer's
         landed), 7 end (y stored, the cluster's last barrier)
+    A, C: 0 start, 1 Q landed, 2 first K/V stage ready (landed; f32: and
+        split), 3 first S done, 8 its softmax done, 4 first P V done, 5 last
+        tile done, 6 combine done (a split plan only), 7 end (the output
+        stored; under a split, the cluster's last barrier)
 
 Needs a CUDA device; prints the card's name and power limit first.
 """
@@ -33,11 +40,18 @@ import torch
 
 from ..utils import aot
 from . import _cuda
+from .flash_attention import _attention_plan
 from .fused_block import _ln_gemm_plan, _tail_plan
 
 ROWS = (312, 624, 5116)
 B1_PHASES = (10, 17, 11, 14, 15, 16, 12, 13)
 B2_PHASES = tuple(range(8))
+A_PHASES = (0, 1, 2, 3, 8, 4, 5, 7)
+SPLIT_PHASES = (0, 1, 2, 3, 8, 4, 5, 6, 7)
+SOURCES = ("ln_gemm.cu", "block_tail.cu", "flash_attention.cu")
+ENTRY = {"cosy_ln_gemm": "ln_gemm.cu", "cosy_block_tail": "block_tail.cu",
+         "cosy_flash_attention": "flash_attention.cu",
+         "cosy_banded_attention": "flash_attention.cu"}
 
 
 def _trace_libraries():
@@ -47,7 +61,7 @@ def _trace_libraries():
     jobs = {src: subprocess.Popen([nvcc, *_cuda.NVCC_FLAGS, "-DCOSY_TRACE", "-o",
                                    str(out / f"{src[:-3]}.so"), str(_cuda.CSRC / src)],
                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for src in ("ln_gemm.cu", "block_tail.cu")}
+            for src in SOURCES}
     libs = {}
     for src, proc in jobs.items():
         log, _ = proc.communicate()
@@ -57,11 +71,11 @@ def _trace_libraries():
         lib.cosy_trace.argtypes = [ctypes.c_void_p]
         lib.cosy_trace.restype = ctypes.c_int
         libs[src] = lib
-    for name, src in (("cosy_ln_gemm", "ln_gemm.cu"), ("cosy_block_tail", "block_tail.cu")):
+    for name, src in ENTRY.items():
         fn = getattr(libs[src], name)
         fn.argtypes = _cuda.SIGNATURES[name][1]
         fn.restype = ctypes.c_int
-    return libs["ln_gemm.cu"], libs["block_tail.cu"]
+    return libs
 
 
 def _phases(lib, launch, marks, runs: int = 5):
@@ -75,6 +89,38 @@ def _phases(lib, launch, marks, runs: int = 5):
     return " ".join(f"{m}:{(buf[m] - buf[marks[0]]) / 1e3:.2f}" for m in marks)
 
 
+def trace_attention(lib, dev, gen):
+    """A at (2,8,156,64) and (2,8,2580,64) with a (B, T, S) bias, C at
+    (2,8,1279,64) with window 128; f32 and bf16; the wrapper's plans."""
+    codes = _cuda.DTYPE_CODE
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype)[6:]
+        for T in (156, 2580):
+            q, k, v = (torch.randn(2, 8, T, 64, device=dev, generator=gen).to(dtype)
+                       for _ in range(3))
+            bias = torch.zeros(2, T, T, device=dev, dtype=dtype)
+            out = torch.empty_like(q)
+            st = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                                          *out.stride()[:3])
+            plan = _attention_plan(16, T, T, None, dtype)
+            print(f"A {dn} (2,8,{T},64) + bias splits {plan} us: " + _phases(lib, lambda: _cuda.check(
+                lib.cosy_flash_attention(codes[dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                         bias.data_ptr(), None, out.data_ptr(), 2, 8, T, T, 64,
+                                         st, 0.125, plan, _cuda.stream_ptr(q)),
+                "flash_attention"), SPLIT_PHASES if plan > 1 else A_PHASES), flush=True)
+        T, window = 1279, 128
+        q, k, v = (torch.randn(2, 8, T, 64, device=dev, generator=gen).to(dtype) for _ in range(3))
+        out = torch.empty_like(q)
+        st = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                                      *out.stride()[:3])
+        plan = _attention_plan(16, T, T, window, dtype)
+        print(f"C {dn} (2,8,{T},64) window {window} splits {plan} us: " + _phases(
+            lib, lambda: _cuda.check(lib.cosy_banded_attention(
+                codes[dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), None, out.data_ptr(), 2,
+                8, T, 64, st, 0.125, window, plan, _cuda.stream_ptr(q)), "banded_attention"),
+            SPLIT_PHASES if plan > 1 else A_PHASES), flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("phase_trace: no CUDA device")
@@ -82,8 +128,10 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True)
     print(smi.stdout.strip() or torch.cuda.get_device_name(0), flush=True)
-    b1, b2 = _trace_libraries()
+    libs = _trace_libraries()
+    b1, b2 = libs["ln_gemm.cu"], libs["block_tail.cu"]
     gen = torch.Generator(device=dev).manual_seed(0)
+    trace_attention(libs["flash_attention.cu"], dev, gen)
     codes = _cuda.DTYPE_CODE
     C, inner, F = 256, 512, 1024
     for dtype in (torch.float32, torch.bfloat16):

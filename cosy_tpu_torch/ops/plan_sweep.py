@@ -10,8 +10,10 @@ the time of ``F.layer_norm`` + ``F.linear`` on the same inputs), kernel B2
 (the block tail, every (block_m, cluster, sub-tile), at 150, 156 and from
 6 to 9 row tiles of 64 as well; its lines end with the time of the unfused
 sequence ``F.linear``, add, ``F.layer_norm``, ``F.linear``, ``F.gelu``,
-``F.linear``, add on the same inputs), the GEMM's four products and kernel
-A at the path's attention shapes.  Each line names the choice of
+``F.linear``, add on the same inputs), the GEMM's four products, and
+kernels A and C at the path's attention shapes, every split of the keys
+in f32 and bf16 (their lines end with the time of
+``F.scaled_dot_product_attention`` on the same inputs).  Each line names the choice of
 ``_ln_gemm_plan`` / ``_tail_plan`` / ``_gemm_plan`` / ``_attention_plan``
 with its time and then the four fastest choices, as ``(plan; blocks): ms``.
 The plans' rules were fitted to this output (PERF.md); rerun it after a
@@ -39,7 +41,9 @@ B1_ROWS = (150, 156) + ROWS  # CosyVoice2's and MeanFlow's T/2 levels first
 # B2 also at 6-9 row tiles of 64, where clusters of 16 stop fitting the card
 # at once: the streaming levels 412 and 440, the distillation teacher's 500
 TAIL_ROWS = (150, 156, 312, 384, 412, 440, 500, 576) + ROWS[1:]
-ATTENTION = ((156, 156), (312, 312), (1279, 1279), (2580, 2580), (128, 8320))
+ATTENTION = ((156, 156), (312, 312), (1024, 1024), (1279, 1279), (2580, 2580),
+             (128, 8320))
+BANDED = ((1279, 128), (2558, 256))  # kernel C: the windowed path's two levels
 
 
 def device_ms(fn, iters: int = 10):
@@ -170,9 +174,13 @@ def sweep_tail(dev, gen):
 
 
 def sweep_attention(dev, gen):
-    fn = _cuda.function("cosy_flash_attention")
+    """Kernels A (with a (B, T, S) bias) and C at the path's shapes: every
+    split of the keys, and ``F.scaled_dot_product_attention`` on the same
+    inputs (C: under the band as a boolean mask)."""
+    fa, fc = _cuda.function("cosy_flash_attention"), _cuda.function("cosy_banded_attention")
     codes = _cuda.DTYPE_CODE
     for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype)[6:]
         for T, S in ATTENTION:
             q = torch.randn(2, 8, T, 64, device=dev, generator=gen).to(dtype)
             k, v = (torch.randn(2, 8, S, 64, device=dev, generator=gen).to(dtype)
@@ -187,15 +195,43 @@ def sweep_attention(dev, gen):
                     continue
 
                 def run():
-                    _cuda.check(fn(codes[dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    _cuda.check(fa(codes[dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                    bias.data_ptr(), None, out.data_ptr(), 2, 8, T, S, 64,
-                                   strides, 0.125, BLOCK_Q, splits, _cuda.stream_ptr(q)),
+                                   strides, 0.125, splits, _cuda.stream_ptr(q)),
                                 "flash_attention")
 
                 blocks = _cuda.cdiv(T, BLOCK_Q) * 16 * splits
-                results.append((device_ms(run), (BLOCK_Q, splits), blocks))
-            _line(f"attention {str(dtype)[6:]} (2,8,{T},64) S={S} + bias",
-                  _attention_plan(16, T, S, None, dtype), results)
+                results.append((device_ms(run), (splits,), blocks))
+            sdpa = device_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=bias[:, None], scale=0.125))
+            _line(f"attention {dn} (2,8,{T},64) S={S} + bias",
+                  (_attention_plan(16, T, S, None, dtype),), results, ("SDPA", sdpa))
+        for T, window in BANDED:
+            q, k, v = (torch.randn(2, 8, T, 64, device=dev, generator=gen).to(dtype)
+                       for _ in range(3))
+            out = torch.empty_like(q)
+            strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
+                                               *v.stride()[:3], *out.stride()[:3])
+            results = []
+            keys = min(T, BLOCK_Q + 2 * window)
+            for splits in _SPLITS:
+                if splits > _cuda.cdiv(keys, KV_TILE):
+                    continue
+
+                def run():
+                    _cuda.check(fc(codes[dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                   None, out.data_ptr(), 2, 8, T, 64, strides, 0.125,
+                                   window, splits, _cuda.stream_ptr(q)),
+                                "banded_attention")
+
+                blocks = _cuda.cdiv(T, BLOCK_Q) * 16 * splits
+                results.append((device_ms(run), (splits,), blocks))
+            pos = torch.arange(T, device=dev)
+            band = ((pos[:, None] - pos[None, :]).abs() <= window)[None, None]
+            sdpa = device_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=band, scale=0.125))
+            _line(f"banded {dn} (2,8,{T},64) window {window}",
+                  (_attention_plan(16, T, T, window, dtype),), results, ("SDPA", sdpa))
 
 
 def main():

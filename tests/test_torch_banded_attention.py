@@ -87,6 +87,28 @@ def test_out_view_and_strided_inputs():
         tfa.banded_attention(q, k, v, 0.3, 7, out=torch.empty(q.shape))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("T,window", [(1279, 128), (2558, 256), (150, 4096)])
+def test_launch_passes_every_argument_of_the_c_entry_point(monkeypatch, T, window, dtype):
+    """``_launch_banded`` hands ``cosy_banded_attention`` exactly the
+    arguments its ctypes signature names: the window clamped to T and the
+    plan (kv_splits) of ``_attention_plan`` for that window.  No kernel runs here: the entry point is a stand-in."""
+    from cosy_tpu_torch.ops import _cuda
+
+    seen = []
+    monkeypatch.setattr(_cuda, "function", lambda name: lambda *a: seen.append((name, a)) or 0)
+    monkeypatch.setattr(_cuda, "stream_ptr", lambda x: 0)
+    monkeypatch.setattr(tfa.banded_attention, "launches", 0)
+    q = torch.zeros((2, 8, T, 64), dtype=dtype)
+    out = torch.empty_like(q)
+    tfa._launch_banded(q, q, q, 0.125, window, None, out)
+    (name, args), = seen
+    assert name == "cosy_banded_attention" and tfa.banded_attention.launches == 1
+    assert len(args) == len(_cuda.SIGNATURES[name][1])
+    assert args[6:10] == (2, 8, T, 64) and args[12] == min(window, T)
+    assert args[13] == tfa._attention_plan(16, T, T, min(window, T), dtype)
+
+
 @pytest.fixture(scope="module")
 def tiny_flow():
     jcfg = j_tiny().flow

@@ -132,3 +132,31 @@ def test_kernel_argument_checks(case):
     with pytest.raises((TypeError, ValueError)):
         tfa.check_kernel_args(q, k, v, bias, kv)
     tfa.check_kernel_args(*(torch.zeros((2, 2, 8, 64)),) * 3, None, None)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("T", [156, 312, 2580])
+def test_launch_passes_every_argument_of_the_c_entry_point(monkeypatch, T, dtype):
+    """``_launch`` hands ``cosy_flash_attention`` exactly the arguments its
+    ctypes signature names, the plan (kv_splits) of ``_attention_plan``
+    among them, and the fused block's strided views (q, k, v of a (B, T,
+    3, H, d) product, out a (B, T, H, d) tensor) pass the checks as they
+    are.  No kernel runs here: the entry point is a stand-in."""
+    from cosy_tpu_torch.ops import _cuda
+
+    seen = []
+    monkeypatch.setattr(_cuda, "function", lambda name: lambda *a: seen.append((name, a)) or 0)
+    monkeypatch.setattr(_cuda, "stream_ptr", lambda x: 0)
+    monkeypatch.setattr(tfa.flash_attention, "launches", 0)
+    qkv = torch.zeros((2, T, 3, 8, 64), dtype=dtype)
+    q, k, v = (qkv[:, :, i].permute(0, 2, 1, 3) for i in range(3))
+    out = torch.zeros((2, T, 8, 64), dtype=dtype).permute(0, 2, 1, 3)
+    bias = torch.zeros((2, T, T), dtype=dtype)
+    tfa.check_kernel_args(q, k, v, bias, None, out)
+    tfa._launch(q, k, v, bias, 0.125, None, out)
+    (name, args), = seen
+    assert name == "cosy_flash_attention" and tfa.flash_attention.launches == 1
+    assert len(args) == len(_cuda.SIGNATURES[name][1])
+    assert args[7:12] == (2, 8, T, T, 64)
+    assert tuple(args[12]) == q.stride()[:3] + k.stride()[:3] + v.stride()[:3] + out.stride()[:3]
+    assert args[14] == tfa._attention_plan(16, T, T, None, dtype)

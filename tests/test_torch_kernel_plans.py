@@ -5,7 +5,9 @@
   interpret mode, 2e-5;
 - ``gemm_ref(split_k=n)`` against ``gemm_ref()``, 2e-5, with every epilogue;
 - the plans (``_gemm_plan``, ``_attention_plan``) at the main path's shapes:
-  what the kernels require of them and the grids they give;
+  what the kernels require of them and the grids they give; the attention
+  plans against what ``csrc/flash_attention.cu`` launches and against the
+  shared memory of a block (``_attention_smem_bytes``);
 - a numpy emulation of error-compensated 3xTF32 (mantissa cut to 10 bits,
   three products, f32 sum) against f64: inside the kernels' f32 tolerances
   where single-pass TF32 is not;
@@ -13,6 +15,8 @@
 
 The kernels themselves run only on the card, where ``chip_smoke.py`` holds
 them against these plain versions."""
+
+from pathlib import Path
 
 import numpy as np
 import jax.numpy as jnp
@@ -28,6 +32,8 @@ from test_torch_common import one_thread  # noqa: F401  (autouse: one intra-op t
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 SPLITS = [1, 2, 3, 7]
+CSRC = Path(tfa.__file__).resolve().parent.parent / "csrc"
+F32, BF16 = torch.float32, torch.bfloat16
 
 
 def _qkv(seed, B, H, T, S, d):
@@ -241,36 +247,101 @@ def test_gemm_plan_keeps_two_slices_a_split():
 
 # (B*H, T, S, window, dtype) -> kv_splits: the short synthesis's two levels,
 # the long utterance, the streaming case, and the windowed path's two levels
-F32, BF16 = torch.float32, torch.bfloat16
 ATTENTION_PLANS = {
-    (16, 156, 156, None, F32): 3,  # 48 query tiles, three key tiles: one each
-    (16, 312, 312, None, F32): 2,
+    (16, 156, 156, None, F32): 1,  # three key tiles: too few to split
+    (16, 312, 312, None, F32): 1,
     (16, 2580, 2580, None, F32): 1,
-    (16, 128, 8320, None, F32): 8,
+    (16, 128, 8320, None, F32): 3,  # 96 of the card's 132 slots
     (16, 2558, 2558, 256, F32): 1,
     (16, 1279, 1279, 128, F32): 1,
-    (16, 156, 156, None, BF16): 1,  # too few key tiles for a bf16 split to pay
+    (16, 156, 156, None, BF16): 1,
     (16, 312, 312, None, BF16): 1,
-    (16, 128, 8320, None, BF16): 8,
+    (16, 1024, 1024, None, BF16): 1,
+    (16, 2580, 2580, None, BF16): 1,
+    (16, 128, 8320, None, BF16): 8,  # three blocks an SM: 256 of 396 slots
     (16, 1279, 1279, 128, BF16): 1,
-    (4, 600, 600, 300, F32): 4,  # a band wide enough to split
+    (4, 600, 600, 300, F32): 2,  # a band wide enough to split
 }
 
 
 @pytest.mark.parametrize("shape", sorted(ATTENTION_PLANS, key=str), ids=str)
 def test_attention_plan_on_the_main_path(shape):
+    """The kernel's one block shape (64 query rows, 64-key tiles) fits a
+    block's shared memory, and the plan splits the keys only as far as
+    filling the SMs needs while each split keeps its tiles."""
     BH, T, S, window, dtype = shape
-    bq, splits = tfa._attention_plan(BH, T, S, window, dtype)
-    assert bq == tfa.BLOCK_Q == 64  # the kernel's one query tile
-    assert splits == ATTENTION_PLANS[shape] and 1 <= splits <= 8
-    keys = S if window is None else min(S, bq + 2 * window)
+    splits = tfa._attention_plan(BH, T, S, window, dtype)
+    assert splits == ATTENTION_PLANS[shape] and splits in tfa._SPLITS
+    assert tfa.BLOCK_Q == tfa.KV_TILE == 64
+    assert tfa._attention_smem_bytes(dtype) <= tfa._SMEM_LIMIT
+    keys = S if window is None else min(S, tfa.BLOCK_Q + 2 * window)
     tiles = -(-keys // tfa.KV_TILE)
     assert splits == 1 or tiles // splits >= tfa._MIN_TILES[dtype]
-    blocks = -(-T // bq) * BH * splits
-    # a block for every SM, unless no further split would keep enough tiles
+    blocks = -(-T // tfa.BLOCK_Q) * BH
+    slots = _cuda.SMS * tfa._blocks_per_sm(dtype)
+    assert splits == 1 or 4 * blocks * splits <= 3 * slots
+    # the next split would overfill the slots or leave too few tiles a split
     bigger = [n for n in tfa._SPLITS if n > splits]
-    assert blocks >= _cuda.SMS or not bigger \
+    assert not bigger or 4 * blocks * bigger[0] > 3 * slots \
         or tiles // bigger[0] < tfa._MIN_TILES[dtype]
+
+
+def _attention_source():
+    return (CSRC / "flash_attention.cu").read_text()
+
+
+def test_attention_plans_are_the_kernels_instantiations():
+    """Every plan ``_attention_plan`` can return is one the source launches:
+    the dispatch instantiates both types at the source's block shape, which
+    is the wrapper's (kBQ, kBK), and takes 1 to 8 splits, every one of
+    ``_SPLITS``; the budget's constants are the source's; and A and C are
+    the Hopper kernel: K and V by TMA into an mbarrier ring, products on
+    wgmma with P from registers, bf16's P V on the transpose bit, no
+    mma.sync, no cp.async ring for K and V (cp.async copies only a bias
+    that TMA cannot take), one consumer warpgroup; the cluster attribute
+    only for a split."""
+    src = _attention_source()
+    dispatch = src[src.index("int dispatch("):src.index("}  // namespace\n")]
+    assert "launch<float, kBanded>(args, B, kv_splits, s)" in dispatch
+    assert "launch<__nv_bfloat16, kBanded>(args, B, kv_splits, s)" in dispatch
+    assert "kv_splits < 1 ||" in dispatch and "kv_splits > 8 ||" in dispatch
+    assert set(tfa._SPLITS) <= set(range(1, 9))
+    for const in (f"kD = {tfa.HEAD_DIM};", f"kBQ = {tfa.BLOCK_Q};", f"kBK = {tfa.KV_TILE};",
+                  f"kSmemLimit = {tfa._SMEM_LIMIT};", f"kSmSmem = {tfa._SM_SMEM};",
+                  "kStages = 2;", "kThreads = 128 + kSideWarps * 32;"):
+        assert const in src
+    for need in ("tma_load_4d", "mbar_arrive_expect", "Wgmma<T, kBK>::rs",
+                 "Wgmma<T, kD, 1>::rs", "fence_proxy_async", "make_tensor_map_strided"):
+        assert need in src
+    for gone in ("mma.sync", "cp_async_16", "cp_async_commit", "cp_async_wait", "Mma<",
+                 "mma_grid", "a_from_acc", "load_b_kn", "ldmatrix", "named_arrive"):
+        assert gone not in src
+    # the one cp.async left: the lanes' 16-byte chunks of a bias TMA cannot take
+    assert src.count("cp_async_chunk(") == 1 and "if (lane_bias) {" in src
+    launch = src[src.index("cudaError_t launch("):src.index("int dispatch(")]
+    gated = launch[launch.index("if (kv_splits > 1) {"):]
+    assert "cudaLaunchAttributeClusterDimension" in gated[:gated.index("}")]
+    assert "1, 1, 1" in (CSRC / "wgmma.cuh").read_text()  # the transpose-B bit
+
+
+# the source's header states each type's shared memory in bytes
+HEADER_SMEM = {F32: 216120, BF16: 60472}
+
+
+@pytest.mark.parametrize("dtype", sorted(HEADER_SMEM, key=str), ids=str)
+def test_attention_smem_fits_every_plan(dtype):
+    """The block of both types fits a block's 232 448 bytes, as the source
+    header states it; the combine's o, m and l tiles fit over the ring; and
+    the blocks an SM holds are the source's kMinBlocks: three in bf16, one
+    in f32."""
+    n = tfa._attention_smem_bytes(dtype)
+    assert n == HEADER_SMEM[dtype] and n <= tfa._SMEM_LIMIT
+    assert f"{n // 1000} {n % 1000:03d}" in _attention_source()
+    es = 4 if dtype == F32 else 2
+    tile, bq = tfa.KV_TILE, tfa.BLOCK_Q
+    ring = 2 * ((5 if es == 4 else 2) * tile * 64 * es + bq * (tile * es + 16))
+    assert bq * (64 + 6) * 4 <= ring
+    assert tfa._blocks_per_sm(dtype) == (3 if dtype == BF16 else 1)
 
 
 # ---------------------------------------------------------------------------
@@ -312,16 +383,40 @@ def test_3xtf32_holds_the_gemm_tolerance(K):
     assert not _within(_matmul_tf32(a, w, 1), want, 1e-4)
 
 
-def test_3xtf32_holds_the_attention_tolerance():
-    """Both products of an attention call at d = 64: inside atol = rtol =
-    1e-5 with 3xTF32, outside with single-pass TF32."""
+@pytest.mark.parametrize("chain", ["tile", "all_keys"])
+def test_3xtf32_holds_the_attention_tolerance(chain):
+    """Both products of an attention call at d = 64 over 512 keys: inside
+    atol = rtol = 1e-5 of f64 with 3xTF32, outside with single-pass TF32.
+    ``tile`` walks the keys in the kernel's 64-key tiles with an online softmax
+    and sums each tile's P V apart, adding it to O in f32 (the kernel's
+    kPromote); ``all_keys`` takes P V as one product over every key (the
+    longer chain).  This emulation rounds every sum to nearest in f32: it
+    does not model the tensor cores' accumulator, which adds by truncation
+    and makes a long chain drift, the reason the kernel promotes every
+    tile; only the card shows that."""
     rng = np.random.default_rng(64)
-    q, k, v = (rng.standard_normal(s).astype(np.float32) for s in ((32, 64), (128, 64), (128, 64)))
+    S, kv_tile = 512, tfa.KV_TILE
+    q, k, v = (rng.standard_normal(s).astype(np.float32) for s in ((32, 64), (S, 64), (S, 64)))
 
     def attend(matmul):
-        s = matmul(q, np.ascontiguousarray(k.T)) * np.float32(0.125)
-        p = np.exp(s - s.max(-1, keepdims=True))
-        return matmul(p, v) / p.sum(-1, keepdims=True)
+        tiles = [(matmul(q, np.ascontiguousarray(k[s0:s0 + kv_tile].T)) * np.float32(0.125))
+                 .astype(np.float32) for s0 in range(0, S, kv_tile)]
+        if chain == "all_keys":
+            sc = np.concatenate(tiles, axis=1)
+            p = np.exp(sc - sc.max(-1, keepdims=True)).astype(np.float32)
+            return matmul(p, v) / p.sum(-1, keepdims=True)
+        m = np.full((32, 1), -1e10, np.float32)
+        l = np.zeros((32, 1), np.float32)
+        o = np.zeros((32, 64), np.float32)
+        for i, sc in enumerate(tiles):
+            m_new = np.maximum(m, sc.max(-1, keepdims=True))
+            alpha = np.exp(m - m_new).astype(np.float32)
+            p = np.exp(sc - m_new).astype(np.float32)
+            l = (l * alpha + p.sum(-1, keepdims=True)).astype(np.float32)
+            pv = np.asarray(matmul(p, v[i * kv_tile:(i + 1) * kv_tile]), np.float32)
+            o = (o * alpha + pv).astype(np.float32)
+            m = m_new
+        return o / l
 
     want = attend(lambda a, b: a.astype(np.float64) @ b.astype(np.float64))
     assert _within(attend(lambda a, b: _matmul_tf32(a, b, 3)), want, 1e-5)
