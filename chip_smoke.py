@@ -57,9 +57,15 @@ Phases, each fatal on failure (nothing is caught and passed over):
      synthesize_batch, batched tokens against the 4 solo decodes (equal,
      or at the first diverging step a teacher-forced logit gap within
      1e-4 * max(1, max|logit|)), decode tokens/s at B = 4 against B = 1;
-     then 6 requests through ContinuousBatchEngine(slots=4): all finish, one
-     at least admitted mid-flight, each stream its solo decode's, every
-     chunk finite and as planned, 64 x the chunks' NFE fused blocks;
+     then 6 requests through ContinuousBatchEngine(slots=4), prefetch off
+     and on: all finish, one at least admitted mid-flight, each stream its
+     solo decode's, every chunk finite and as planned, 64 x the chunks' NFE
+     fused blocks, prefetch hits 0 off and > 0 on; (d) the device-resident
+     decode: a segment enqueued under set_sync_debug_mode("error") (no host
+     read inside a step; host reads within its chunks), request 0's card
+     tokens against the CPU decode (the same rule), tokens/s over 100
+     steps at B = 1 and 4, f32 and int8, host reads and frozen steps a
+     segment;
  11. the training CLI at full width (python -m cosy_tpu_torch.train's
      main() on parquet records when pandas and pyarrow import, else its
      run() on the same records): 32 seeded records at batch 8 x accum 2
@@ -78,13 +84,16 @@ Phases, each fatal on failure (nothing is caught and passed over):
  13. CosyVoice2 serving at full width on phase 12's weights, EOS held off to
      min(15 n, 100) attempts for n text ids, 25-token hops: (a)
      synthesize_stream_batch of 4 requests, (b) ContinuousBatchEngine over a
-     TTS2Pipeline, 4 slots and 6 requests (two admitted mid-flight), each
-     stream held to its solo streamed synthesis (tokens by the phase-10
-     rule, chunks within 1e-4 * max(1, max|wav|)), counters reset before
-     and read after each: 64 x NFE 10 x chunks fused blocks; (c) a bistream
+     TTS2Pipeline, 4 slots and 6 requests (two admitted mid-flight),
+     prefetch off and on (hits 0 and > 0), each stream held to its solo
+     streamed synthesis (tokens by the phase-10 rule, chunks within 1e-4 *
+     max(1, max|wav|)), counters reset before and read after each: 64 x
+     NFE 10 x chunks fused blocks; (c) a bistream
      decode over 4 text chunks with a speech prompt, each advance's logits
      against qwen2lm_teacher_forced_logits over the same embeddings
-     (1e-4 * max(1, max|logit|)); first-chunk times and tokens/s;
+     (1e-4 * max(1, max|logit|)); first-chunk times and tokens/s; (d) a
+     Qwen2 decode segment enqueued under set_sync_debug_mode("error") and
+     request 1's card tokens against the CPU decode;
  14. the frontend and data prep on the card: mel_spectrogram (22.05 and
      24 kHz) and mel_spectrogram_prepadded against the CPU, the replica
      campplus and S3 graphs through compat.onnx against the CPU run and the
@@ -289,6 +298,7 @@ from cosy_tpu_torch.infer.pipeline2 import (Stream2Cursor, TTS2Pipeline,  # noqa
                                             hift24k_config)
 from cosy_tpu_torch.layers.unet import _stream_bias  # noqa: E402
 from cosy_tpu_torch.models import qwen2lm as Q  # noqa: E402
+from cosy_tpu_torch.models.decode import CHUNK as DECODE_CHUNK  # noqa: E402
 from cosy_tpu_torch.models.flow2 import (Flow2, Flow2Config, flow2_inference,  # noqa: E402
                                          init_flow2_params)
 from cosy_tpu_torch.models.qwen2lm import (Qwen2LMConfig, init_qwen2lm_params,  # noqa: E402
@@ -1082,12 +1092,14 @@ def expect_blocks(counts, nfe, what):
                          "of three launches")
 
 
-def check_same_tokens(pipe, what, got, want, prefix_rows):
+def check_same_tokens(pipe, what, got, want, prefix_rows, cpu_p=None):
     """The rule for batched against solo tokens on the card: identical, or
     at the first diverging step j the teacher-forced logits of the row in a
     left-padded batch (``prefix_rows``: the batch's prefixes, this row
     first) and of the solo decode agree within 1e-4 * max(1, max|logit|),
-    so the flip is a sampling boundary crossed by a rounding difference."""
+    so the flip is a sampling boundary crossed by a rounding difference.
+    With ``cpu_p`` (the LLM's weights on the CPU), ``want`` is the CPU's
+    decode and the solo logits are the CPU's."""
     got, want = list(got), list(want)
     if got == want:
         return
@@ -1096,10 +1108,12 @@ def check_same_tokens(pipe, what, got, want, prefix_rows):
     prefix, valid, _, _ = _batch_prefixes(prefix_rows)
     n = min(len(want), j)
     rows = [want[:n]] + [[0] * n for _ in prefix_rows[1:]]
+    ref_p, ref_prefix = (p, prefix_rows[0][0]) if cpu_p is None else \
+        (cpu_p, prefix_rows[0][0].cpu())
     with torch.inference_mode():
-        batched = llm_teacher_forced_logits(p, cfg, prefix, valid, rows)[0, n].float()
-        solo = llm_teacher_forced_logits(p, cfg, prefix_rows[0][0], [prefix_rows[0][0].shape[1]],
-                                         [want[:n]])[0, n].float()
+        batched = llm_teacher_forced_logits(p, cfg, prefix, valid, rows)[0, n].float().cpu()
+        solo = llm_teacher_forced_logits(ref_p, cfg, ref_prefix, [ref_prefix.shape[1]],
+                                         [want[:n]])[0, n].float().cpu()
     gap = (batched - solo).abs().max().item()
     tol = 1e-4 * max(1.0, solo.abs().max().item())
     log(f"  {what}: tokens diverge from the solo decode at step {j} of {len(want)}; "
@@ -1162,6 +1176,80 @@ def streaming_synthesis(cfg, llm, flow, hift, n_ids=20, cap=400, seed=18):
     log_profile(wall_ms, plain_wall, busy, by_name, top=6)
 
 
+def enqueue_without_sync(state, steps, what):
+    """Enqueue one decode segment of ``steps`` steps under
+    torch.cuda.set_sync_debug_mode("error"), so that a host read inside a
+    step (a blocking copy, .item(), a synchronize) raises and fails the run,
+    then read it back; its host reads must not exceed its chunks."""
+    torch.cuda.synchronize()
+    reads, frozen = state.host_reads, state.frozen_steps
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        seg = state.launch(state.i + steps)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    seg.wait()
+    reads, frozen, chunks = (state.host_reads - reads, state.frozen_steps - frozen,
+                             -(-steps // DECODE_CHUNK))
+    log(f"  {what}: a segment of {steps} steps enqueued under set_sync_debug_mode('error') "
+        f"(no host read inside a step); {reads} host reads for its {chunks} chunks of "
+        f"{DECODE_CHUNK} steps, {frozen} frozen steps")
+    if reads > chunks:
+        raise SystemExit(f"chip_smoke: {what}: {reads} host reads for one segment")
+
+
+def cpu_weights(p):
+    """The weights of ``p`` copied to the CPU (the reference decode's)."""
+    return P({k: v.detach().cpu() for k, v in p.d.items()})
+
+
+def device_decode(pipe, cfg, llm, flow, hift, texts, built, spk, solo, seed):
+    """Phase 10 (d): the device-resident decode (models/decode.py): a
+    segment enqueued with no host read, request 0's card tokens against the
+    CPU decode with the same generator, and tokens/s over 100 steps (EOS
+    held off) at B = 1 and 4, f32 and int8, with the host reads and frozen
+    steps a segment."""
+    with torch.inference_mode():
+        st = pipe._decode_batch(texts[:4], [spk] * 4, 2048, seed)
+        enqueue_without_sync(st, 20, "(d) 300M decode, B = 4")
+        cpu_p = cpu_weights(pipe.llm_p)
+        prefix, mn, mx = built[0]
+        t0 = time.perf_counter()
+        want = TLLM.llm_decode_start(cpu_p, cfg.llm, prefix.cpu(), [prefix.shape[1]], [mn], [mx],
+                                     [torch.Generator().manual_seed(stream_seed(seed, 0, 0))],
+                                     **pipe._sampling()).run().tokens[0]
+        t_cpu = time.perf_counter() - t0
+    log(f"  (d) request 0 decoded on the CPU ({len(want)} tokens in {t_cpu:.1f} s): card tokens "
+        f"identical {list(solo[0]) == want}")
+    check_same_tokens(pipe, "card decode of request 0 against the CPU", solo[0], want, [built[0]],
+                      cpu_p=cpu_p)
+    pipes = {False: pipe, True: TTSPipeline(cfg, llm, flow, hift,
+                                            InferenceConfig(int8_decode=True,
+                                                            min_token_text_ratio=20.0),
+                                            finetuned_norm=True)}
+    rates, per_seg = {}, {}
+    with torch.inference_mode():
+        for q, B, steps in [(False, 1, 30)] + [(q, B, 100) for q in (False, True) for B in (1, 4)]:
+            p = pipes[q]
+            prefix, valid, _, _ = _batch_prefixes(built[:B])
+            st = TLLM.llm_decode_start(p.llm_p, cfg.llm, prefix, valid, [steps + 1] * B,
+                                       [steps + 1] * B,
+                                       [torch.Generator().manual_seed(b) for b in range(B)],
+                                       **p._sampling(), step_p=p.llm_step_p)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            while not all(st.done):
+                st.run(st.i + pipe.token_min_hop_len)
+            torch.cuda.synchronize()
+            rates[q, B] = B * steps / (time.perf_counter() - t0)  # the warm-up's is replaced
+            per_seg[q, B] = (st.host_reads - 1) / st.segments_run, st.frozen_steps
+    log(f"  (d) decode tokens/s over 100 steps in segments of {pipe.token_min_hop_len} (host "
+        f"clock, prefill excluded): f32 B=1 {rates[False, 1]:.1f}, B=4 {rates[False, 4]:.1f}; "
+        f"int8 B=1 {rates[True, 1]:.1f}, B=4 {rates[True, 4]:.1f}; host reads a segment "
+        + ", ".join(f"{'int8' if q else 'f32'} B={B} {r:.2f} (frozen steps {f})"
+                    for (q, B), (r, f) in per_seg.items()))
+
+
 def batched_serving(cfg, llm, flow, hift, seed=21):
     """Phase 10."""
     icfg = InferenceConfig(min_token_text_ratio=20.0)
@@ -1221,30 +1309,40 @@ def batched_serving(cfg, llm, flow, hift, seed=21):
         raise SystemExit("chip_smoke: synthesize_batch output has the wrong shape or is not finite")
     expect_blocks(counts, nfe, "synthesize_batch")
 
-    eng = ContinuousBatchEngine(pipe, slots=4)
     plans = [pipe.stream_plan(20 * n) for n in lens]
     nfe = sum(pipe._select_nfe(pipe._mel_len(b - a)) for pl in plans for a, b, _ in pl)
-    ops.reset_launch_counts()
-    try:
-        t0 = time.perf_counter()
-        reqs = [eng.submit(x, seed=stream_seed(seed, b, 0)) for b, x in enumerate(texts)]
-        outs = [list(r.chunks(timeout=600)) for r in reqs]
-        t_eng = time.perf_counter() - t0
-    finally:
-        eng.stop()
-    counts = ops.launch_counts()
-    log(f"  engine, 4 slots: {len(reqs)} requests in {t_eng:.3f} s wall, "
-        f"{eng.segments_run} segments; admitted at segments "
-        f"{[r.admitted_segment for r in reqs]}; chunks {[len(o) for o in outs]}; "
-        f"launches {counts}")
-    for b, (r, o) in enumerate(zip(reqs, outs)):
-        if [c.shape[1] for c in o] != [s for _, _, s in plans[b]] \
-                or not all(np.isfinite(c).all() for c in o):
-            raise SystemExit(f"chip_smoke: engine request {b} chunks off its plan or not finite")
-        check_same_tokens(pipe, f"engine request {b}", r.tokens, solo[b], [built[b]])
-    if not any(r.admitted_segment for r in reqs):
-        raise SystemExit("chip_smoke: no request was admitted mid-flight")
-    expect_blocks(counts, nfe, "engine")
+    runs = {}
+    for prefetch in (False, True):
+        eng = ContinuousBatchEngine(pipe, slots=4, prefetch=prefetch)
+        ops.reset_launch_counts()
+        try:
+            t0 = time.perf_counter()
+            reqs = [eng.submit(x, seed=stream_seed(seed, b, 0)) for b, x in enumerate(texts)]
+            outs = [list(r.chunks(timeout=600)) for r in reqs]
+            t_eng = time.perf_counter() - t0
+        finally:
+            eng.stop()
+        counts = ops.launch_counts()
+        log(f"  engine, 4 slots, prefetch {'on' if prefetch else 'off'}: {len(reqs)} requests in "
+            f"{t_eng:.3f} s wall, {eng.segments_run} segments, {eng.prefetch_hits} prefetch "
+            f"hits; admitted at segments {[r.admitted_segment for r in reqs]}; chunks "
+            f"{[len(o) for o in outs]}; launches {counts}")
+        for b, (r, o) in enumerate(zip(reqs, outs)):
+            if [c.shape[1] for c in o] != [s for _, _, s in plans[b]] \
+                    or not all(np.isfinite(c).all() for c in o):
+                raise SystemExit(f"chip_smoke: engine request {b} chunks off its plan or not "
+                                 "finite")
+            check_same_tokens(pipe, f"engine request {b}", r.tokens, solo[b], [built[b]])
+        if not any(r.admitted_segment for r in reqs):
+            raise SystemExit("chip_smoke: no request was admitted mid-flight")
+        expect_blocks(counts, nfe, "engine")
+        runs[prefetch] = (t_eng, eng.prefetch_hits, [list(r.tokens) for r in reqs])
+    log(f"  engine prefetch on against off: wall {runs[True][0]:.3f} / {runs[False][0]:.3f} s, "
+        f"hits {runs[True][1]} / {runs[False][1]}; tokens identical "
+        f"{runs[True][2] == runs[False][2]}")
+    if not (runs[True][1] > 0 and runs[False][1] == 0):
+        raise SystemExit("chip_smoke: the engine's prefetch hits are off")
+    device_decode(pipe, cfg, llm, flow, hift, texts, built, spk, solo, seed)
 
 
 def refuse_missing_gelu():
@@ -1432,21 +1530,22 @@ def _training_cli(cfg, parquet, root):
         raise SystemExit("chip_smoke: synthesis from the CLI's merged weights failed")
 
 
-def check_same_tokens_cv2(pipe, what, got, want, rows):
+def check_same_tokens_cv2(pipe, what, got, want, rows, cpu_p=None):
     """check_same_tokens for CosyVoice2: ``rows`` are the batch's prefixes
-    (built by _build_prefix), this row first."""
+    (built by _build_prefix), this row first; ``cpu_p`` as there."""
     got, want = list(got), list(want)
     if got == want:
         return
     j = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), min(len(got), len(want)))
     prefix, valid, _, _ = _batch_prefixes(rows)
     n = min(len(want), j)
+    ref_p, ref_prefix = (pipe.llm_p, rows[0][0]) if cpu_p is None else (cpu_p, rows[0][0].cpu())
     with torch.inference_mode():
         batched = qwen2lm_teacher_forced_logits(
             pipe.llm_p, pipe.lcfg, prefix, valid, [want[:n]] + [[0] * n] * (len(rows) - 1))[0, n]
-        solo = qwen2lm_teacher_forced_logits(pipe.llm_p, pipe.lcfg, rows[0][0],
-                                             [rows[0][0].shape[1]], [want[:n]])[0, n]
-    gap = (batched.float() - solo.float()).abs().max().item()
+        solo = qwen2lm_teacher_forced_logits(ref_p, pipe.lcfg, ref_prefix,
+                                             [ref_prefix.shape[1]], [want[:n]])[0, n]
+    gap = (batched.float().cpu() - solo.float().cpu()).abs().max().item()
     tol = 1e-4 * max(1.0, solo.float().abs().max().item())
     log(f"  {what}: tokens diverge from the solo decode at step {j} of {len(want)}; "
         f"teacher-forced logit gap there {gap:.3e} (tol {tol:.3e})")
@@ -1678,29 +1777,38 @@ def cv2_serving(lcfg, fcfg, hcfg, llm, flow, hift, cap=100, seed=60):
     expect_blocks(counts, 10 * sum(len(c) for c in got.values()), "CosyVoice2 stream batch")
 
     # (b) the engine: 4 slots, 6 requests; rows 1 and 3 finish first, so
-    # requests 4 and 5 join mid-flight
-    eng = ContinuousBatchEngine(pipe, slots=4, prefix_len=32, max_len=cap)
-    ops.reset_launch_counts()
-    try:
-        t0 = time.perf_counter()
-        reqs = [eng.submit(x, seed=stream_seed(seed, b, 0)) for b, x in enumerate(texts)]
-        outs = [list(r.chunks(timeout=600)) for r in reqs]
-        t_eng = time.perf_counter() - t0
-    finally:
-        eng.stop()
-    counts = ops.launch_counts()
-    add(counts)
-    log(f"  (b) engine, 4 slots: {len(reqs)} requests in {t_eng:.3f} s wall, {eng.segments_run} "
-        f"segments of {eng.seg} attempts; admitted at segments "
-        f"{[r.admitted_segment for r in reqs]}; chunks {[len(o) for o in outs]}; "
-        f"launches {counts}")
-    if sum(1 for r in reqs if r.admitted_segment) < 2:
-        raise SystemExit("chip_smoke: fewer than two CosyVoice2 requests joined mid-flight")
-    compared = [hold_stream2(pipe, f"engine request {b}", r.tokens.tolist(), o, refs[b],
-                             [built[b]])
-                for b, (r, o) in enumerate(zip(reqs, outs))]
-    log(f"  requests equal their solo streams: tokens, and {compared} chunks")
-    expect_blocks(counts, 10 * sum(len(o) for o in outs), "CosyVoice2 engine")
+    # requests 4 and 5 join mid-flight; prefetch off, then on
+    runs = {}
+    for prefetch in (False, True):
+        eng = ContinuousBatchEngine(pipe, slots=4, prefix_len=32, max_len=cap, prefetch=prefetch)
+        ops.reset_launch_counts()
+        try:
+            t0 = time.perf_counter()
+            reqs = [eng.submit(x, seed=stream_seed(seed, b, 0)) for b, x in enumerate(texts)]
+            outs = [list(r.chunks(timeout=600)) for r in reqs]
+            t_eng = time.perf_counter() - t0
+        finally:
+            eng.stop()
+        counts = ops.launch_counts()
+        add(counts)
+        log(f"  (b) engine, 4 slots, prefetch {'on' if prefetch else 'off'}: {len(reqs)} requests "
+            f"in {t_eng:.3f} s wall, {eng.segments_run} segments of {eng.seg} attempts, "
+            f"{eng.prefetch_hits} prefetch hits; admitted at segments "
+            f"{[r.admitted_segment for r in reqs]}; chunks {[len(o) for o in outs]}; "
+            f"launches {counts}")
+        if sum(1 for r in reqs if r.admitted_segment) < 2:
+            raise SystemExit("chip_smoke: fewer than two CosyVoice2 requests joined mid-flight")
+        compared = [hold_stream2(pipe, f"engine request {b}", r.tokens.tolist(), o, refs[b],
+                                 [built[b]])
+                    for b, (r, o) in enumerate(zip(reqs, outs))]
+        log(f"  requests equal their solo streams: tokens, and {compared} chunks")
+        expect_blocks(counts, 10 * sum(len(o) for o in outs), "CosyVoice2 engine")
+        runs[prefetch] = (t_eng, eng.prefetch_hits, [r.tokens.tolist() for r in reqs])
+    log(f"  (b) engine prefetch on against off: wall {runs[True][0]:.3f} / {runs[False][0]:.3f} "
+        f"s, hits {runs[True][1]} / {runs[False][1]}; tokens identical "
+        f"{runs[True][2] == runs[False][2]}")
+    if not (runs[True][1] > 0 and runs[False][1] == 0):
+        raise SystemExit("chip_smoke: the CosyVoice2 engine's prefetch hits are off")
 
     # (c) streaming text: 4 chunks of 8 text ids after a prompt of 4 text ids
     # and 30 speech tokens.  Random weights never sample the fill token, so
@@ -1750,6 +1858,23 @@ def cv2_serving(lcfg, fcfg, hcfg, llm, flow, hift, cap=100, seed=60):
         f"qwen2lm_teacher_forced_logits: worst gap {worst:.3f} of 1e-4 * max(1, max|logit|)")
     if not (worst <= 1.0 and len(toks) > 4 * 15 and all(0 <= t < fill - 2 for t in toks)):
         raise SystemExit("chip_smoke: the bistream decode is off")
+
+    # (d) the device-resident Qwen2 decode: a segment with no host read, and
+    # request 1's card tokens against the CPU decode
+    with torch.inference_mode():
+        st = pipe._decode_start(texts[:4], cap, seed)
+        enqueue_without_sync(st, 20, "(d) Qwen2-0.5B decode, B = 4")
+        cpu_p = cpu_weights(pipe.llm_p)
+        prefix, mn, mx = built[1]
+        t0 = time.perf_counter()
+        want = Q.qwen2lm_decode_start(cpu_p, lcfg, prefix.cpu(), [prefix.shape[1]], [mn], [mx],
+                                      [pipe._decode_generator(seed, 1)],
+                                      **pipe._sampling()).run().tokens[0]
+        t_cpu = time.perf_counter() - t0
+    log(f"  (d) request 1 decoded on the CPU ({len(want)} tokens in {t_cpu:.1f} s): card tokens "
+        f"identical {refs[1][0] == want}")
+    check_same_tokens_cv2(pipe, "card decode of request 1 against the CPU", refs[1][0], want,
+                          [built[1]], cpu_p=cpu_p)
     return total
 
 

@@ -21,6 +21,19 @@ segment boundaries instead of waiting for a whole cohort to drain.
   the pre-lookahead and the token offset, then its final window) and put on
   the request's queue; a finished row frees at once.
 
+- With ``prefetch`` (the JAX engine's dispatch pipelining, off by default
+  as there), segment k+1 is enqueued before segment k is read, so the card
+  runs it while this thread reads segment k and synthesizes its windows.
+  It is taken only when no admission is waiting, used only if its target
+  still holds and no row was frozen since, and dropped on an admission,
+  when the last live request finishes, and on a reset (``prefetch_hits``
+  counts the segments used).  The port's state is updated in place, so a
+  dropped segment's steps have happened: rows are independent (slot-local
+  columns, a frozen row writes only its column L0 - 1, which an admission's
+  prefill overwrites) and each live row's steps are the ones it would run
+  next, so they stay, and the next segment goes on from them.  Every
+  request's tokens are those of its solo decode either way.
+
 One daemon thread runs the loop and owns every slot and the decode state;
 ``submit`` and ``cancel`` only touch the pending list under a condition
 variable.  The loop holds ``device_lock`` for each admission, each decode
@@ -30,12 +43,12 @@ failure of the loop itself fails every request and the engine starts
 afresh on the next submission.
 
 Those locked sections are the engine's whole device work, and each is a
-method of its own (``_admit``, ``_run``, ``_window``, ``_reset``) whose
-arguments determine it.  Under a tensor-parallel server rank 0's engine
-sends each section to the followers before it runs it (``replay``, a
-``parallel.replay.Leader``), and a follower's engine, which never starts
-its thread, runs the same section through :meth:`apply`, so every rank
-enters the same collectives in the same order.
+method of its own (``_admit``, ``_run``, ``_prefetch``, ``_window``,
+``_reset``) whose arguments determine it.  Under a tensor-parallel server
+rank 0's engine sends each section to the followers before it runs it
+(``replay``, a ``parallel.replay.Leader``), and a follower's engine, which
+never starts its thread, runs the same section through :meth:`apply`, so
+every rank enters the same collectives in the same order.
 
 Usage::
 
@@ -99,7 +112,8 @@ class ContinuousBatchEngine:
 
     def __init__(self, pipeline: Union[TTSPipeline, TTS2Pipeline], slots: int = 4,
                  prefix_len: int = 128, max_len: int = 512, seg_tokens: Optional[int] = None,
-                 device_lock: Optional[threading.Lock] = None, replay=None):
+                 device_lock: Optional[threading.Lock] = None, replay=None,
+                 prefetch: bool = False):
         self.pl = pipeline
         self.replay = replay
         self.lock = device_lock if device_lock is not None else contextlib.nullcontext()
@@ -124,6 +138,13 @@ class ContinuousBatchEngine:
         self._thread: Optional[threading.Thread] = None
         self._stopping = False
         self.segments_run = 0
+        # rows to freeze on the device at the next segment (a request that
+        # failed while its row still decodes)
+        self._to_freeze: set = set()
+        self._i_read: Optional[int] = None  # the step count of the last segment read
+        self._prefetch_on = prefetch
+        self._ahead = None  # (the prefetched Segment, its target)
+        self.prefetch_hits = 0
 
     # -- public API -------------------------------------------------------
 
@@ -215,12 +236,18 @@ class ContinuousBatchEngine:
               pl._decode_generator(req.seed, 0), slot)
         req.admitted_segment = self.segments_run
         self._slots[slot] = req
+        self._to_freeze.discard(slot)
+        self._ahead = None  # enqueued without this row
 
-    def _run(self, done: List[bool], stop_at: int) -> None:
-        """One decode segment from the rows' ``done`` flags (rank 0's, with
-        its cancelled and failed rows frozen)."""
-        self._state.done[:] = done
-        self._state.run(stop_at)
+    def _run(self, frozen: List[int], stop_at: int):
+        """Enqueue one decode segment after freezing rank 0's cancelled and
+        failed rows ``frozen``; returns it (rank 0 reads it)."""
+        self._state.freeze(frozen)
+        return self._state.launch(stop_at)
+
+    def _prefetch(self, stop_at: int):
+        """Enqueue the next segment ahead of reading the last one."""
+        return self._state.launch(stop_at)
 
     def _window(self, slot: int, tokens: Optional[np.ndarray], done: bool):
         """The next ready window of row ``slot``'s stream, or None; a new
@@ -237,6 +264,7 @@ class ContinuousBatchEngine:
         self._state = None
         self._slots = [None] * self.B
         self._windows = [None] * self.B
+        self._ahead, self._i_read, self._to_freeze = None, None, set()
 
     # -- internals (loop thread) ------------------------------------------
 
@@ -256,10 +284,23 @@ class ContinuousBatchEngine:
     def _segment(self):
         """Run one decode segment and emit every row's ready audio."""
         st = self._state
-        for b, r in enumerate(self._slots):
-            if r is not None and r.cancelled:
-                st.done[b] = True  # stops at this boundary
-        self._locked("run", (list(st.done), st.i + self.seg))
+        # a cancelled row is frozen by the one segment that then frees it
+        frozen = sorted(self._to_freeze | {b for b, r in enumerate(self._slots)
+                                           if r is not None and r.cancelled})
+        self._to_freeze = set()
+        ahead, self._ahead = self._ahead, None
+        if ahead is not None and ahead[1] == self._i_read + self.seg and not frozen:
+            seg, target = ahead
+            self.prefetch_hits += 1
+        else:
+            target = st.i + self.seg
+            seg = self._locked("run", (frozen, target))
+        with self._cv:
+            waiting = bool(self._pending)
+        if self._prefetch_on and not waiting:
+            self._ahead = (self._locked("prefetch", (target + self.seg,)), target + self.seg)
+        seg.wait()
+        self._i_read = seg.i
         self.segments_run += 1
         for b, req in enumerate(self._slots):
             if req is None:
@@ -272,12 +313,16 @@ class ContinuousBatchEngine:
                         tokens = None  # one window a section
                         req.q.put(wav)
                 except Exception as e:  # noqa: BLE001 - fail only this request
-                    req.err, done = e, True
+                    req.err = e
+                    if not done:  # still decoding on the device: freeze it
+                        self._to_freeze.add(b)
+                    done = True
             if done:
                 req.tokens = np.asarray(st.tokens[b], np.int64)
-                st.done[b] = True
                 req.q.put(None)
                 self._slots[b] = None
+        if not self._active():
+            self._ahead = None  # the last live request finished
 
     def _fail_all(self, e: BaseException):
         for b, req in enumerate(self._slots):

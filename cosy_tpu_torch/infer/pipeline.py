@@ -16,9 +16,10 @@ padded to one token bucket (``bucket_final``) with its true length masked.
 
 Randomness: every draw comes from a ``torch.Generator`` seeded with
 ``stream_seed(seed, row, stage) = seed + stage + row * 2**32``.  Stage 0 is
-the row's decode (a CPU generator: sampling runs on the host); stage
-``1 + k`` is the row's k-th wav chunk (a generator on the pipeline's
-device, which draws the flow's z, then HiFT's phases and noise).  A single
+the row's decode (a CPU generator, its uniforms drawn in bulk for the
+sampler on the device); stage ``1 + k`` is the row's k-th wav chunk (a
+generator on the pipeline's device, which draws the flow's z, then
+HiFT's phases and noise).  A single
 request is row 0, so whole-utterance synthesis draws from ``seed`` and
 ``seed + 1``, and row b of a batch decodes as a solo request does with
 ``stream_seed(seed, b, 0)``.
@@ -110,6 +111,8 @@ class TTSPipeline:
     """Synthesis over the port's ``TransformerLM``, ``Flow`` and ``HiFT``
     modules (all on one device)."""
 
+    _marks_off = False  # stage marks skipped (a batch dispatched before its reads)
+
     def __init__(self, model_cfg: ModelConfig, llm: L.TransformerLM, flow: F.Flow,
                  hift: H.HiFT, infer_cfg: InferenceConfig = InferenceConfig(),
                  finetuned_norm: bool = True):
@@ -174,6 +177,8 @@ class TTSPipeline:
 
     def _mark(self, stage: Optional[str]):
         """Close ``stage`` (None: start the clock) after the device is idle."""
+        if self._marks_off:
+            return
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         now = time.perf_counter()
@@ -338,8 +343,8 @@ class TTSPipeline:
                         prompt_speech_token: Optional[np.ndarray] = None,
                         voice: Optional[str] = None) -> np.ndarray:
         """(1, Tt) text ids -> (1, n) speech tokens (the prefix of
-        :meth:`_build_prefix`).  ``generator`` is a CPU generator (sampling
-        runs on the host)."""
+        :meth:`_build_prefix`).  ``generator`` is a CPU generator: its
+        uniforms are drawn in bulk and sampled on the device."""
         return next(iter(self._token_segments(text_tokens, spk_embedding, max_len_cap,
                                               generator, prompt_text, prompt_speech_token,
                                               voice, stream=False)))[0]
@@ -367,13 +372,23 @@ class TTSPipeline:
                                    [min_len], [max_len], [generator], **self._sampling(),
                                    **self._decode_lora(voice), step_p=self.llm_step_p)
         target = min(self.first_hop + self.token_overlap_len, max_len) if stream else None
+        seg = state.launch(target)
         while True:
-            toks = state.run(target).tokens[0]
+            # segment k + 1 is enqueued ahead of segment k's read (the JAX
+            # package's dispatch pipelining; its first chunk now, the rest
+            # at the next advance: models/decode.py).  The tokens are
+            # unchanged, and a segment after the last token stops after a
+            # chunk of steps
+            nxt = None
+            if stream and target < max_len:
+                nxt_target = min(target + self.token_min_hop_len, max_len)
+                nxt = state.launch(nxt_target, ahead=True)
+            seg.wait()
             done = state.done[0]
-            yield np.asarray(toks, np.int64)[None, :], done
+            yield np.asarray(state.tokens[0], np.int64)[None, :], done
             if done:
                 return
-            target = min(target + self.token_min_hop_len, max_len)
+            seg, target = nxt, nxt_target
 
     # ------------------------------------------------------------------
     # stage 2+3: tokens -> mel -> wav
@@ -430,6 +445,15 @@ class TTSPipeline:
         holds and it is prompt-free at speed 1 with 0 < n <= the token
         bucket, is padded to the bucket with its true length masked
         (:meth:`_token2wav_final_bucketed`)."""
+        wav = self._token2wav(token, spk_embedding, prompt_token, prompt_feat, speed, generator,
+                              z, hift_phase, hift_noise, stream_state, finalize, voice)
+        wav = wav.float().cpu().numpy()
+        self._mark("hift")
+        return wav
+
+    def _token2wav(self, token, spk_embedding, prompt_token, prompt_feat, speed, generator, z,
+                   hift_phase, hift_noise, stream_state, finalize, voice) -> torch.Tensor:
+        """:meth:`token2wav`'s (1, n) waveform, left on the device."""
         if speed != 1.0 and stream_state is not None and stream_state.hift_mel is not None:
             # the speed change would stretch the crossfade-cache region
             raise ValueError("speed change only supports non-stream inference mode")
@@ -492,12 +516,10 @@ class TTSPipeline:
                 st.hift_source = source[:, :, -self.source_cache_len:]
                 st.hift_speech = wav[:, -self.source_cache_len:]
                 wav = wav[:, :-self.source_cache_len]
-        wav = wav.float().cpu().numpy()
-        self._mark("hift")
         return wav
 
     def _token2wav_final_bucketed(self, token, spk_embedding, st: StreamState, generator,
-                                  z, hift_phase, hift_noise, flow_kw) -> np.ndarray:
+                                  z, hift_phase, hift_noise, flow_kw) -> torch.Tensor:
         """The last streaming window at the one token bucket: the flow
         solve, the fade and HiFT run at the bucket's length with the true
         length masked, and the wav is cut back to the true length.  NFE
@@ -524,9 +546,7 @@ class TTSPipeline:
                                   hift_noise, st.hift_source, mel_valid=valid)
         if st.hift_speech is not None:
             wav = fade_in_out(wav, st.hift_speech, self.speech_window)
-        wav = wav[:, :valid * 256].float().cpu().numpy()
-        self._mark("hift")
-        return wav
+        return wav[:, :valid * 256]
 
     # ------------------------------------------------------------------
     # streaming
@@ -679,10 +699,17 @@ class TTSPipeline:
         speeds = list(speed) if isinstance(speed, (list, tuple)) else [speed] * B
         voices = list(voices) if voices is not None else [None] * B
         state = self._decode_batch(text_tokens_list, spks, max_len_cap, seed, voices).run()
-        return [self.token2wav(np.asarray(state.tokens[b], np.int64)[None], spks[b],
-                               speed=speeds[b], generator=self._wav_generator(seed, b, 0),
-                               voice=voices[b] or None)
-                for b in range(B)]
+        # every request's token2wav is enqueued before any wav is read (the
+        # JAX package's dispatch of every fused token2wav before a sync)
+        self._marks_off = True
+        try:
+            wavs = [self._token2wav(np.asarray(state.tokens[b], np.int64)[None], spks[b], None,
+                                    None, speeds[b], self._wav_generator(seed, b, 0), None, None,
+                                    None, None, True, voices[b] or None)
+                    for b in range(B)]
+        finally:
+            self._marks_off = False
+        return [w.float().cpu().numpy() for w in wavs]
 
     @torch.inference_mode()
     def synthesize_stream_batch(self, text_tokens_list: Sequence[np.ndarray],
@@ -702,8 +729,10 @@ class TTSPipeline:
         curs = [StreamCursor(spks[b], seed, b, hop, voice=voices[b] or None) for b in range(B)]
         finished = [False] * B
         target = hop + self.token_overlap_len
+        seg = state.launch(target)
         while not all(finished):
-            state.run(target)
+            nxt = state.launch(target + hop, ahead=True)  # before this segment's read
+            seg.wait()
             for b in range(B):
                 if finished[b]:
                     continue
@@ -712,7 +741,7 @@ class TTSPipeline:
                     curs[b], np.asarray(state.tokens[b], np.int64)[None], finished[b]))
                 for i, wav in enumerate(wavs):
                     yield b, wav, finished[b] and i == len(wavs) - 1
-            target += hop
+            seg, target = nxt, target + hop
 
 
 def shard_pipeline(mesh, llm_p: P, llm_step_p: P, flow_p: P):

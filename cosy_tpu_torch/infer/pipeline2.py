@@ -87,6 +87,8 @@ class TTS2Pipeline:
     """Synthesis over the port's ``Qwen2LM``, ``Flow2`` and ``HiFT``
     modules, all on one device."""
 
+    _marks_off = False  # stage marks skipped (a batch dispatched before its reads)
+
     def __init__(self, llm_cfg: Q.Qwen2LMConfig, flow_cfg: Flow2Config, hift_cfg: HiFTConfig,
                  llm: Q.Qwen2LM, flow: Flow2, hift: H.HiFT,
                  infer_cfg: InferenceConfig = InferenceConfig(), hop_samples: int = 480):
@@ -119,6 +121,8 @@ class TTS2Pipeline:
         return counts
 
     def _mark(self, stage: Optional[str]):
+        if self._marks_off:
+            return
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         now = time.perf_counter()
@@ -176,7 +180,7 @@ class TTS2Pipeline:
                         max_len_cap: int = 2048,
                         generator: Optional[torch.Generator] = None) -> np.ndarray:
         """(1, Tt) text ids -> (1, n) speech tokens; ``generator`` is a CPU
-        generator (sampling runs on the host)."""
+        generator (its uniforms drawn in bulk, sampled on the device)."""
         prefix, min_len, max_len = self._build_prefix(text_tokens, prompt_text,
                                                       prompt_speech_token, max_len_cap)
         toks = Q.qwen2lm_decode(self.llm_p, self.lcfg, prefix, min_len, max_len,
@@ -197,13 +201,20 @@ class TTS2Pipeline:
                                        [min_len], [max_len], [generator], **self._sampling())
         seg = seg_tokens or 2 * self.token_hop_len
         target = min(seg, max_len)
+        pending = state.launch(target)
         while True:
-            state.run(target)
+            # segment k + 1 is enqueued ahead of segment k's read (the JAX
+            # package's dispatch pipelining, pipeline2.py:339-340)
+            nxt = None
+            if target < max_len:
+                nxt_target = min(target + seg, max_len)
+                nxt = state.launch(nxt_target, ahead=True)
+            pending.wait()
             done = state.done[0]
             yield np.asarray(state.tokens[0], np.int64)[None, :], done
             if done:
                 return
-            target = min(target + seg, max_len)
+            pending, target = nxt, nxt_target
 
     # ------------------------------------------------------------------
     # stage 2+3: tokens -> mel -> wav
@@ -223,6 +234,16 @@ class TTS2Pipeline:
         (model.py:336-370) -> ((1, n) wav, the updated state or None).
         A prompt-free last window at speed 1 with 0 < n - offset <= the
         final bucket runs at a token bucket with its length masked."""
+        wav, state = self._token2wav(token, prompt_token, prompt_feat, spk_embedding,
+                                     token_offset, state, stream, finalize, speed, generator,
+                                     hift_phase, hift_noise)
+        out = wav.float().cpu().numpy()
+        self._mark("hift")
+        return out, state
+
+    def _token2wav(self, token, prompt_token, prompt_feat, spk_embedding, token_offset, state,
+                   stream, finalize, speed, generator, hift_phase, hift_noise):
+        """:meth:`token2wav` with its (1, n) waveform left on the device."""
         if speed != 1.0 and (stream or (state is not None and state.hift_mel is not None)):
             raise ValueError("speed change only supports non-stream inference mode")
         dev = self.device
@@ -259,13 +280,11 @@ class TTS2Pipeline:
             state.hift_source = source[:, :, -self.source_cache_len:]
             state.hift_speech = wav[:, -self.source_cache_len:]
             wav = wav[:, :-self.source_cache_len]
-        out = wav.float().cpu().numpy()
-        self._mark("hift")
-        return out, None if finalize else state
+        return wav, None if finalize else state
 
     def _token2wav_final_bucketed(self, token, spk_embedding, token_offset: int,
                                   st: Stream2State, generator, hift_phase,
-                                  hift_noise) -> np.ndarray:
+                                  hift_noise) -> torch.Tensor:
         """The last window at a 128-token bucket of the cumulative stream:
         the flow runs with the true length masked, the un-emitted mel
         window (``_final_out_tokens`` wide) is cut at the offset, and HiFT
@@ -294,9 +313,7 @@ class TTS2Pipeline:
                                   hift_noise, st.hift_source, mel_valid=valid)
         if st.hift_speech is not None:
             wav = fade_in_out(wav, st.hift_speech, self.speech_window)
-        out = wav[:, :valid * self.hop_samples].float().cpu().numpy()
-        self._mark("hift")
-        return out
+        return wav[:, :valid * self.hop_samples]
 
     # ------------------------------------------------------------------
     # full pipeline
@@ -398,9 +415,19 @@ class TTS2Pipeline:
         self._mark(None)
         rows = self.decode_batch(text_tokens_list, max_len_cap, seed)
         self._mark("decode")
-        return [self.token2wav(np.asarray(rows[b], np.int64)[None], None, None, spks[b], 0,
-                               speed=speeds[b], generator=self._wav_generator(seed, b, 0))[0]
-                for b in range(B)]
+        # every request's token2wav is enqueued before any wav is read (the
+        # JAX package's pipeline2.py:378)
+        self._marks_off = True
+        try:
+            wavs = [self._token2wav(np.asarray(rows[b], np.int64)[None], None, None, spks[b], 0,
+                                    None, False, True, speeds[b],
+                                    self._wav_generator(seed, b, 0), None, None)[0]
+                    for b in range(B)]
+        finally:
+            self._marks_off = False
+        wavs = [w.float().cpu().numpy() for w in wavs]
+        self._mark("token2wav")  # flow and HiFT of every request
+        return wavs
 
     @torch.inference_mode()
     def synthesize_stream_batch(self, text_tokens_list: Sequence[np.ndarray],
@@ -421,8 +448,10 @@ class TTS2Pipeline:
         seg = 2 * self.token_hop_len
         finished = [False] * B
         target = seg
+        pending = state.launch(target)
         while not all(finished):
-            state.run(target)
+            nxt = state.launch(target + seg, ahead=True)  # before this segment's read
+            pending.wait()
             self._mark("decode")
             for b in range(B):
                 if finished[b]:
@@ -433,4 +462,4 @@ class TTS2Pipeline:
                 for i, wav in enumerate(wavs):
                     yield b, wav, finished[b] and i == len(wavs) - 1
             self._mark(None)
-            target += seg
+            pending, target = nxt, target + seg

@@ -6,7 +6,9 @@ decode.
 The AR decode is one resumable object, :class:`DecodeState`, over B rows: a
 solo decode (``llm_decode``) is B = 1, a micro-batch shares each step's
 weight reads, and a continuous-batching engine admits requests into free
-rows (``llm_admit_slot``).  Prefixes are left-padded to a common L0 and
+rows (``llm_admit_slot``); its state and RAS sampling live on the device
+(``models.decode``), so a step makes no host read.  Prefixes are
+left-padded to a common L0 and
 every layer's positional keys are projected once: the Transformer-XL
 relative-position keys of a query at column ``c`` are the window
 ``[S-1-c, S-1-c+W)`` of the (2S-1)-row table.  A step reads only the live
@@ -43,9 +45,11 @@ from ..layers.conformer import (encoder_forward, init_encoder, positionwise_ff,
                                 transformer_layer)
 from ..layers.posenc import rel_pos_table
 from ..ops import masks as M
+from ..ops import sampling as S
 from ..ops.sampling import ras_sample
 from ..parallel.mesh import rows_denominator
 from ..params import P, ParamTree, Spec, resolve_device
+from .decode import Columns, DeviceDecode
 
 
 def _l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
@@ -333,14 +337,17 @@ def _decode_ctx(lora: Optional[Dict[str, torch.Tensor]], vids: Optional[Sequence
                lora_vids=torch.tensor(list(vids), dtype=torch.long, device=device))
 
 
-def llm_decode_step_batch(p: P, cfg: LLMConfig, cache: KVCache, tokens: Sequence[int],
-                          cols: Sequence[int], ctx: Ctx = EVAL) -> torch.Tensor:
+def llm_decode_step_batch(p: P, cfg: LLMConfig, cache: KVCache, tokens, cols,
+                          ctx: Ctx = EVAL) -> torch.Tensor:
     """Feed row b's token ``tokens[b]`` at cache column ``cols[b]`` (its
     absolute position); writes its K/V there and returns every row's
     next-token logits (B, V+1).  Row b attends columns ``[start[b], cols[b]]``
-    with its own positional window.  The step reads only the live columns
-    ``[0, max(cols) + 1)``: the -1e10 bias beyond a row's last column adds
-    exact zeros to its softmax, so a row's result is its solo decode's.
+    with its own positional window.  The step reads only the columns
+    ``[0, max(cols) + 1)``, or ``[0, cols.width)`` for device columns: the
+    -1e10 bias beyond a row's last column adds exact zeros to its softmax,
+    so a row's result is its solo decode's.  ``tokens`` and ``cols`` are
+    host sequences, or a (B,) long tensor and :class:`~.decode.Columns` on
+    the cache's device (the device-resident decode's: no host read).
     ``ctx`` adds each row's adapter deltas (``_decode_ctx``)."""
     ecfg = cfg.llm
     H, dk = ecfg.attention_heads, ecfg.head_dim
@@ -349,14 +356,17 @@ def llm_decode_step_batch(p: P, cfg: LLMConfig, cache: KVCache, tokens: Sequence
     p_llm = p.sub("llm")
     act = ACT[ecfg.activation_type]
     eps = ecfg.layer_norm_eps
-    B, W = len(tokens), max(cols) + 1
+    if not isinstance(cols, Columns):
+        cols = Columns(torch.tensor(list(cols), device=dev), max(cols) + 1)
+    if not isinstance(tokens, torch.Tensor):
+        tokens = torch.tensor(list(tokens), device=dev)
+    B, W, col = tokens.shape[0], cols.width, cols.at
     rows = torch.arange(B, device=dev)
-    col = torch.tensor(list(cols), device=dev)
     kpos = torch.arange(W, device=dev)
     live = (kpos[None, :] >= cache.start[:, None]) & (kpos[None, :] <= col[:, None])
     bias = torch.where(live, 0.0, M.NEG_BIAS)[:, None, :]  # (B, 1, W) f32
     pidx = (S - 1 - col)[:, None] + kpos[None, :]  # (B, W): relative positions c .. c-W+1
-    ids = torch.tensor(list(tokens), device=dev)[:, None]
+    ids = tokens[:, None]
     x = _token_embed_legacy(p_llm, embedding(p, "speech_embedding", ids))  # (B, 1, D)
     for i in range(ecfg.num_blocks):
         sp = p_llm.sub(f"encoders.{i}")
@@ -422,85 +432,47 @@ def _voice_rows(cfg: LLMConfig, lora, vids, B: int):
     return lora, vids
 
 
-def _sample_token(logits: torch.Tensor, step: int, min_len: int, decoded: List[int],
-                  eos: int, sampling: Tuple[float, int, int, float],
-                  generator: Optional[torch.Generator]) -> int:
-    """RAS sample of token ``step`` from host logits (V+1,); EOS is masked
-    on the first step and before ``min_len`` (the exact renormalized form of
-    the reference's rejection loop)."""
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    if step == 0 or step < min_len:
-        logp[eos] = -math.inf
-    return ras_sample(logp, decoded, *sampling, generator=generator)
-
-
-@dataclass
-class DecodeState:
-    """A resumable AR decode of B rows: the JAX package's ``DecodeState``
-    and ``BatchDecodeState`` in one (a solo decode is B = 1).
+class DecodeState(DeviceDecode):
+    """A resumable AR decode of B rows on the device: the JAX package's
+    ``DecodeState`` and ``BatchDecodeState`` in one (a solo decode is B =
+    1), its state and RAS sampling in device tensors (``models.decode``).
 
     Every row keeps its own tokens, EOS floor (``min_lens``), cap
-    (``caps``) and CPU ``torch.Generator``: sampling runs on the host, two
-    uniforms a token from the row's own generator, so row b's tokens are
-    those of a solo decode with that generator.  A row that sampled EOS or
-    reached its cap is frozen (``done``).  ``run(stop_at)`` pauses when the
-    loop-step counter ``i`` reaches ``stop_at`` and resumes where it
-    stopped, so segments give the tokens of one uninterrupted run.  Cache
-    columns are slot-local (:class:`KVCache`): a request admitted into a
-    free row (:func:`llm_admit_slot`) starts at its own column L0 whatever
-    the other rows have decoded.  With adapters, ``lora`` is the
-    voice-stacked bank and ``vids[b]`` row b's voice in it.  ``step_p``
-    is the weights the per-token step reads (the int8 view of
-    :func:`quantize_decode_step`; None: ``p``)."""
-    p: P
-    cfg: LLMConfig
-    cache: KVCache
-    L0: int
-    tokens: List[List[int]]
-    last: List[int]  # each row's previous token, the next step's input
-    done: List[bool]
-    min_lens: List[int]
-    caps: List[int]
-    generators: List[Optional[torch.Generator]]
-    sampling: Tuple[float, int, int, float]  # top_p, top_k, win_size, tau_r
-    i: int = 1  # loop steps so far (the prefill's sample is step 0)
-    lora: Optional[Dict[str, torch.Tensor]] = None  # voice-stacked decode adapters
-    vids: Optional[List[int]] = None  # each row's voice in ``lora``
-    lora_scale: float = 1.0
-    step_p: Optional[P] = None
+    (``caps``) and CPU ``torch.Generator``, two uniforms a token from it,
+    so row b's tokens are those of a solo decode with that generator.  A
+    row that sampled EOS or reached its cap is frozen (``done``).
+    ``run(stop_at)`` pauses when the loop-step counter ``i`` reaches
+    ``stop_at`` and resumes where it stopped, so segments give the tokens
+    of one uninterrupted run.  Cache columns are slot-local
+    (:class:`KVCache`): a request admitted into a free row
+    (:func:`llm_admit_slot`) starts at its own column L0 whatever the other
+    rows have decoded.  With adapters, ``lora`` is the voice-stacked bank
+    and ``vids[b]`` row b's voice in it.  ``step_p`` is the weights the
+    per-token step reads (the int8 view of :func:`quantize_decode_step`;
+    None: ``p``)."""
 
-    @property
-    def max_len(self) -> int:
-        """The most tokens a row can hold (the cache's columns past L0)."""
-        return self.cache.k.shape[3] - self.L0
+    def __init__(self, p: P, cfg: LLMConfig, cache: KVCache, L0: int,
+                 sampling: Tuple[float, int, int, float],
+                 lora: Optional[Dict[str, torch.Tensor]] = None,
+                 vids: Optional[List[int]] = None, lora_scale: float = 1.0,
+                 step_p: Optional[P] = None):
+        super().__init__(L0, cache.k.shape[1], cache.k.shape[3], cache.k.device,
+                         cfg.speech_token_size, sampling)
+        self.p, self.cfg, self.cache = p, cfg, cache
+        self.lora, self.vids, self.lora_scale, self.step_p = lora, vids, lora_scale, step_p
+        self._set_ctx()
 
-    def _sample(self, b: int, logits: torch.Tensor):
-        toks = self.tokens[b]
-        tok = _sample_token(logits, len(toks), self.min_lens[b], toks,
-                            self.cfg.speech_token_size, self.sampling, self.generators[b])
-        if tok == self.cfg.speech_token_size:
-            self.done[b] = True
-            return
-        toks.append(tok)
-        self.last[b] = tok
-        self.done[b] = len(toks) >= self.caps[b]
+    def _set_ctx(self):
+        """The step's adapter routing, built once a change of voices (its
+        voice ids go to the device then, not in a step)."""
+        self._ctx = _decode_ctx(self.lora, self.vids, self.lora_scale, self.cache.k.device)
 
-    def run(self, stop_at: Optional[int] = None) -> "DecodeState":
-        """Step until every row is done or ``i`` reaches ``stop_at``.  A
-        frozen row is fed at column L0 - 1 and its output dropped, so it
-        neither widens the step nor touches a live row."""
-        ctx = _decode_ctx(self.lora, self.vids, self.lora_scale, self.cache.k.device)
-        while not all(self.done) and (stop_at is None or self.i < stop_at):
-            cols = [self.L0 - 1 if d else self.L0 + len(t) - 1
-                    for t, d in zip(self.tokens, self.done)]
-            live = [b for b, d in enumerate(self.done) if not d]
-            logits = llm_decode_step_batch(self.p if self.step_p is None else self.step_p,
-                                           self.cfg, self.cache, self.last, cols,
-                                           ctx).float().cpu()
-            for b in live:
-                self._sample(b, logits[b])
-            self.i += 1
-        return self
+    def _host_rule(self):
+        return None if ras_sample is S.ras_sample else ras_sample
+
+    def _logits(self, tokens, cols):
+        return llm_decode_step_batch(self.p if self.step_p is None else self.step_p, self.cfg,
+                                     self.cache, tokens, cols, self._ctx)
 
 
 def llm_decode_start(p: P, cfg: LLMConfig, prefix_emb: torch.Tensor,
@@ -511,25 +483,23 @@ def llm_decode_start(p: P, cfg: LLMConfig, prefix_emb: torch.Tensor,
                      vids: Optional[Sequence[int]] = None,
                      lora_scale: float = 1.0, step_p: Optional[P] = None) -> DecodeState:
     """Prefill B LEFT-padded prefixes (B, L0, D) with ``valid[b]`` real
-    rows each and sample every row's first token: a :class:`DecodeState` of
-    capacity ``max(caps)`` tokens a row, paused after step 0.  ``lora``: a
-    voice-stacked adapter bank (or one voice's dict) served un-merged, row
-    b through voice ``vids[b]`` (all 0 when None) at ``lora_scale``.
-    ``step_p``: the per-token step's weights (:func:`quantize_decode_step`
-    for the int8 decode); the prefill reads ``p``."""
+    rows each and sample every row's first token on the device: a
+    :class:`DecodeState` of capacity ``max(caps)`` tokens a row, paused
+    after step 0.  ``lora``: a voice-stacked adapter bank (or one voice's
+    dict) served un-merged, row b through voice ``vids[b]`` (all 0 when
+    None) at ``lora_scale``.  ``step_p``: the per-token step's weights
+    (:func:`quantize_decode_step` for the int8 decode); the prefill reads
+    ``p``."""
     B, L0 = prefix_emb.shape[:2]
     if min(caps) < 1:
         raise ValueError(f"every cap must be >= 1, got {list(caps)}")
     lora, vids = _voice_rows(cfg, lora, vids, B)
     ctx = _decode_ctx(lora, vids, lora_scale, prefix_emb.device)
     logits, cache = _prefilled_cache(p, cfg, prefix_emb, valid, L0 + max(caps), ctx)
-    state = DecodeState(p, cfg, cache, L0, [[] for _ in range(B)], [0] * B, [False] * B,
-                        list(min_lens), list(caps), list(generators),
-                        (top_p, top_k, win_size, tau_r), lora=lora, vids=vids,
-                        lora_scale=lora_scale, step_p=step_p)
-    logits = logits.float().cpu()
-    for b in range(B):
-        state._sample(b, logits[b])
+    state = DecodeState(p, cfg, cache, L0, (top_p, top_k, win_size, tau_r), lora=lora,
+                        vids=vids, lora_scale=lora_scale, step_p=step_p)
+    state._reset(slice(None), min_lens, caps, generators)
+    state._first(logits, slice(None))
     return state
 
 
@@ -543,10 +513,8 @@ def llm_decode_idle(p: P, cfg: LLMConfig, slots: int, L0: int, max_len: int, dty
     ``step_p`` as :func:`llm_decode_start` takes it."""
     cache = _empty_cache(p, cfg, slots, L0 + max_len, dtype, device)
     lora, vids = _voice_rows(cfg, lora, None, slots)
-    return DecodeState(p, cfg, cache, L0, [[] for _ in range(slots)], [0] * slots,
-                       [True] * slots, [0] * slots, [0] * slots, [None] * slots,
-                       (top_p, top_k, win_size, tau_r), lora=lora, vids=vids,
-                       lora_scale=lora_scale, step_p=step_p)
+    return DecodeState(p, cfg, cache, L0, (top_p, top_k, win_size, tau_r), lora=lora,
+                       vids=vids, lora_scale=lora_scale, step_p=step_p)
 
 
 def llm_admit_slot(state: DecodeState, prefix_emb: torch.Tensor, valid: int, min_len: int,
@@ -554,11 +522,11 @@ def llm_admit_slot(state: DecodeState, prefix_emb: torch.Tensor, valid: int, min
                    vid: Optional[int] = None) -> None:
     """Admit one request into row ``slot`` of a paused state (the
     continuous-batching join): prefill its (1, L0, D) LEFT-padded prefix
-    (``valid`` real rows), sample its first token from ITS OWN generator, as
-    a solo decode with that generator does, and splice its cache, tokens,
-    ``last``, ``done`` and bounds into the row.  ``state.i`` is untouched.
-    ``vid``: the request's voice in the state's adapter bank; a state with
-    adapters needs one, a state without refuses one."""
+    (``valid`` real rows), sample its first token on the device from ITS
+    OWN generator, as a solo decode with that generator does, and splice its
+    cache, tokens, ``last``, ``done`` and bounds into the row.  ``state.i``
+    is untouched.  ``vid``: the request's voice in the state's adapter
+    bank; a state with adapters needs one, a state without refuses one."""
     if prefix_emb.shape[1] != state.L0 or not 1 <= cap <= state.max_len:
         raise ValueError(f"prefix width {prefix_emb.shape[1]} (state {state.L0}) or cap "
                          f"{cap} (state {state.max_len}) does not fit")
@@ -569,15 +537,16 @@ def llm_admit_slot(state: DecodeState, prefix_emb: torch.Tensor, valid: int, min
     start = torch.tensor([L0 - valid], device=prefix_emb.device)
     if vid is not None:
         state.vids[slot] = int(vid)
+        state._set_ctx()
     ctx = _decode_ctx(state.lora, None if vid is None else [vid], state.lora_scale,
                       prefix_emb.device)
     logits, k, v = _prefill(state.p, state.cfg, prefix_emb, start, ctx)
     state.cache.k[:, slot, :, :L0] = k[:, 0]
     state.cache.v[:, slot, :, :L0] = v[:, 0]
     state.cache.start[slot] = L0 - valid
-    state.tokens[slot], state.last[slot], state.done[slot] = [], 0, False
-    state.min_lens[slot], state.caps[slot], state.generators[slot] = min_len, cap, generator
-    state._sample(slot, logits[0].float().cpu())
+    sl = slice(slot, slot + 1)
+    state._reset(sl, [min_len], [cap], [generator])
+    state._first(logits, sl)
 
 
 def llm_decode(
@@ -598,9 +567,10 @@ def llm_decode(
 ) -> List[int]:
     """AR decode of up to ``max_len`` speech tokens with RAS sampling: one
     uninterrupted run of a solo :class:`DecodeState`.  ``generator`` is a
-    CPU generator: sampling runs on the host.  ``lora`` / ``vid``: serve
-    voice ``vid`` of a voice-stacked bank (or one voice's dict) un-merged.
-    ``step_p``: the int8 step weights of :func:`quantize_decode_step`."""
+    CPU generator: its uniforms are drawn in bulk and sampled on the device.
+    ``lora`` / ``vid``: serve voice ``vid`` of a voice-stacked bank (or one
+    voice's dict) un-merged.  ``step_p``: the int8 step weights of
+    :func:`quantize_decode_step`."""
     state = llm_decode_start(p, cfg, prefix_emb, [prefix_emb.shape[1]], [min_len],
                              [max_len], [generator], top_p, top_k, win_size, tau_r,
                              lora=lora, vids=None if vid is None else [vid],

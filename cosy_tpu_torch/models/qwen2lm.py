@@ -9,8 +9,10 @@ reads (``qwen2lm_decode_batch``), and ``run(stop_at)`` pauses and resumes so
 segments give the tokens of one uninterrupted run (the segmented decode
 behind streaming).  Prefixes are LEFT-padded to a common L0; a row's keys
 are visible from its first valid column, and RoPE is relative, so a row's
-logits are those of its unpadded run.  Sampling runs on the host with each
-row's own CPU ``torch.Generator`` (two uniforms an attempt).
+logits are those of its unpadded run.  Sampling runs on the device, two
+uniforms an attempt from each row's own CPU ``torch.Generator`` drawn in
+bulk for a segment (``models.decode``); the bistream decode samples on the
+host.
 
 The reference's fill-token rule (llm.py:504-507): a sampled id above EOS is
 neither stored nor fed back, but the attempt still feeds the previous token
@@ -50,9 +52,11 @@ from ..layers.basic import dense, embedding
 from ..layers.qwen2 import (Qwen2Config, qwen2_forward, qwen2_layer, qwen2_spec, rms_norm,
                             rope_cos_sin)
 from ..ops import masks as M
+from ..ops import sampling as S
 from ..ops.sampling import ras_sample
 from ..parallel.mesh import draw_rows
 from ..params import P, ParamTree, Spec, resolve_device
+from .decode import Columns, DeviceDecode
 from .llm import IGNORE_ID, label_smoothing_loss, th_accuracy
 
 
@@ -281,20 +285,26 @@ def _prefilled_cache(p: P, cfg: Qwen2LMConfig, prefix_emb: torch.Tensor,
     return dense(p, "llm_decoder", h[:, -1]), cache
 
 
-def qwen2lm_decode_step(p: P, cfg: Qwen2LMConfig, cache: Qwen2Cache, tokens: Sequence[int],
-                        cols: Sequence[int]) -> torch.Tensor:
+def qwen2lm_decode_step(p: P, cfg: Qwen2LMConfig, cache: Qwen2Cache, tokens,
+                        cols) -> torch.Tensor:
     """Feed row b's token ``tokens[b]`` at cache column and RoPE position
     ``cols[b]``; returns every row's next logits (B, V).  The step reads
-    only the live columns ``[0, max(cols) + 1)``: the -1e10 bias past a
-    row's column adds exact zeros to its softmax."""
+    only the columns ``[0, max(cols) + 1)``, or ``[0, cols.width)`` for
+    device columns: the -1e10 bias past a row's column adds exact zeros to
+    its softmax.  ``tokens`` and ``cols`` are host sequences, or a (B,)
+    long tensor and :class:`~.decode.Columns` on the cache's device (no
+    host read)."""
     q = cfg.qwen
     dev = cache.k.device
-    B, W = len(tokens), max(cols) + 1
-    col = torch.tensor(list(cols), device=dev)
+    if not isinstance(cols, Columns):
+        cols = Columns(torch.tensor(list(cols), device=dev), max(cols) + 1)
+    if not isinstance(tokens, torch.Tensor):
+        tokens = torch.tensor(list(tokens), device=dev)
+    W, col = cols.width, cols.at
     kpos = torch.arange(W, device=dev)
     live = (kpos[None, :] >= cache.start[:, None]) & (kpos[None, :] <= col[:, None])
     bias = torch.where(live, 0.0, M.NEG_BIAS).to(cache.k.dtype)[:, None, :]  # (B, 1, W)
-    ids = torch.tensor(list(tokens), device=dev)[:, None]
+    ids = tokens[:, None]
     h = embedding(p, "speech_embedding", ids).to(cache.k.dtype)  # (B, 1, D)
     qp = p.sub("llm.model.model")
     rope = rope_cos_sin(col[:, None], q.head_dim, q.rope_theta)  # once for every layer
@@ -321,65 +331,27 @@ def qwen2lm_teacher_forced_logits(p: P, cfg: Qwen2LMConfig, prefix_emb: torch.Te
     return torch.stack(out, 1)
 
 
-@dataclass
-class Qwen2DecodeState:
-    """A resumable AR decode of B rows (the JAX package's solo decode state
-    and ``BatchDecodeState`` in one).  Each row keeps its emitted tokens, its
-    attempt count (which drives its cache column), its EOS floor, cap and
-    CPU generator; a row that sampled EOS or made ``cap`` attempts is
-    frozen.  ``run(stop_at)`` pauses when the loop-step counter ``i``
-    reaches ``stop_at``."""
-    p: P
-    cfg: Qwen2LMConfig
-    cache: Qwen2Cache
-    L0: int
-    tokens: List[List[int]]
-    attempts: List[int]
-    last: List[int]
-    done: List[bool]
-    min_lens: List[int]
-    caps: List[int]
-    generators: List[Optional[torch.Generator]]
-    sampling: Tuple[float, int, int, float]  # top_p, top_k, win_size, tau_r
-    i: int = 1  # loop steps so far (the prefill's sample is step 0)
+class Qwen2DecodeState(DeviceDecode):
+    """A resumable AR decode of B rows on the device (the JAX package's
+    solo decode state and ``BatchDecodeState`` in one; ``models.decode``).
+    Each row keeps its emitted tokens, its attempt count (which drives its
+    cache column), its EOS floor, cap and CPU generator; a row that sampled
+    EOS or made ``cap`` attempts is frozen.  ``run(stop_at)`` pauses when
+    the loop-step counter ``i`` reaches ``stop_at``."""
 
-    @property
-    def max_len(self) -> int:
-        """The most attempts a row can make (the cache's columns past L0)."""
-        return self.cache.k.shape[3] - self.L0
+    fill_ids = True
 
-    def _sample(self, b: int, logits: torch.Tensor):
-        eos = self.cfg.speech_token_size
-        a = self.attempts[b]
-        logits = logits.float().clone()
-        if a == 0:
-            logits[eos + 1:] = -math.inf
-        logp = torch.log_softmax(logits, dim=-1)
-        if a < self.min_lens[b]:
-            logp[eos] = -math.inf
-        tok = ras_sample(logp, self.tokens[b], *self.sampling, generator=self.generators[b])
-        self.attempts[b] = a + 1
-        if tok == eos:
-            self.done[b] = True
-            return
-        if tok < eos:
-            self.tokens[b].append(tok)
-            self.last[b] = tok
-        self.done[b] = self.attempts[b] >= self.caps[b]
+    def __init__(self, p: P, cfg: Qwen2LMConfig, cache: Qwen2Cache, L0: int,
+                 sampling: Tuple[float, int, int, float]):
+        super().__init__(L0, cache.k.shape[1], cache.k.shape[3], cache.k.device,
+                         cfg.speech_token_size, sampling)
+        self.p, self.cfg, self.cache = p, cfg, cache
 
-    def run(self, stop_at: Optional[int] = None) -> "Qwen2DecodeState":
-        """Step until every row is done or ``i`` reaches ``stop_at``.  A
-        frozen row is fed at column L0 - 1 and its output dropped."""
-        while not all(self.done) and (stop_at is None or self.i < stop_at):
-            cols = [self.L0 - 1 if d else self.L0 + a - 1
-                    for a, d in zip(self.attempts, self.done)]
-            live = [b for b, d in enumerate(self.done) if not d]
-            logits = qwen2lm_decode_step(self.p, self.cfg, self.cache, self.last,
-                                         cols).float().cpu()
-            for b in live:
-                self._sample(b, logits[b])
-            self.i += 1
-        return self
+    def _host_rule(self):
+        return None if ras_sample is S.ras_sample else ras_sample
+
+    def _logits(self, tokens, cols):
+        return qwen2lm_decode_step(self.p, self.cfg, self.cache, tokens, cols)
 
 
 def qwen2lm_decode_start(p: P, cfg: Qwen2LMConfig, prefix_emb: torch.Tensor,
@@ -388,18 +360,15 @@ def qwen2lm_decode_start(p: P, cfg: Qwen2LMConfig, prefix_emb: torch.Tensor,
                          top_p: float = 0.8, top_k: int = 25, win_size: int = 10,
                          tau_r: float = 0.1) -> Qwen2DecodeState:
     """Prefill B LEFT-padded prefixes (B, L0, D) and sample every row's
-    first attempt: a :class:`Qwen2DecodeState` paused after step 0, with
-    ``max(caps)`` attempt columns a row."""
+    first attempt on the device: a :class:`Qwen2DecodeState` paused after
+    step 0, with ``max(caps)`` attempt columns a row."""
     B, L0 = prefix_emb.shape[:2]
     if min(caps) < 1:
         raise ValueError(f"every cap must be >= 1, got {list(caps)}")
     logits, cache = _prefilled_cache(p, cfg, prefix_emb, valid, L0 + max(caps))
-    state = Qwen2DecodeState(p, cfg, cache, L0, [[] for _ in range(B)], [0] * B, [0] * B,
-                             [False] * B, list(min_lens), list(caps), list(generators),
-                             (top_p, top_k, win_size, tau_r))
-    logits = logits.float().cpu()
-    for b in range(B):
-        state._sample(b, logits[b])
+    state = Qwen2DecodeState(p, cfg, cache, L0, (top_p, top_k, win_size, tau_r))
+    state._reset(slice(None), min_lens, caps, generators)
+    state._first(logits, slice(None))
     return state
 
 
@@ -411,8 +380,6 @@ def qwen2lm_decode_idle(p: P, cfg: Qwen2LMConfig, slots: int, L0: int, max_len: 
     :func:`qwen2lm_admit_slot` to fill: a row admitted later may carry any
     cap up to ``max_len``, whatever the rows before it asked for."""
     return Qwen2DecodeState(p, cfg, _empty_cache(cfg, slots, L0 + max_len, dtype, device), L0,
-                            [[] for _ in range(slots)], [0] * slots, [0] * slots,
-                            [True] * slots, [0] * slots, [0] * slots, [None] * slots,
                             (top_p, top_k, win_size, tau_r))
 
 
@@ -423,9 +390,9 @@ def qwen2lm_admit_slot(state: Qwen2DecodeState, prefix_emb: torch.Tensor, valid:
     continuous-batching join, the JAX package's ``qwen2lm_admit_slot``):
     prefill its (1, L0, D) LEFT-padded prefix (``valid`` real rows) at
     positions ``arange(L0)`` into the row's own columns, exactly as its solo
-    prefill, and sample its first attempt from ITS OWN generator (ids above
-    EOS masked; EOS masked while ``min_len`` > 0).  ``state.i`` is
-    untouched."""
+    prefill, and sample its first attempt on the device from ITS OWN
+    generator (ids above EOS masked; EOS masked while ``min_len`` > 0).
+    ``state.i`` is untouched."""
     if prefix_emb.shape[1] != state.L0 or not 1 <= cap <= state.max_len:
         raise ValueError(f"prefix width {prefix_emb.shape[1]} (state {state.L0}) or cap "
                          f"{cap} (state {state.max_len}) does not fit")
@@ -434,10 +401,9 @@ def qwen2lm_admit_slot(state: Qwen2DecodeState, prefix_emb: torch.Tensor, valid:
     state.cache.k[:, slot, :, :L0] = cache.k[:, 0]
     state.cache.v[:, slot, :, :L0] = cache.v[:, 0]
     state.cache.start[slot] = L0 - valid
-    state.tokens[slot], state.attempts[slot], state.last[slot] = [], 0, 0
-    state.done[slot] = False
-    state.min_lens[slot], state.caps[slot], state.generators[slot] = min_len, cap, generator
-    state._sample(slot, logits[0].float().cpu())
+    sl = slice(slot, slot + 1)
+    state._reset(sl, [min_len], [cap], [generator])
+    state._first(logits, sl)
 
 
 def qwen2lm_decode(p: P, cfg: Qwen2LMConfig, prefix_emb: torch.Tensor, min_len: int,

@@ -3,12 +3,19 @@
 
 Each draw is an inverse-CDF lookup of one uniform in [0, 1), taken from an
 explicit ``torch.Generator`` or injected (``u``) so tests can hand the same
-numbers to a reference statement of the rule.  Sampling runs on the host:
-the decode loop needs the token id there anyway (EOS check, next input).
+numbers to a reference statement of the rule.
+
+:func:`ras_sample_batch` is the decode's sampler: B rows on device tensors
+with static shapes and no host read (the JAX package's
+``cosy_tpu/ops/sampling.py:14-62``, which samples inside its
+``lax.while_loop``).  Row b gives the id that :func:`ras_sample` gives for
+the same log-probs, history and uniforms.  The host functions stay for the
+bistream decode, which interleaves text and speech on the host.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
 
 import torch
@@ -67,3 +74,64 @@ def ras_sample(
     if rep >= win_size * tau_r:
         return random_sample(logits, u=uniforms[1])
     return cand
+
+
+def _pick_rows(weights: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """:func:`_pick` of every row: (B, n) weights >= 0, (B,) uniforms -> (B,)."""
+    cdf = torch.cumsum(weights.double(), -1)
+    i = (cdf <= u.double()[:, None] * cdf[:, -1:]).sum(-1)
+    return torch.clamp(i, max=weights.shape[-1] - 1)
+
+
+def decode_log_probs(logits: torch.Tensor, steps: torch.Tensor, min_lens: torch.Tensor,
+                     eos: int, fill_ids: bool = False) -> torch.Tensor:
+    """(B, V) log-probs of a decode step with the EOS rule applied: EOS is
+    -inf while ``steps < min_lens`` and, for the TransformerLM, at step 0.
+    ``fill_ids`` (Qwen2LM, whose ids above EOS are fill tokens): step 0
+    masks the ids above EOS instead of EOS."""
+    x = logits.float()
+    first = steps == 0
+    if fill_ids:
+        above = torch.arange(x.shape[-1], device=x.device) > eos
+        x = torch.where(first[:, None] & above[None], -math.inf, x)
+    logp = torch.log_softmax(x, dim=-1)
+    mask = steps < min_lens
+    if not fill_ids:
+        mask = mask | first
+    logp[:, eos] = torch.where(mask, -math.inf, logp[:, eos])
+    return logp
+
+
+def ras_sample_batch(
+    logits: torch.Tensor,  # (B, V) raw step logits
+    history: torch.Tensor,  # (B, H) long, each row's decoded tokens, -1 past its count
+    counts: torch.Tensor,  # (B,) valid history entries
+    uniforms: torch.Tensor,  # (B, 2): (u_nucleus, u_fallback) a row
+    steps: torch.Tensor,  # (B,) the step (attempt) each row samples
+    min_lens: torch.Tensor,  # (B,) EOS floors
+    eos: int,
+    top_p: float = 0.8,
+    top_k: int = 25,
+    win_size: int = 10,
+    tau_r: float = 0.1,
+    fill_ids: bool = False,
+) -> torch.Tensor:
+    """RAS over B rows on the logits' device -> (B,) long ids: the log-probs
+    of :func:`decode_log_probs`, then :func:`ras_sample`'s rule row by row
+    (the nucleus of the top_k head below top_p; the full distribution when
+    the candidate fills win_size * tau_r of the last win_size history
+    entries).  Static shapes; nothing is read back to the host."""
+    logp = decode_log_probs(logits, steps, min_lens, eos, fill_ids)
+    probs = torch.softmax(logp, dim=-1)
+    top_vals, top_idx = torch.topk(probs, min(top_k, probs.shape[-1]), dim=-1)
+    cum_before = torch.cumsum(top_vals, -1) - top_vals
+    kept = torch.where(cum_before < top_p, top_vals, 0.0)
+    cand = torch.gather(top_idx, 1, _pick_rows(kept, uniforms[:, 0])[:, None])[:, 0]
+    if win_size > 0:
+        pos = torch.arange(history.shape[1], device=history.device)[None]
+        window = (pos >= (counts - win_size)[:, None]) & (pos < counts[:, None])
+        rep = ((history == cand[:, None]) & window).sum(-1)
+    else:
+        rep = torch.zeros_like(cand)
+    alt = _pick_rows(probs, uniforms[:, 1])
+    return torch.where(rep >= win_size * tau_r, alt, cand)

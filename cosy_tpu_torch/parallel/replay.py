@@ -23,7 +23,12 @@ The ops:
 - ``("close", gid)``: close it early (a client that went away);
 - ``("call", method, args, kwargs)``: one whole call (``synthesize_batch``);
 - ``("engine", name, args)``: one engine section
-  (``ContinuousBatchEngine.apply``);
+  (``ContinuousBatchEngine.apply``): an admission, a decode segment, a
+  prefetched segment (``--engine-prefetch``: enqueued before rank 0 reads
+  the segment before it, and sent in that order), a window or a reset.  A
+  segment's steps depend only on its arguments, the admissions and freezes
+  before it and the rows' done flags (``models/decode.py``), so a follower,
+  which reads nothing back, enqueues the same steps as rank 0;
 - ``("beat",)``: nothing; an idle rank 0 sends one every :data:`BEAT_S`
   seconds, so a follower waiting for the next op hears within
   :data:`TIMEOUT` that rank 0 lives;

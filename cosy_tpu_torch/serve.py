@@ -2,7 +2,8 @@
 ``serve.py``).
 
     python -m cosy_tpu_torch.serve --model-dir pretrained_models/CosyVoice-300M \
-        --port 8080 [--voices alice=adapters_alice.pt,bob=...] [--engine-slots 4] [--warmup]
+        --port 8080 [--voices alice=adapters_alice.pt,bob=...] [--engine-slots 4]
+        [--engine-prefetch] [--warmup]
 
 POST /tts  {"text": "...", "speed": 1.0, "stream": false, "spk_id": "", "voice": ""}
     -> audio/wav (whole) or a chunked WAV stream
@@ -94,7 +95,7 @@ class TTSServer:
 
     def __init__(self, api, lock: Optional[threading.Lock] = None,
                  batch_window_ms: float = 20.0, max_batch: int = 8, engine_slots: int = 0,
-                 replay_group=None):
+                 replay_group=None, engine_prefetch: bool = False):
         self.api = api
         # one card: serialize its work; the pipelines batch inside a call
         self.lock = lock or threading.Lock()
@@ -117,7 +118,8 @@ class TTSServer:
             from .infer.engine import ContinuousBatchEngine
 
             self.engine = ContinuousBatchEngine(api.model, slots=engine_slots,
-                                                device_lock=self.lock, replay=self.replay)
+                                                device_lock=self.lock, replay=self.replay,
+                                                prefetch=engine_prefetch)
         # dynamic batching of whole prompt-free requests: requests that
         # arrive within the window share one batched decode
         self.batch_window_ms = batch_window_ms
@@ -187,7 +189,8 @@ class TTSServer:
             if self.engine is not None:
                 out["engine"] = {"slots": self.engine.B,
                                  "active": sum(s is not None for s in self.engine._slots),
-                                 "segments_run": self.engine.segments_run}
+                                 "segments_run": self.engine.segments_run,
+                                 "prefetch_hits": self.engine.prefetch_hits}
             return out
 
     def metrics_text(self) -> str:
@@ -639,19 +642,9 @@ def warmup(server: TTSServer, text: str = "warmup.") -> float:
     return time.time() - t0
 
 
-# flags of the JAX server the port leaves out (ROADMAP queue A): each with
-# its default, which is the only value accepted
-_QUEUED = {"engine_prefetch": (False, "A9 (prefetch is left out by design: the port syncs "
-                                      "every token for host sampling)")}
-
-
 def refuse_queued_flags(args):
-    """SystemExit naming the ROADMAP item for a flag whose module is queued,
-    and for a ``--tp`` that is not the launch's world."""
-    for name, (default, item) in _QUEUED.items():
-        if getattr(args, name) != default:
-            raise SystemExit(f"--{name.replace('_', '-')} {getattr(args, name)} is not ported "
-                             f"yet: ROADMAP queue {item}")
+    """SystemExit for flag combinations the port refuses: a ``--tp`` that is
+    not the launch's world, and the ROADMAP items still queued."""
     from .parallel.mesh import launched
 
     world = int(os.environ["WORLD_SIZE"]) if launched() else 1
@@ -713,8 +706,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="build and load the compiled kernel libraries in DIR (created 0700; "
                          "refused if another user could write to it): a later start with "
                          "the same DIR loads them without running nvcc or g++")
-    # a flag of the JAX server the port leaves out: refused
-    ap.add_argument("--engine-prefetch", action="store_true")
+    ap.add_argument("--engine-prefetch", action="store_true",
+                    help="with --engine-slots: enqueue the engine's next decode segment before "
+                         "reading the last one (hits show as prefetch_hits in /stats); an "
+                         "admission drops the prefetched segment, so it pays under light load")
     return ap
 
 
@@ -809,13 +804,15 @@ def build_server(args, tp: Optional[TPRun] = None) -> TTSServer:
         model.set_voices(voices, llm_scale=llm_s, flow_scale=flow_s)
         print(f"voices: {list(voices)} (un-merged adapter routing)")
     if tp is None:
-        return TTSServer(api, engine_slots=args.engine_slots)
+        return TTSServer(api, engine_slots=args.engine_slots,
+                         engine_prefetch=args.engine_prefetch)
     n_llm, n_flow = model.shard(tp.mesh)
     print(f"LLM+flow tensor-parallel over {args.tp} ranks ({n_llm} llm + {n_flow} flow split "
           "params)")
     leader = tp.mesh.coord("model") == 0
     return TTSServer(api, engine_slots=args.engine_slots,
-                     replay_group=tp.group if leader else None)
+                     replay_group=tp.group if leader else None,
+                     engine_prefetch=args.engine_prefetch)
 
 
 def main(argv=None):

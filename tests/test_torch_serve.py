@@ -459,7 +459,7 @@ def test_export_merged_writes_the_flow_sidecar(tmp_path):
     (["--tp", "2"], "torchrun --nproc-per-node 2"),
     (["--int8", "--tp", "2"], "torchrun --nproc-per-node 2"), (["--aot-cache", None], "writable"),
     (["--sampler", "euler", "--meanflow-steps", "1"], "A14"), (["--meanflow-steps", "2"], "A14"),
-    (["--engine-prefetch"], "A9"), (["--voices", "a=b.pt", "--cosyvoice2"], "CosyVoice")])
+    (["--tp", "0"], "serves with --tp 1"), (["--voices", "a=b.pt", "--cosyvoice2"], "CosyVoice")])
 def test_refused_flags(flags, item, tmp_path):
     if None in flags:  # a library cache any user could write a library into
         open_dir = tmp_path / "open"
